@@ -1,0 +1,98 @@
+// Shared pieces of the port's CUDA kernels (sm_90a, plain C interface).
+//
+// Every entry point is `extern "C"`, takes raw device pointers and the
+// caller's cudaStream_t, allocates nothing, and returns
+// cudaGetLastError() as an int so the Python wrapper can raise on it.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace repro {
+
+using bf16 = __nv_bfloat16;
+namespace wmma = nvcuda::wmma;
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// ---------------------------------------------------------------------
+// Dequant-GEMM skeleton shared by q8_matmul.cu and q3k_matmul.cu:
+//   y(M,N) f32 = x(M,K) bf16 @ W(N,K)^T,  W dequantized tile by tile.
+// A block owns a GEMM_BM x GEMM_BN output tile; its 4 warps own 32x32
+// quarters (2x2 WMMA fragments each).  Each K step stages a GEMM_BM x BK
+// slice of x and a GEMM_BN x BK slice of W (dequantized to bf16 by the
+// format's loader) in shared memory; the dequantized weight never
+// reaches device memory.  K must be a multiple of BK (the block size of
+// the format divides BK), so there is no K tail; M and N edges are
+// zero-filled on load and masked on store.
+constexpr int GEMM_BM = 64;
+constexpr int GEMM_BN = 64;
+constexpr int GEMM_THREADS = 128;
+
+// Stage rows [m0, m0+GEMM_BM) x cols [k0, k0+BK) of x into xs (row-major,
+// leading dimension BK) with 16-byte loads; rows >= M read as zero.
+template <int BK>
+__device__ __forceinline__ void load_x_tile(const bf16* __restrict__ x, bf16* xs,
+                                            int M, int K, int m0, int k0) {
+    constexpr int VEC_PER_ROW = BK / 8;
+    for (int i = threadIdx.x; i < GEMM_BM * VEC_PER_ROW; i += GEMM_THREADS) {
+        const int r = i / VEC_PER_ROW, c8 = i % VEC_PER_ROW;
+        const int gr = m0 + r;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (gr < M)
+            val = *reinterpret_cast<const uint4*>(x + (size_t)gr * K + k0 + c8 * 8);
+        *reinterpret_cast<uint4*>(xs + r * BK + c8 * 8) = val;
+    }
+}
+
+// acc[i][j] += xs(warp rows) @ ws(warp cols)^T over one BK slice.
+template <int BK>
+__device__ __forceinline__ void mma_tile(const bf16* xs, const bf16* ws,
+                                         FragC (&acc)[2][2], int wm, int wn) {
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+        FragA a[2];
+        FragBCol b[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+            wmma::load_matrix_sync(a[i], xs + (wm * 32 + i * 16) * BK + kk, BK);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+            wmma::load_matrix_sync(b[j], ws + (wn * 32 + j * 16) * BK + kk, BK);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+                wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+}
+
+// Write the block's accumulators to y through shared memory `cs`
+// (GEMM_BM x GEMM_BN floats), masking rows >= M and cols >= N.
+__device__ __forceinline__ void store_tile(FragC (&acc)[2][2], float* cs,
+                                           float* __restrict__ y, int M, int N,
+                                           int m0, int n0, int wm, int wn) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+            wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * GEMM_BN + wn * 32 + j * 16,
+                                    acc[i][j], GEMM_BN, wmma::mem_row_major);
+    __syncthreads();
+    for (int i = threadIdx.x; i < GEMM_BM * GEMM_BN; i += GEMM_THREADS) {
+        const int r = i / GEMM_BN, c = i % GEMM_BN;
+        if (m0 + r < M && n0 + c < N) y[(size_t)(m0 + r) * N + n0 + c] = cs[i];
+    }
+}
+
+}  // namespace repro
+
+extern "C" const char* repro_cuda_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

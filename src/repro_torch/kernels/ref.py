@@ -1,0 +1,54 @@
+"""Plain PyTorch versions of the kernels on the main path.
+
+Each computes exactly what its kernel claims (the same dequantization,
+bf16 rounding and f32 accumulation), mirroring ``repro.kernels.ref``.
+They are the CPU path of :mod:`repro_torch.kernels.ops` and the oracle
+the CUDA kernels are held to on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core.quant import Q3KTensor, Q8_0Tensor
+
+
+def _bf16_product(x: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """bf16 operands, f32 accumulation: an f32 product of bf16 values
+    (exact products, f32 sums)."""
+    return torch.matmul(x.to(torch.bfloat16).float(), wd.float().t())
+
+
+def q8_matmul_ref(x: torch.Tensor, w: Q8_0Tensor) -> torch.Tensor:
+    """y = x @ dequant(w).T with the weight rounded to bf16; f32 out."""
+    return _bf16_product(x, quant.dequantize_q8_0(w, torch.bfloat16))
+
+
+def q3k_matmul_ref(x: torch.Tensor, w: Q3KTensor) -> torch.Tensor:
+    return _bf16_product(x, quant.dequantize_q3_k(w, torch.bfloat16))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """Softmax attention in f32. q: (B,H,Sq,D); k, v: (B,H,Sk,D).
+
+    Causal mask bottom-right aligned (``kpos <= qpos + Sk - Sq``);
+    ``window`` keeps keys in ``(qpos - window, qpos]``; rows with no
+    unmasked key give 0.  Output in q's dtype."""
+    sq, d = q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

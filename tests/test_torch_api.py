@@ -1,0 +1,114 @@
+"""The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
+
+* Importing ``repro_torch`` and driving its engine leaves ``jax`` out of
+  ``sys.modules`` (checked in a fresh interpreter).
+* No file of the package, and not ``chip_smoke.py``, imports ``jax`` or
+  any ``repro`` module.
+* Asking for the card without one raises; it never runs on the CPU.
+"""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("jax")
+import torch  # noqa: E402
+
+from repro_torch.configs import TINY_SD  # noqa: E402
+from repro_torch.engine import (DiffusionEngine, GenerateRequest,  # noqa: E402
+                                init_pipeline)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)(\.|\s)(?!_torch))",
+    re.M)
+
+
+def test_no_port_file_imports_jax_or_repro():
+    assert len(PORT_FILES) > 20
+    bad = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+           for p in PORT_FILES for m in FORBIDDEN.finditer(p.read_text())]
+    assert not bad, bad
+
+
+def test_import_and_engine_leave_jax_unloaded():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.engine, repro_torch.weights\n"
+        "import repro_torch.diffusion.pipeline\n"
+        "from repro_torch.configs import TINY_SD\n"
+        "from repro_torch.engine import DiffusionEngine, GenerateRequest, "
+        "init_pipeline\n"
+        "eng = DiffusionEngine(init_pipeline(0, TINY_SD, device='cpu'), "
+        "TINY_SD, device='cpu', weight_quant='q8_0')\n"
+        "eng.submit(GenerateRequest(rid=0, tokens=[1] * 77))\n"
+        "assert len(eng.run()) == 1\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+
+
+def test_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: this checks the no-card error")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_pipeline(0, TINY_SD, device="cuda")
+    params = init_pipeline(0, TINY_SD, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DiffusionEngine(params, TINY_SD)          # device defaults to cuda
+
+
+def test_engine_validates_requests():
+    eng = DiffusionEngine(init_pipeline(0, TINY_SD, device="cpu"), TINY_SD,
+                          device="cpu")
+    with pytest.raises(KeyError):
+        eng.submit(GenerateRequest(rid=0, tokens=[0] * 77, sampler="nope"))
+    with pytest.raises(ValueError):
+        eng.submit(GenerateRequest(rid=0, tokens=[0] * 77, steps=0))
+    with pytest.raises(ValueError):
+        eng.submit(GenerateRequest(rid=0, tokens=[0] * 77, latent_hw=3))
+    with pytest.raises(NotImplementedError):
+        eng.submit(GenerateRequest(rid=0, tokens=[0] * 77, preview_every=1))
+    eng.submit(GenerateRequest(rid=0, tokens=[0] * 77))
+    with pytest.raises(ValueError):
+        eng.submit(GenerateRequest(rid=0, tokens=[0] * 77))
+    with pytest.raises(KeyError):
+        DiffusionEngine({}, TINY_SD, device="cpu", weight_quant="q9_9")
+
+
+def test_default_noise_is_seeded_and_batch_transparent():
+    """A request's image depends on its seed only, alone or co-batched."""
+    params = init_pipeline(0, TINY_SD, device="cpu")
+    alone = DiffusionEngine(params, TINY_SD, device="cpu", max_batch=1)
+    alone.submit(GenerateRequest(rid=0, tokens=[5] * 77, seed=3))
+    both = DiffusionEngine(params, TINY_SD, device="cpu", max_batch=2)
+    both.submit(GenerateRequest(rid=0, tokens=[5] * 77, seed=3))
+    both.submit(GenerateRequest(rid=1, tokens=[6] * 77, seed=4))
+    a = alone.run()[0].image
+    b = {r.rid: r.image for r in both.run()}
+    assert torch.equal(a, b[0]) and not torch.equal(b[0], b[1])
+
+
+def test_modules_run_the_functions():
+    """``CLIPTextEncoder``/``UNet``/``VAEDecoder`` are the module faces of
+    ``clip_encode``/``apply_unet``/``apply_vae_decoder``."""
+    from repro_torch.models import clip, unet, vae
+    p = init_pipeline(1, TINY_SD, device="cpu")
+    toks = torch.randint(0, 512, (2, 77), generator=torch.Generator().manual_seed(0))
+    ctx = clip.CLIPTextEncoder(p["clip"], TINY_SD.clip_cfg())(toks)
+    assert torch.equal(ctx, clip.clip_encode(p["clip"], TINY_SD.clip_cfg(), toks))
+    x = torch.randn(2, 8, 8, 4).to(torch.bfloat16)
+    t = torch.tensor([999, 1])
+    eps = unet.UNet(p["unet"], TINY_SD.unet)(x, t, ctx)
+    assert torch.equal(eps, unet.apply_unet(p["unet"], TINY_SD.unet, x, t, ctx))
+    img = vae.VAEDecoder(p["vae"], TINY_SD.vae)(eps)
+    assert torch.equal(img, vae.apply_vae_decoder(p["vae"], TINY_SD.vae, eps))
+    assert img.shape == (2, 16, 16, 3)
