@@ -15,20 +15,39 @@ caught and passed over):
              tolerance stated beside it;
              per shape the kernel's, the plain version's and a yardstick
              PyTorch call's time (CUDA events) and the roofline bound.
+             The paged prefill (bf16 and Q8_0 pools) and decode kernels at
+             Granite-8B's widths: outputs within the attention limit, pools
+             and Q8_0 bytes bit-identical to the plain version's, including
+             NaN-poisoned recycled blocks and NULL_BLOCK-padded tables.
 4. tiny    — TINY_SD with the same seeded weights and noise on the CPU
              (plain versions) and on the card (kernels); images must agree.
+             tiny_lm: reduced(granite-8b) served by ``ContinuousBatcher`` on
+             the CPU and on the card (bf16 and Q8_0 KV, prefix sharing):
+             identical tokens, exact launch counts.
 5. full    — SD-Turbo at 512x512 (CLIP 768x12, SD v1.5 UNet, VAE) with
              seeded synthetic weights, turbo sampler, through
              ``DiffusionEngine(device="cuda", max_batch=2)`` under the
              none, q8_0 and q3_k presets: 3 requests each, checked images
              and exact launch counts, per-phase times, peak memory, and a
              torch.profiler breakdown of one UNet step and one VAE pass.
+6. full_lm — Granite-8B at full width (36 layers, d 4096, GQA 32/8, hd
+             128) with seeded synthetic weights made on the card, served by
+             ``ContinuousBatcher(slots=4, block_size=16, prefill_chunk=256)``:
+             6 requests of 1024-2000 prompt tokens (the last two repeat the
+             first one's 512 leading tokens), 32 new tokens each, under
+             (weights, KV, prefix share) = (none, bf16, on), (none, Q8_0,
+             off), (q8_0, bf16, off), (q3_k, bf16, off).  Per run: event
+             invariants, a consistent runtime with every block returned,
+             exact launch counts, ms per 256-token prefill chunk and per
+             4-slot decode quantum, tokens/s, peak memory; the first run's
+             tokens against ``lm_forward`` on the card, and a profile of one
+             decode quantum and one prefill chunk.
 
 Progress goes to stderr.  Standard output gets three lines at the end of
 a run that passed: the card's name and power limit as ``nvidia-smi``
 gives them, a JSON object ``{"kernels": [...]}`` (per kernel: launches
-on the main path, worst error, and the headline shape's times and
-bound), and ``{"ok": true, "device": {...}}``.
+on the main paths, phases full and full_lm, worst error, and the
+headline shape's times and bound), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -52,6 +71,12 @@ KERNEL_META = {
                   "src/repro/kernels/q8_matmul.py:56"),
     "q3k_matmul": ("src/repro_torch/csrc/q3k_matmul.cu",
                    "src/repro/kernels/q3k_matmul.py:74"),
+    "flash_prefill_paged": ("src/repro_torch/csrc/flash_prefill.cu",
+                            "src/repro/kernels/flash_prefill.py:121"),
+    "flash_prefill_paged_q8": ("src/repro_torch/csrc/flash_prefill.cu",
+                               "src/repro/kernels/flash_prefill.py:332"),
+    "flash_decode_paged": ("src/repro_torch/csrc/flash_decode.cu",
+                           "src/repro/kernels/flash_decode.py:142"),
 }
 
 # Main-path shapes.  The first shape of each kernel is its headline row
@@ -70,12 +95,34 @@ ATTN_EDGE = [
     (1, 12, 1, 77, 64, False, None),       # one query row (decode)
     (2, 4, 5, 5, 32, True, None),          # Sq < 8, causal
 ]
+# Granite-8B's linears at 4 decode slots (K = 4096 and 14336) and in a
+# 256-token prefill chunk follow the SD-Turbo shapes.
+LM_MATMUL_SHAPES = [(4, 14336, 4096), (4, 4096, 14336), (256, 14336, 4096)]
 Q8_SHAPES = [(4096, 320, 320), (154, 768, 768), (4096, 2560, 320),
-             (1, 768, 3072)]
+             (1, 768, 3072)] + LM_MATMUL_SHAPES
 Q8_EDGE = [(3, 70, 96), (3, 70, 100)]      # K = 100: tail-padded weight
 Q3K_SHAPES = [(4096, 320, 1280), (256, 1280, 1280), (154, 768, 768),
-              (64, 1280, 5120)]
+              (64, 1280, 5120)] + LM_MATMUL_SHAPES
 Q3K_EDGE = [(5, 100, 512)]
+
+# Paged attention at Granite-8B's widths (Hkv 8, G 4, hd 128, bs 16).
+# Prefill: (T, pos0, MB, window, poison); the first two are the main path's
+# 256-token chunks at the start and the end of a 2k-token prompt.
+PREFILL_SHAPES = [(256, 0, 128, None, False), (256, 1792, 128, None, False)]
+PREFILL_EDGE = [
+    (1, 0, 128, None, True),       # one token, NaN in the stale tail + unlisted blocks
+    (3, 15, 128, None, True),      # straddles a block boundary
+    (64, 37, 128, None, True),     # pos0 % bs != 0
+    (64, 200, 128, 100, False),    # sliding window
+    (5, 20, 8, None, True),        # short table padded with NULL_BLOCK
+]
+# Decode: (positions, MB, window, poison).  In the last edge case row 3 is
+# an idle row (position 0, its table all NULL_BLOCK).
+DECODE_SHAPES = [((2000, 1990, 2011, 1500), 132, None, False)]
+DECODE_EDGE = [((5, 17, 130, 2100), 132, None, True),
+               ((2000, 700, 40, 1), 132, 300, True),
+               ((15, 16, 31, 0), 4, None, True)]
+PAGED_HKV, PAGED_G, PAGED_HD, PAGED_BS = 8, 4, 128, 16
 
 # Launches per batch (one CLIP pass, one UNet eval, one VAE pass), worked
 # out from the code: CLIP 12 layers x (1 attention, 6 linears); UNet 16
@@ -250,6 +297,193 @@ def phase_kernels() -> dict[str, list[dict]]:
         for shape in shapes + edges:
             rows[kind].append(_matmul_case(kind, shape, gen,
                                            timed=shape in shapes))
+    _log_rows(rows)
+    return rows
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """Bit pattern of a pool, so that NaN bytes compare equal to themselves."""
+    return x.view({1: torch.uint8, 2: torch.int16}[x.element_size()])
+
+
+def _check_attn(name: str, case, out, want) -> float:
+    diff = (out.float() - want.float()).abs()
+    err = diff.max().item()
+    excess = (diff - ATTN_ABS - ATTN_REL * want.float().abs()).max().item()
+    if not (torch.isfinite(out.float()).all() and excess <= 0):
+        raise AssertionError(f"{name} {case}: max|err| {err}; some |err| "
+                             f"exceeds {ATTN_ABS} + {ATTN_REL}*|ref| by {excess}")
+    return err
+
+
+def _paged_pools(gen, nb: int, q8: bool) -> list:
+    shape = (nb, PAGED_HKV, PAGED_BS, PAGED_HD)
+    kv = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in range(2)]
+    if not q8:
+        return kv
+    from repro_torch.core import quant
+    t8 = [quant.quantize_q8_0(x.float()) for x in kv]
+    return [t8[0].qs, t8[1].qs, t8[0].d, t8[1].d]
+
+
+def _poison(pools, blocks, tail) -> None:
+    """NaN (127 in int8 quants) into whole ``blocks`` and into the stale
+    tail ``(block, first offset)`` of a recycled block."""
+    for p in pools:
+        bad = float("nan") if p.is_floating_point() else 127
+        if blocks:
+            p[blocks] = bad
+        if tail is not None:
+            p[tail[0], :, tail[1]:] = bad
+
+
+def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
+    from repro_torch.core import quant
+    from repro_torch.kernels import flash_prefill as fp
+    t, pos0, mb, window, poison = case
+    hkv, g, hd, bs = PAGED_HKV, PAGED_G, PAGED_HD, PAGED_BS
+    nb = mb + 40
+    used = -(-(pos0 + t) // bs)
+    table = (torch.randperm(nb - 1, generator=gen, device="cuda")[:mb] + 1).to(torch.int32)
+    table[used:] = 0                                   # NULL_BLOCK padding
+    q = torch.randn((t, hkv, g, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    kn = torch.randn((t, hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    vn = torch.randn((t, hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    pools = _paged_pools(gen, nb, q8)
+    if poison:
+        listed = set(table.tolist())
+        unlisted = [b for b in range(1, nb) if b not in listed][:4]
+        off = (pos0 + t) % bs
+        last = int(table[(pos0 + t - 1) // bs])
+        _poison(pools, unlisted, (last, off) if off else None)
+    kern_fn = fp.flash_prefill_paged_q8 if q8 else fp.flash_prefill_paged
+    plain_fn = fp.flash_prefill_paged_q8_ref if q8 else fp.flash_prefill_paged_ref
+    kp = [p.clone() for p in pools]
+    pp = [p.clone() for p in pools]
+    out = kern_fn(q, kn, vn, *kp, table, pos0, window=window)[0]
+    want = plain_fn(q, kn, vn, *pp, table, pos0, window=window)[0]
+    torch.cuda.synchronize()
+    name = "flash_prefill_paged" + ("_q8" if q8 else "")
+    err = _check_attn(name, case, out, want)
+    for a, b in zip(kp, pp):               # every block, in and out of the table
+        if not torch.equal(_bits(a), _bits(b)):
+            raise AssertionError(f"{name} {case}: pools differ from the plain "
+                                 "version's, bit for bit")
+    row = {"shape": case, "max_abs_err": err}
+    if timed:
+        def kern():
+            return kern_fn(q, kn, vn, *kp, table, pos0, window=window)
+
+        def plain():
+            return plain_fn(q, kn, vn, *pp, table, pos0, window=window)
+        tbl = table.long()
+        qpos = torch.arange(pos0, pos0 + t, device="cuda")[:, None]
+        kpos = torch.arange(mb * bs, device="cuda")[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        mask_rows = mask.repeat_interleave(g, dim=0)          # (T*G, C)
+        qh = q.permute(1, 0, 2, 3).reshape(hkv, t * g, hd)
+
+        def library():
+            if q8:
+                keys = quant.dequantize_q8_0(quant.Q8_0Tensor(kp[0][tbl], kp[2][tbl]),
+                                             torch.bfloat16)
+                vals = quant.dequantize_q8_0(quant.Q8_0Tensor(kp[1][tbl], kp[3][tbl]),
+                                             torch.bfloat16)
+            else:
+                keys, vals = kp[0][tbl], kp[1][tbl]
+            keys = keys.transpose(0, 1).reshape(hkv, mb * bs, hd)
+            vals = vals.transpose(0, 1).reshape(hkv, mb * bs, hd)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, keys, vals, attn_mask=mask_rows)
+        pairs = int(mask.sum())
+        row_bytes = hd * 2 if not q8 else hd + 2 * hd // 32
+        nbytes = (2 * 2 * t * hkv * g * hd          # q in, out
+                  + 2 * 2 * t * hkv * hd            # k_new, v_new
+                  + 2 * t * hkv * row_bytes         # the chunk written to the pools
+                  + 2 * pos0 * hkv * row_bytes)     # history read
+        row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3),
+                   library_ms=cuda_ms(library, iters=5))
+        row["bound_ms"], row["bound_by"] = bound(4.0 * hkv * g * hd * pairs, nbytes)
+    return row
+
+
+def _decode_case(case, gen, timed: bool) -> dict:
+    from repro_torch.kernels import flash_decode as fd
+    positions, mb, window, poison = case
+    b = len(positions)
+    hkv, g, hd, bs = PAGED_HKV, PAGED_G, PAGED_HD, PAGED_BS
+    nb = b * mb + 8
+    perm = torch.randperm(nb - 1, generator=gen, device="cuda")[:b * mb] + 1
+    tables = perm.to(torch.int32).reshape(b, mb)
+    for r, p in enumerate(positions):
+        tables[r, -(-(p + 1) // bs):] = 0              # NULL_BLOCK past the row
+    if positions[-1] == 0:
+        tables[-1] = 0                                 # an idle row
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    q = torch.randn((b, hkv, g, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    kpool, vpool = _paged_pools(gen, nb, False)
+    if poison:
+        listed = set(tables.flatten().tolist())
+        unlisted = [x for x in range(1, nb) if x not in listed][:4]
+        _poison((kpool, vpool), unlisted, None)
+        for r, p in enumerate(positions):
+            blk = int(tables[r, p // bs])
+            if blk and (p + 1) % bs:
+                _poison((kpool, vpool), [], (blk, (p + 1) % bs))
+        _poison((kpool, vpool), [], (0, 1))            # the null block past 0
+
+    def kern():
+        return fd.flash_decode_paged(q, kpool, vpool, tables, pos, window=window)
+
+    def plain():
+        return fd.flash_decode_paged_ref(q, kpool, vpool, tables, pos, window=window)
+    out, want = kern(), plain()
+    torch.cuda.synchronize()
+    row = {"shape": case, "max_abs_err": _check_attn("flash_decode_paged", case,
+                                                     out, want)}
+    if timed:
+        tbl = tables.long()
+        idx = torch.arange(mb * bs, device="cuda")[None, :]
+        valid = idx <= pos.long()[:, None]
+        if window is not None:
+            valid &= idx > pos.long()[:, None] - window
+
+        def library():
+            keys = kpool[tbl].transpose(1, 2).reshape(b, hkv, mb * bs, hd)
+            vals = vpool[tbl].transpose(1, 2).reshape(b, hkv, mb * bs, hd)
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, keys, vals, attn_mask=valid[:, None, None, :])
+        keys_read = int(valid.sum())
+        nbytes = 2 * 2 * b * hkv * g * hd + 2 * 2 * keys_read * hkv * hd
+        row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
+                   library_ms=cuda_ms(library, iters=5))
+        row["bound_ms"], row["bound_by"] = bound(4.0 * hkv * g * hd * keys_read,
+                                                 nbytes)
+    return row
+
+
+def phase_paged_kernels() -> dict[str, list[dict]]:
+    """The paged attention kernels against their plain versions at
+    Granite-8B's main-path shapes and at edge shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = {"flash_prefill_paged": [], "flash_prefill_paged_q8": [],
+            "flash_decode_paged": []}
+    for q8 in (False, True):
+        name = "flash_prefill_paged" + ("_q8" if q8 else "")
+        for case in PREFILL_SHAPES + PREFILL_EDGE:
+            rows[name].append(_prefill_case(q8, case, gen,
+                                            timed=case in PREFILL_SHAPES))
+    for case in DECODE_SHAPES + DECODE_EDGE:
+        rows["flash_decode_paged"].append(
+            _decode_case(case, gen, timed=case in DECODE_SHAPES))
+    _log_rows(rows)
+    return rows
+
+
+def _log_rows(rows: dict) -> None:
     for name, rs in rows.items():
         for r in rs:
             timing = ("" if "ms" not in r else
@@ -258,7 +492,6 @@ def phase_kernels() -> dict[str, list[dict]]:
                       f" ({r['bound_by']})")
             log(f"[kernels] {name} {r['shape']} max|err| "
                 f"{r['max_abs_err']:.3e}{timing}")
-    return rows
 
 
 def _images(engine, reqs) -> dict:
@@ -295,7 +528,9 @@ def phase_tiny() -> None:
                                      f"images disagree (corr {corr}, max {dmax})")
 
 
-OURS = ("flash_attention_kernel", "q8_matmul_kernel", "q3k_matmul_kernel")
+OURS = ("flash_attention_kernel", "q8_matmul_kernel", "q3k_matmul_kernel",
+        "attend_kernel", "write_bf16_kernel", "write_q8_kernel",
+        "decode_logits_kernel", "decode_pv_kernel", "decode_sum_kernel")
 
 
 def _kind(name: str) -> str:
@@ -421,7 +656,8 @@ def phase_full() -> dict[str, int]:
             if not (torch.isfinite(f).all() and f.abs().max() <= 1.0):
                 raise AssertionError(f"{preset} rid {rid}: not finite in [-1, 1]")
         batches = 2                      # 3 requests at max_batch 2
-        want = {k: batches * v for k, v in LAUNCHES_PER_BATCH[preset].items()}
+        want = {name: 0 for name in ops.KERNEL_MODULES}
+        want.update({k: batches * v for k, v in LAUNCHES_PER_BATCH[preset].items()})
         if counts != want:
             raise AssertionError(f"{preset}: launches {counts}, expected {want}")
         times = _phase_times(eng, gen, preset)
@@ -430,6 +666,255 @@ def phase_full() -> dict[str, int]:
             + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
             + " (batch 2)")
         del eng, imgs
+        torch.cuda.empty_cache()
+    return totals
+
+# ----------------------------------------------------------- LM serving
+
+LM_LAYERS = 36                 # Granite-8B
+LM_PROMPTS = (2000, 1536, 1024, 1800, 1700, 1280)
+LM_SHARED = 512                # requests 4 and 5 repeat request 0's first tokens
+LM_MAX_NEW = 32
+LM_RUNS = (  # (weights, quantized KV, prefix share)
+    ("none", False, True), ("none", True, False), ("q8_0", False, False),
+    ("q3_k", False, False))
+TIE_MARGIN = 0.05              # top-2 logit gap below which lm_forward may differ
+TINY_LM_SEED = 37              # a tie-stable prompt draw for phase tiny_lm
+
+
+def _lm_requests(cls, prompts, vocab: int, max_new: int, shared: int, gen):
+    """Random prompts; the last two repeat the first one's ``shared``
+    leading tokens."""
+    reqs = []
+    for rid, n in enumerate(prompts):
+        toks = torch.randint(1, vocab, (n,), generator=gen, device=gen.device).tolist()
+        if rid >= len(prompts) - 2 and shared:
+            toks[:shared] = reqs[0].prompt[:shared]
+        reqs.append(cls(rid=rid, prompt=toks, max_new=max_new))
+    return reqs
+
+
+def _check_events(label: str, cb, n: int) -> None:
+    """One Admitted, TokenDelta.pos strictly increasing from 0, one
+    terminal Finished per request; the runtime consistent and every block
+    back in the pool (or in the prefix cache)."""
+    from repro_torch.engine import events as ev
+    by_rid: dict[int, list] = {}
+    for e in cb.bus.log:
+        by_rid.setdefault(e.rid, []).append(e)
+    finished = [e for e in cb.bus.log if isinstance(e, ev.Finished)]
+    if len(finished) != n or sorted(by_rid) != list(range(n)):
+        raise AssertionError(f"{label}: {len(finished)} Finished events for {n}")
+    for rid, evs in by_rid.items():
+        kinds = [type(e).__name__ for e in evs]
+        pos = [e.pos for e in evs if isinstance(e, ev.TokenDelta)]
+        if kinds.count("Admitted") != 1 or kinds[-1] != "Finished" \
+                or sum(k in ("Finished", "Cancelled", "Rejected") for k in kinds) != 1 \
+                or pos != list(range(len(pos))):
+            raise AssertionError(f"{label} rid {rid}: events {kinds}")
+    cb.runtime.check_consistency()
+    left = cb.runtime.allocated_blocks - (len(cb.runtime.prefix)
+                                          if cb.runtime.prefix else 0)
+    if left:
+        raise AssertionError(f"{label}: {left} blocks still allocated")
+
+
+def _lm_want(cb, preset: str, layers: int) -> dict:
+    """Launches worked out from the code: per fused prefill chunk and per
+    decode quantum one paged-attention kernel per layer; per forward 7
+    linears per layer plus the head through the weight format's kernel."""
+    from repro_torch.kernels import ops
+    fwd = cb.prefill_launches + cb.decode_quanta
+    want = {name: 0 for name in ops.KERNEL_MODULES}
+    want["flash_prefill_paged_q8" if cb.quantized_kv else
+         "flash_prefill_paged"] = layers * cb.prefill_launches
+    if not cb.quantized_kv:
+        want["flash_decode_paged"] = layers * cb.decode_quanta
+    if preset == "q8_0":
+        want["q8_matmul"] = (7 * layers + 1) * fwd
+    elif preset == "q3_k":
+        want["q3k_matmul"] = 7 * layers * fwd
+        want["q8_matmul"] = fwd                          # the q8_0 head
+    return want
+
+
+def phase_tiny_lm() -> None:
+    """reduced(granite-8b) with the same seeded weights on the CPU (plain
+    versions) and on the card (kernels): identical tokens, exact launches."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving import ContinuousBatcher, Request
+    cfg = reduced(get_config("granite-8b"))
+    params = init_lm(torch.Generator().manual_seed(SEED), cfg)
+    for quantized in (False, True):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            cb = ContinuousBatcher(to_device(params, dev), cfg, device=dev,
+                                   slots=2, max_len=48, block_size=16,
+                                   prefill_chunk=16, quantized_kv=quantized,
+                                   prefix_share=True)
+            # Prompts whose every generated token has a top-2 logit margin
+            # of at least 0.14 on the CPU, so rounding cannot flip a token.
+            reqs = _lm_requests(Request, (40, 23, 33, 37), cfg.vocab_size, 4,
+                                16, torch.Generator().manual_seed(TINY_LM_SEED))
+            ops.reset_launch_counts()
+            for r in reqs:
+                cb.submit(r)
+            cb.run()
+            counts = ops.launch_counts()
+            _check_events(f"tiny_lm {dev}", cb, len(reqs))
+            want = (_lm_want(cb, "none", cfg.num_layers) if dev == "cuda"
+                    else {k: 0 for k in counts})
+            if counts != want:
+                raise AssertionError(f"tiny_lm {dev} quantized_kv={quantized}: "
+                                     f"launches {counts}, expected {want}")
+            outs[dev] = {r.rid: r.out for r in cb.finished}
+            if not cb.runtime.prefix.hits:
+                raise AssertionError("tiny_lm: no prefix hit")
+        log(f"[tiny_lm] quantized_kv={quantized}: cpu {outs['cpu']} "
+            f"cuda {outs['cuda']}")
+        if outs["cpu"] != outs["cuda"]:
+            raise AssertionError(f"tiny_lm quantized_kv={quantized}: tokens "
+                                 "differ between the CPU and the card")
+
+
+def _timed_run(cb, reqs) -> dict:
+    """Serve ``reqs``, timing each quantum (synchronised)."""
+    t_pre, t_dec, n_pre, n_dec, sizes = [], [], 0, 0, []
+    raw = cb._prefill_raw
+
+    def prefill(params, tokens, *args):
+        sizes.append(tokens.shape[1])
+        return raw(params, tokens, *args)
+    cb._prefill_raw = prefill
+    for r in reqs:
+        cb.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while cb.has_work():
+        s0 = time.perf_counter()
+        cb.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - s0
+        kind, batch = cb.last_quantum
+        if kind == "prefill":
+            chunk = sizes[-1]
+            n_pre += chunk
+            if chunk == cb.prefill_chunk:
+                t_pre.append(dt)
+        else:
+            n_dec += batch
+            if batch == len(cb.slots):
+                t_dec.append(dt)
+    wall = time.perf_counter() - t0
+    cb._prefill_raw = raw
+    gen_tokens = sum(len(r.out) for r in cb.finished)
+    return {"wall_s": wall, "prefill_chunk_ms": 1e3 * sum(t_pre) / max(len(t_pre), 1),
+            "decode_quantum_ms": 1e3 * sum(t_dec) / max(len(t_dec), 1),
+            "prompt_tokens": n_pre, "generated_tokens": gen_tokens,
+            "tokens_per_s": (n_pre + gen_tokens) / wall}
+
+
+def _check_against_forward(cb, params, cfg) -> None:
+    """Every generated token whose top-2 margin in ``lm_forward``'s logits
+    (over prompt + generated tokens) exceeds TIE_MARGIN is its argmax."""
+    from repro_torch.models.transformer import lm_forward
+    checked = ties = 0
+    with torch.no_grad():
+        for r in cb.finished:
+            seq = torch.tensor([r.prompt + r.out[:-1]], device="cuda")
+            logits = lm_forward(params, cfg, seq)[0][0, len(r.prompt) - 1:]
+            top = logits.topk(2, dim=-1)
+            margin = (top.values[:, 0] - top.values[:, 1]).tolist()
+            best = top.indices[:, 0].tolist()
+            for i, tok in enumerate(r.out):
+                if margin[i] <= TIE_MARGIN:
+                    ties += 1
+                    continue
+                checked += 1
+                if best[i] != tok:
+                    raise AssertionError(
+                        f"full_lm rid {r.rid} token {i}: served {tok}, lm_forward "
+                        f"argmax {best[i]} with margin {margin[i]:.4f}")
+            del logits
+    log(f"[full_lm] lm_forward agrees on {checked} generated tokens; "
+        f"{ties} near-ties (margin <= {TIE_MARGIN}) not compared")
+
+
+def _profile_lm(cb, label: str) -> None:
+    """torch.profiler over one decode quantum at 4 slots (positions 32
+    short of the table's end: 2000 at full size) and one 256-token prefill
+    chunk ending at the table's last position, on scratch blocks."""
+    slots, mb = len(cb.slots), cb.runtime.blocks_per_slot
+    tables = (torch.arange(slots * mb, device="cuda", dtype=torch.int32)
+              % (cb.runtime.num_blocks - 1) + 1).reshape(slots, mb)
+    toks = torch.ones((slots, 1), dtype=torch.int64, device="cuda")
+    bs = cb.runtime.block_size
+    pos = torch.full((slots,), mb * bs - 32, dtype=torch.int32, device="cuda")
+    chunk = torch.ones((1, cb.prefill_chunk), dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        _profile(f"{label} decode quantum", lambda: cb.step_fn(
+            cb.params, toks, pos, tables, cb.cache))
+        _profile(f"{label} prefill chunk", lambda: cb._prefill_raw(
+            cb.params, chunk, torch.full((1,), mb * bs - cb.prefill_chunk,
+                                         dtype=torch.int32), 0,
+            tables[:1], cb.cache))
+
+
+def phase_full_lm(card: str) -> dict[str, int]:
+    """Granite-8B at full width with seeded synthetic weights made on the
+    card, served by ContinuousBatcher under four weight/KV settings."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import param_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving import ContinuousBatcher, Request
+    cfg = get_config("granite-8b")
+    assert cfg.num_layers == LM_LAYERS
+    t0 = time.perf_counter()
+    base = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    log(f"[full_lm] init Granite-8B weights {time.perf_counter() - t0:.1f} s, "
+        f"{param_bytes(base) / 2**30:.2f} GiB")
+    max_len = ContinuousBatcher.required_len(len(LM_PROMPTS), 4, max(LM_PROMPTS),
+                                             LM_MAX_NEW)
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+    for preset, quantized, share in LM_RUNS:
+        label = f"weights={preset} kv={'q8_0' if quantized else 'bf16'} share={share}"
+        cb = ContinuousBatcher(base, cfg, slots=4, max_len=max_len, block_size=16,
+                               prefill_chunk=256, quantized_kv=quantized,
+                               weight_quant=None if preset == "none" else preset,
+                               prefix_share=share)
+        reqs = _lm_requests(Request, LM_PROMPTS, cfg.vocab_size, LM_MAX_NEW,
+                            LM_SHARED, torch.Generator(device="cuda").manual_seed(SEED + 5))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        stats = _timed_run(cb, reqs)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _check_events(f"full_lm {label}", cb, len(reqs))
+        want = _lm_want(cb, preset, cfg.num_layers)
+        if counts != want:
+            raise AssertionError(f"full_lm {label}: launches {counts}, expected {want}")
+        for name, c in counts.items():
+            totals[name] += c
+        hits = cb.runtime.prefix.hits if cb.runtime.prefix else 0
+        if share and not hits:
+            raise AssertionError(f"full_lm {label}: no prefix hit")
+        log(f"[full_lm] {label}: {stats['generated_tokens']} tokens for "
+            f"{len(reqs)} requests in {stats['wall_s']:.2f} s; prefill chunk "
+            f"(T=256) {stats['prefill_chunk_ms']:.2f} ms, decode quantum (4 slots) "
+            f"{stats['decode_quantum_ms']:.2f} ms, {stats['tokens_per_s']:.0f} tokens/s "
+            f"(prompt + generated); quanta {cb.prefill_quanta} prefill / "
+            f"{cb.decode_quanta} decode; prefix hits {hits}; peak {peak:.2f} GiB; "
+            f"weights {param_bytes(cb.params) / 2**30:.2f} GiB; launches {counts}; {card}")
+        if preset == "none" and not quantized:
+            _check_against_forward(cb, base, cfg)
+            _profile_lm(cb, label)
+        del cb
         torch.cuda.empty_cache()
     return totals
 
@@ -449,8 +934,15 @@ def main() -> int:
     card = phase_card()
     phase_build()
     rows = phase_kernels()
+    rows.update(phase_paged_kernels())
     phase_tiny()
+    phase_tiny_lm()
     launches = phase_full()
+    for name, n in phase_full_lm(card).items():
+        launches[name] += n
+    for name in KERNEL_META:
+        if not launches[name]:
+            raise AssertionError(f"{name} was never launched on the main paths")
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         rs = rows[name]

@@ -1,4 +1,40 @@
+"""Configs of the port and the architecture registry.
+
+:func:`get_config` serves the dense attention-only LMs, whose configs
+are copied here from ``repro.configs``; every other architecture of the
+reference (MoE, SSM, hybrid, enc-dec, VLM) raises
+``NotImplementedError`` until its slice is ported.
+"""
+from __future__ import annotations
+
+import importlib
+
 from repro_torch.configs.base import (SD15_UNET, SD15_VAE, SD_TURBO,  # noqa: F401
                                       TINY_CLIP, TINY_SD, TINY_UNET,
-                                      TINY_VAE, ModelConfig, SDConfig,
-                                      UNetConfig, VAEConfig, clip_config)
+                                      TINY_VAE, ModelConfig, MoEConfig,
+                                      SDConfig, UNetConfig, VAEConfig,
+                                      clip_config, reduced)
+
+ARCH_MODULES = {
+    "llama3-405b": "llama3_405b",
+    "h2o-danube-3-4b": "h2o_danube3_4b",
+    "granite-8b": "granite_8b",
+    "qwen1.5-110b": "qwen1_5_110b",
+}
+
+# Architectures of the reference that need blocks this port lacks.
+NOT_PORTED = ("xlstm-1.3b", "whisper-large-v3", "deepseek-moe-16b",
+              "moonshot-v1-16b-a3b", "jamba-1.5-large-398b", "qwen2-vl-72b")
+
+ARCHS = tuple(ARCH_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"{name}: only the dense attention-only LMs are ported "
+            f"({', '.join(ARCHS)})")
+    if name not in ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; have {list(ARCH_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[name]}")
+    return mod.config

@@ -1,6 +1,7 @@
 """Config dataclasses: the LM ``ModelConfig`` and the SD pipeline configs.
 
-``ModelConfig`` is a copy of ``repro.configs.base.ModelConfig``.
+``ModelConfig`` is a copy of ``repro.configs.base.ModelConfig`` and
+:func:`reduced` of ``repro.configs.base.reduced``.
 ``UNetConfig``/``VAEConfig`` (``repro.models.unet``/``vae``),
 ``clip_config`` (``repro.models.clip``) and ``SDConfig`` with
 ``SD_TURBO``/``TINY_SD`` (``repro.engine.diffusion_engine``) live here
@@ -72,6 +73,37 @@ class ModelConfig:
         pat = list(self.block_pattern)
         reps = -(-self.num_layers // len(pat))
         return (pat * reps)[: self.num_layers]
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """A tiny same-family config for CPU tests (the reference's
+    ``reduced``: 2 layers, d_model 128, 4 heads, head_dim 32)."""
+    pat = tuple(cfg.block_pattern)
+    small = dict(
+        num_layers=max(2, len(pat)),
+        d_model=128,
+        num_heads=4,
+        num_kv_heads=max(1, 4 * cfg.num_kv_heads // max(cfg.num_heads, 1)),
+        d_ff=256 if cfg.d_ff else 0,
+        vocab_size=512,
+        head_dim=32,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        encoder_seq=64 if cfg.encoder_layers else cfg.encoder_seq,
+        sliding_window=32 if cfg.sliding_window else None,
+        ssm_state=8,
+    )
+    if cfg.moe is not None:
+        small["moe"] = MoEConfig(num_experts=4, top_k=2,
+                                 num_shared=min(1, cfg.moe.num_shared),
+                                 expert_ff=128,
+                                 capacity_factor=cfg.moe.capacity_factor)
+    if cfg.mrope:
+        half = small["head_dim"] // 2
+        t = half // 4
+        small["mrope_sections"] = (half - 2 * (half - t) // 2,
+                                   (half - t) // 2, (half - t) // 2)
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)
 
 
 # ------------------------------------------------------------ SD parts

@@ -21,6 +21,18 @@ using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_majo
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
+// 16-byte asynchronous copy global -> shared; with !valid nothing is read
+// and 16 zero bytes are written.  Groups are committed and waited on with
+// the helpers below (wait_prev: all but the most recent group).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    const int n = valid ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
 // ---------------------------------------------------------------------
 // Dequant-GEMM skeleton shared by q8_matmul.cu and q3k_matmul.cu:
 //   y(M,N) f32 = x(M,K) bf16 @ W(N,K)^T,  W dequantized tile by tile.

@@ -61,14 +61,6 @@ __host__ __device__ inline Smem smem_layout(int dp) {
     return m;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    const int n = valid ? 16 : 0;        // 0 bytes read -> 16 zero bytes written
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
 // Rows [row0, row0+rows) of a (n, d) bf16 matrix into dst (row stride
 // ld, dp columns), zero past n and past d.  With vec (d % 8 == 0) the
 // copy is asynchronous (cp.async); otherwise element by element.
@@ -221,7 +213,7 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         __syncthreads();                     // K/V[buf] free for the prefetch
     }
-    asm volatile("cp.async.wait_all;\n" ::);
+    cp_async_wait_all();
     __syncthreads();                         // O zeroed by all, if no tile ran
 
     if (qpos < sq) {

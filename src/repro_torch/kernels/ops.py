@@ -14,7 +14,11 @@ version:
 * attention launches its kernel for every Sq on the card (the
   reference's ``Sq >= 8`` rule comes from the TPU's tiles; the CUDA
   kernel masks rows past Sq), and GQA is folded outside the kernel by
-  repeating KV heads.
+  repeating KV heads;
+* paged prefill launches ``flash_prefill_paged`` (bf16 pools) or
+  ``flash_prefill_paged_q8`` (Q8_0 pools), and paged decode of a bf16
+  pool launches ``flash_decode_paged``; both update or read the pools
+  the caller passes, in place.
 """
 from __future__ import annotations
 
@@ -24,22 +28,28 @@ import torch.nn.functional as F
 from repro_torch.core import quant
 from repro_torch.core.quant import Q3KTensor, Q4_0Tensor, Q8_0Tensor
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import q3k_matmul as _q3k
 from repro_torch.kernels import q8_matmul as _q8
 from repro_torch.kernels import ref
 
 KERNEL_MODULES = {"flash_attention": _fa, "q8_matmul": _q8,
-                  "q3k_matmul": _q3k}
+                  "q3k_matmul": _q3k, "flash_prefill_paged": _fp,
+                  "flash_prefill_paged_q8": _fp, "flash_decode_paged": _fd}
+# The module attribute holding each kernel's count ("launches" if absent).
+_COUNTERS = {"flash_prefill_paged_q8": "launches_q8"}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, _COUNTERS.get(name, "launches"))
+            for name, mod in KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for name, mod in KERNEL_MODULES.items():
+        setattr(mod, _COUNTERS.get(name, "launches"), 0)
 
 
 def quantized_matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
@@ -85,3 +95,36 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    scale=scale)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
+
+
+def paged_prefill_attention(q, k_new, v_new, k_pool, v_pool, block_table,
+                            pos0, *, window: int | None = None,
+                            scale: float | None = None,
+                            k_scale_pool=None, v_scale_pool=None):
+    """Fused paged prefill of one chunk for one slot: writes the chunk's
+    KV into its blocks (in place) and attends all T queries.
+
+    q: (T, Hkv, G, hd); k_new/v_new: (T, Hkv, hd) unquantized; pools:
+    (NB, Hkv, bs, hd); block_table: (MB,) int32; pos0: int.  Returns
+    ``(out, k_pool, v_pool)``, or with ``k_scale_pool``/``v_scale_pool``
+    (Q8_0 pools: int8 quants + f16 per-32 scales, the chunk requantized)
+    ``(out, kq, vq, ks, vs)``."""
+    if k_scale_pool is not None:
+        fn = _fp.flash_prefill_paged_q8 if q.is_cuda \
+            else _fp.flash_prefill_paged_q8_ref
+        return fn(q, k_new, v_new, k_pool, v_pool, k_scale_pool, v_scale_pool,
+                  block_table, pos0, scale=scale, window=window)
+    fn = _fp.flash_prefill_paged if q.is_cuda else _fp.flash_prefill_paged_ref
+    return fn(q, k_new, v_new, k_pool, v_pool, block_table, pos0,
+              scale=scale, window=window)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
+                           scale: float | None = None,
+                           window: int | None = None) -> torch.Tensor:
+    """One-token GQA decode through per-row block tables of a bf16 pool.
+    q: (B, Hkv, G, hd); pools: (NB, Hkv, bs, hd); block_tables: (B, MB)
+    int32; positions: (B,) int32, last valid index per row."""
+    fn = _fd.flash_decode_paged if q.is_cuda else _fd.flash_decode_paged_ref
+    return fn(q, k_pool, v_pool, block_tables, positions, scale=scale,
+              window=window)

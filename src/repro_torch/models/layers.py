@@ -1,4 +1,5 @@
-"""Shared layers: norms, MLPs, embeddings (``repro.models.layers``).
+"""Shared layers: norms, RoPE, MLPs, embeddings and the unembedding
+(``repro.models.layers``; M-RoPE is not ported).
 
 Plain functions over parameter dicts and :class:`Linear`s; weight
 matmuls go through :mod:`repro_torch.core.qlinear` so the offload policy
@@ -37,6 +38,26 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]).to(x.dtype)
+
+
+# -------------------------------------------------------------- RoPE
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: (B, H, S, D); positions: (B, S) int.  Rotates the two halves
+    of the head dim in f32 and casts back to x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
+    ang = positions[:, None, :, None].float() * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)                 # (B,1,S,D/2)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 # --------------------------------------------------------------- MLP
@@ -107,3 +128,9 @@ def apply_embedding(emb: Linear, tokens: torch.Tensor) -> torch.Tensor:
                         w.d[tokens], scale_bits=w.scale_bits)
         return quant.dequantize_q3_k(sub, torch.bfloat16)
     return w[tokens]
+
+
+def apply_unembed(head: Linear, x: torch.Tensor) -> torch.Tensor:
+    """Logits = x @ W_vocab^T in f32 (through ``apply_linear``, so a
+    quantized head takes its kernel)."""
+    return apply_linear(head, x).float()

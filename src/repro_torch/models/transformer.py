@@ -1,13 +1,14 @@
-"""The dense attention-only LM stack that CLIP uses
-(``repro.models.transformer``: ``init_lm``, ``_stack_fwd``,
-``_layer_fwd``, ``_block_fwd``, ``_apply_ffn``, ``_sinusoidal`` and
-``_apply_norm``).
+"""The dense attention-only LM stack (``repro.models.transformer``):
+parameters, the full-sequence forward, and the paged-cache serving paths
+(one-token decode, fused chunk prefill and its decode-step scan).
 
 The reference stacks layer parameters over a leading period axis for
 ``lax.scan``; here ``params["layers"]`` is a plain list with one dict
 per layer, walked by a Python loop (``weights.from_reference`` unstacks
-the reference's layout).  MoE, SSM and enc-dec blocks come with later
-slices.
+the reference's layout).  Likewise the serving cache is a list with one
+paged :class:`~repro_torch.models.attention.KVCache` per layer, with no
+recurrent or cross-attention fields, and its pools are updated in place.
+MoE, SSM, hybrid and enc-dec stacks come with later slices.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.qlinear import init_linear
+from repro_torch.core.qlinear import Linear, init_linear
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 
@@ -50,6 +51,7 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Full LM parameter tree on ``gen``'s device, drawn from ``gen``."""
     _check_supported(cfg)
     init_n, _ = _norm(cfg)
     p: dict[str, Any] = {
@@ -63,24 +65,32 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def _block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+def _head(params: dict) -> Linear:
+    return params.get("lm_head") or Linear(params["embed"].w, role="lm_head")
+
+
+# ------------------------------------------------------------- forward
+
+def _block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, positions, *,
                causal: bool) -> torch.Tensor:
     h = _apply_norm(cfg, p["norm1"], x)
-    return x + attn_mod.attention_fwd(p["attn"], cfg, h, causal=causal,
+    return x + attn_mod.attention_fwd(p["attn"], cfg, h, positions,
+                                      causal=causal,
                                       rope=cfg.pos_embed == "rope")
 
 
 def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """norm2 + MLP residual tail of one layer."""
+    """norm2 + MLP residual tail of one layer (position-wise, so the same
+    for full sequences, chunks and single tokens)."""
     if "mlp" not in p:
         return x
     h = _apply_norm(cfg, p["norm2"], x)
     return x + L.apply_mlp(p["mlp"], h, cfg.activation)
 
 
-def _layer_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-               causal: bool) -> torch.Tensor:
-    return _apply_ffn(p, cfg, _block_fwd(p, cfg, x, causal=causal))
+def _layer_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, positions=None,
+               *, causal: bool) -> torch.Tensor:
+    return _apply_ffn(p, cfg, _block_fwd(p, cfg, x, positions, causal=causal))
 
 
 def _sinusoidal(seq: int, d: int, offset: int = 0,
@@ -92,9 +102,167 @@ def _sinusoidal(seq: int, d: int, offset: int = 0,
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(torch.bfloat16)
 
 
-def _stack_fwd(layers: list, cfg: ModelConfig, x: torch.Tensor, *,
-               causal: bool) -> torch.Tensor:
+def _stack_fwd(layers: list, cfg: ModelConfig, x: torch.Tensor,
+               positions=None, *, causal: bool) -> torch.Tensor:
     _check_supported(cfg)
     for p in layers:
-        x = _layer_fwd(p, cfg, x, causal=causal)
+        x = _layer_fwd(p, cfg, x, positions, causal=causal)
     return x
+
+
+def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+               last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) -> (logits (B, S, V) f32, aux loss 0.0).  Attention
+    goes through ``ops.attention`` (the flash-attention kernel on the
+    card).  ``last_only`` unembeds only the final position."""
+    b, s = tokens.shape
+    x = L.apply_embedding(params["embed"], tokens)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(s, cfg.d_model, device=x.device)[None]
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    x = _stack_fwd(params["layers"], cfg, x, positions, causal=True)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    if last_only:
+        x = x[:, -1:]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.apply_unembed(_head(params), x), aux
+
+
+# -------------------------------------------------------------- decode
+
+def init_cache(params: dict, cfg: ModelConfig, batch: int, max_len: int, *,
+               quantized_kv: bool = False, block_size: int | None = None,
+               num_blocks: int | None = None, device="cuda") -> list:
+    """One paged KV pool (num_blocks, Hkv, block_size, hd) per layer; the
+    slot -> block mapping lives host-side in ``serving.kvcache``.  Only
+    the paged layout is ported, so ``block_size`` and ``num_blocks`` are
+    required (``batch``/``max_len`` size the runtime, not the pools)."""
+    del params, batch, max_len
+    _check_supported(cfg)
+    if block_size is None or num_blocks is None:
+        raise NotImplementedError("only the paged cache (block_size and "
+                                  "num_blocks) is ported")
+    return [attn_mod.init_paged_kv_cache(num_blocks, cfg, block_size,
+                                         quantized=quantized_kv, device=device)
+            for _ in range(cfg.num_layers)]
+
+
+def _is_quantized(cache: list) -> bool:
+    return any(c.k_scale is not None for c in cache)
+
+
+def lm_decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                   pos: torch.Tensor, cache: list, *,
+                   block_tables: torch.Tensor
+                   ) -> tuple[torch.Tensor, list]:
+    """token: (B, 1); pos: (B,) int32 per-slot positions; block_tables:
+    (B, MB) int32 -> (logits (B, 1, V) f32, cache updated in place)."""
+    _check_supported(cfg)
+    x = L.apply_embedding(params["embed"], token)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + torch.stack([_sinusoidal(1, cfg.d_model, offset=int(o),
+                                         device=x.device) for o in pos])
+    rope = cfg.pos_embed == "rope"
+    new = []
+    for p, c in zip(params["layers"], cache):
+        h = _apply_norm(cfg, p["norm1"], x)
+        y, c = attn_mod.attention_decode(p["attn"], cfg, h, pos, c, rope=rope,
+                                         block_tables=block_tables)
+        new.append(c)
+        x = _apply_ffn(p, cfg, x + y)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    return L.apply_unembed(_head(params), x), new
+
+
+def prefill_fused_eligible(cfg: ModelConfig, *,
+                           quantized_kv: bool = False) -> bool:
+    """True when a prompt chunk can take the fused paged prefill kernels:
+    every layer is plain self-attention (bf16 and Q8_0 pools alike)."""
+    del quantized_kv
+    return set(cfg.block_pattern) == {"attn"}
+
+
+def prefill_path(cfg: ModelConfig, *, quantized_kv: bool = False,
+                 batch: int = 1, fused: bool = True) -> str:
+    """Which prefill path a chunk runs: ``"fused"`` (one kernel launch per
+    layer per chunk) or ``"scan"`` (one decode step per token).  The
+    scheduler's launch accounting derives from the same call."""
+    if (fused and batch == 1
+            and prefill_fused_eligible(cfg, quantized_kv=quantized_kv)):
+        return "fused"
+    return "scan"
+
+
+def _lm_prefill_chunk_fused(params: dict, cfg: ModelConfig,
+                            tokens: torch.Tensor, pos0, cache: list,
+                            block_tables: torch.Tensor
+                            ) -> tuple[torch.Tensor, list]:
+    """The whole chunk as one forward over the paged pool per layer
+    (``attention_prefill_paged``); MLPs are position-wise.  Returns the
+    last position's logits (1, 1, V)."""
+    t = tokens.shape[1]
+    pos0 = attn_mod._as_int(pos0)
+    x = L.apply_embedding(params["embed"], tokens)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + _sinusoidal(t, cfg.d_model, offset=pos0, device=x.device)[None]
+    rope = cfg.pos_embed == "rope"
+    new = []
+    for p, c in zip(params["layers"], cache):
+        h = _apply_norm(cfg, p["norm1"], x)
+        y, c = attn_mod.attention_prefill_paged(p["attn"], cfg, h, pos0, c,
+                                                block_tables, rope=rope)
+        new.append(c)
+        x = _apply_ffn(p, cfg, x + y)
+    x = _apply_norm(cfg, params["final_norm"], x[:, -1:])
+    return L.apply_unembed(_head(params), x), new
+
+
+def lm_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                     pos0, cache: list, *, block_tables: torch.Tensor,
+                     fused: bool = True) -> tuple[torch.Tensor, list]:
+    """Prefill of one chunk: tokens (B, C) at positions pos0 .. pos0+C-1
+    (pos0: (B,) int tensor, or an int for B = 1); returns the last
+    position's logits (B, 1, V) and the cache.
+
+    * **fused** (default when eligible, batch 1): one fused paged-prefill
+      kernel per layer, causal within the chunk, KV written in place.
+    * **decode-step scan**: :func:`lm_decode_step` once per token, the
+      reference oracle and the ``fused=False`` path."""
+    _check_supported(cfg)
+    b, c = tokens.shape
+    if prefill_path(cfg, quantized_kv=_is_quantized(cache), batch=b,
+                    fused=fused) == "fused":
+        return _lm_prefill_chunk_fused(params, cfg, tokens, pos0, cache,
+                                       block_tables)
+    if isinstance(pos0, torch.Tensor):
+        pos = pos0.to(device=tokens.device, dtype=torch.int32)
+    else:
+        pos = torch.full((b,), int(pos0), dtype=torch.int32,
+                         device=tokens.device)
+    logits = None
+    for i in range(c):
+        logits, cache = lm_decode_step(params, cfg, tokens[:, i:i + 1],
+                                       pos + i, cache,
+                                       block_tables=block_tables)
+    return logits, cache
+
+
+# ---------------------------------------------------- slot cache surgery
+# The reference carves a batch-1 view of recurrent and cross rows out of
+# the slot-batched cache for chunked prefill.  A pure-attention paged
+# cache has no per-slot rows (the block table isolates the slot), so
+# these are the identity.
+
+def cache_slot_view(cache: list, slot) -> list:
+    del slot
+    return cache
+
+
+def cache_slot_merge(cache: list, local: list, slot) -> list:
+    del cache, slot
+    return local
+
+
+def cache_slot_reset(cache: list, slot) -> list:
+    del slot
+    return cache

@@ -47,6 +47,17 @@ def test_import_and_engine_leave_jax_unloaded():
         "TINY_SD, device='cpu', weight_quant='q8_0')\n"
         "eng.submit(GenerateRequest(rid=0, tokens=[1] * 77))\n"
         "assert len(eng.run()) == 1\n"
+        "import repro_torch.serving, repro_torch.models.transformer as T\n"
+        "from repro_torch.configs import get_config, reduced\n"
+        "from repro_torch.serving import ContinuousBatcher, Request\n"
+        "cfg = reduced(get_config('granite-8b'))\n"
+        "import torch\n"
+        "p = T.init_lm(torch.Generator().manual_seed(0), cfg)\n"
+        "for kw in ({}, {'quantized_kv': True, 'fused_prefill': False}):\n"
+        "    cb = ContinuousBatcher(p, cfg, max_len=12, device='cpu', "
+        "prefix_share=True, **kw)\n"
+        "    cb.submit(Request(rid=0, prompt=[3] * 9, max_new=3))\n"
+        "    assert len(cb.run()[0].out) == 3\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n")

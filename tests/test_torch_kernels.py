@@ -134,4 +134,6 @@ def test_cpu_dispatch_launches_nothing():
     tops.attention(*(torch.randn(1, 2, 16, 16) for _ in range(3)))
     tops.quantized_matmul(torch.randn(3, 64), tq.quantize_q8_0(torch.randn(8, 64)))
     assert tops.launch_counts() == {"flash_attention": 0, "q8_matmul": 0,
-                                    "q3k_matmul": 0}
+                                    "q3k_matmul": 0, "flash_prefill_paged": 0,
+                                    "flash_prefill_paged_q8": 0,
+                                    "flash_decode_paged": 0}
