@@ -1,23 +1,22 @@
-"""GGML-semantic blocked quantization: Q8_0 and Q3_K in PyTorch.
+"""GGML-semantic blocked quantization: Q8_0, Q4_0 and Q3_K in PyTorch.
 
-A port of the Q8_0 and Q3_K parts of ``repro.core.quant`` that gives
-the same bytes for the same input: every step keeps the reference's
-float32 arithmetic and order, and ``torch.round`` rounds half to even
-like ``jnp.round``.
+A port of the Q8_0, Q4_0 and Q3_K parts of ``repro.core.quant`` that
+gives the same bytes for the same input: every step keeps the
+reference's float32 arithmetic and order, and ``torch.round`` rounds
+half to even like ``jnp.round``.
 
 * **Q8_0** — blocks of 32; fp16 scale ``d``; int8 quants; ``w = d*q``.
+* **Q4_0** — blocks of 32; fp16 scale ``d = amax/7``; 4-bit codes
+  ``q`` in [0, 15] (clipped before packing), two per byte with the even
+  element in the low nibble; ``w = d*(q-8)``.
 * **Q3_K** — super-blocks of 256 = 16 sub-blocks of 16; 3-bit quants in
   [-4, 3] as 2-bit ``ql`` plus 1-bit ``qh``; 6-bit sub-block codes with
   offset 32 packed 4 per 3 bytes; fp16 super-scale; ``w = d*(sc-32)*q``.
 
 fp16 block scales saturate into ``[2^-24, 65504]`` for non-zero blocks,
-int8 codes are clipped before the narrowing cast, and Q8_0 accepts a
+codes are clipped before the narrowing cast, and Q8_0 and Q4_0 accept a
 ragged last dimension (zero-padded, ``logical`` keeps the true length)
 while Q3_K requires K % 256 == 0 — all as in the reference.
-
-Q4_0 exists only as its storage type, so that a converted Q4_0 weight
-keeps its bytes: quantizing to it, dequantizing it and multiplying by it
-raise ``NotImplementedError`` until the ``q4_0`` format is ported.
 """
 from __future__ import annotations
 
@@ -122,12 +121,6 @@ class Q3KTensor:
 QTYPES = (Q8_0Tensor, Q4_0Tensor, Q3KTensor)
 
 
-def q4_0_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "the q4_0 format (its quantization, plain version and the "
-        "q4_matmul kernel of repro/kernels/q4_matmul.py) is not ported yet")
-
-
 # ---------------------------------------------------------------- Q8_0
 
 def quantize_q8_0(x: torch.Tensor) -> Q8_0Tensor:
@@ -144,6 +137,46 @@ def quantize_q8_0(x: torch.Tensor) -> Q8_0Tensor:
 def dequantize_q8_0(t: Q8_0Tensor, dtype=torch.float32) -> torch.Tensor:
     w = _blocks(t.qs, QK8_0).float() * t.d.float()[..., None]
     w = w.reshape(t.qs.shape)
+    if t.logical is not None:
+        w = w[..., :t.logical]
+    return w.to(dtype)
+
+
+# ---------------------------------------------------------------- Q4_0
+
+def pack_q4(q_unsigned: torch.Tensor) -> torch.Tensor:
+    """Pack 4-bit values (0..15), last axis K -> K/2 bytes, the even
+    element in the low nibble."""
+    q = q_unsigned.to(torch.uint8).reshape(*q_unsigned.shape[:-1], -1, 2)
+    return q[..., 0] | (q[..., 1] << 4)
+
+
+def unpack_q4(qs: torch.Tensor) -> torch.Tensor:
+    """(..., K/2) bytes -> (..., K) int8 values in [-8, 7] (offset 8);
+    column 2j is the low nibble of byte j."""
+    q = qs.to(torch.int32)
+    out = torch.stack([(q & 0x0F) - 8, ((q >> 4) & 0x0F) - 8], dim=-1)
+    return out.reshape(*qs.shape[:-1], qs.shape[-1] * 2).to(torch.int8)
+
+
+def quantize_q4_0(x: torch.Tensor) -> Q4_0Tensor:
+    xp, logical = _pad_tail(x, QK8_0)
+    xb = _blocks(xp.float(), QK8_0)
+    amax = xb.abs().amax(dim=-1)
+    d = _f16_scale(amax, 7.0)
+    df = d.float()
+    inv = torch.where(df > 0, 1.0 / df, torch.zeros_like(df))
+    # The clip keeps each code in [0, 15]: the f16 rounding of d can push
+    # round(x * inv) to +8, whose code 16 would spill into the next nibble.
+    q = (torch.round(xb * inv[..., None]) + 8).clamp(0, 15)
+    qs = pack_q4(q.reshape(xp.shape).to(torch.uint8))
+    return Q4_0Tensor(qs=qs, d=d, logical=logical)
+
+
+def dequantize_q4_0(t: Q4_0Tensor, dtype=torch.float32) -> torch.Tensor:
+    q = unpack_q4(t.qs)
+    w = _blocks(q, QK8_0).float() * t.d.float()[..., None]
+    w = w.reshape(q.shape)
     if t.logical is not None:
         w = w[..., :t.logical]
     return w.to(dtype)
@@ -249,7 +282,7 @@ def quantize(x: torch.Tensor, fmt: str, **kw: Any):
     if fmt == "q8_0":
         return quantize_q8_0(x)
     if fmt == "q4_0":
-        raise q4_0_not_ported()
+        return quantize_q4_0(x)
     if fmt == "q3_k":
         return quantize_q3_k(x, **kw)
     if fmt in _DENSE:
@@ -261,7 +294,7 @@ def dequantize(t, dtype=torch.float32) -> torch.Tensor:
     if isinstance(t, Q8_0Tensor):
         return dequantize_q8_0(t, dtype)
     if isinstance(t, Q4_0Tensor):
-        raise q4_0_not_ported()
+        return dequantize_q4_0(t, dtype)
     if isinstance(t, Q3KTensor):
         return dequantize_q3_k(t, dtype)
     return t.to(dtype)

@@ -1,37 +1,50 @@
-// Paged flash-decode (one new token per row, GQA) for Hopper (sm_90a).
+// Flash-decode (one new token per row, GQA) for Hopper (sm_90a): the
+// paged entry and the contiguous entry share the three kernels below,
+// templated on how a key's row is addressed.
 //
 // Replaces: src/repro/kernels/flash_decode.py :: flash_decode_paged
-// (_paged_decode_kernel).  q (B,Hkv,G,hd) bf16; pools (NB,Hkv,bs,hd)
-// bf16; tables (B,MB) int32; positions (B,) int32, the last valid
-// logical index of each row (inclusive).  Row b's query group attends to
-// the keys at idx <= positions[b] (and idx > positions[b] - window) of
-// its table, as the reference's decode step reads a bf16 pool
-// (models/attention.py: _update_read_paged and the einsums of
-// attention_decode): logits q.k * scale in f32, softmax in f32, the
-// normalised probabilities rounded to bf16, P.V summed in f32; out
-// (B,Hkv,G,hd) bf16.  Keys past positions[b] (a recycled block's stale
-// bytes, or the null block of an idle row) are never loaded: their rows
-// are zero-filled and their logits are -inf before any max.
+// (_paged_decode_kernel) and :: flash_decode (_decode_kernel).
+//
+// Paged (flash_decode_paged_bf16): q (B,Hkv,G,hd) bf16; pools
+// (NB,Hkv,bs,hd) bf16; tables (B,MB) int32; positions (B,) int32, the
+// last valid logical index of each row (inclusive).  Row b's query group
+// attends to the keys at idx <= positions[b] (and idx > positions[b] -
+// window) of its table.
+// Contiguous (flash_decode_bf16): k/v (B,Hkv,C,hd) bf16 and kv_len (1,)
+// int32 on the card, read by the kernels themselves (no host sync): every
+// row attends to the slots idx < kv_len[0].  It is the paged layout with
+// one block of C rows per row (block b of row b).
+//
+// Both compute what the reference's decode step computes when it reads a
+// bf16 cache (models/attention.py: _update_read_paged /
+// _update_read_contiguous and the einsums of attention_decode): logits
+// q.k * scale in f32, softmax in f32, the normalised probabilities
+// rounded to bf16, P.V summed in f32; out (B,Hkv,G,hd) bf16.  (The Pallas
+// kernels round the unnormalised p instead; the port follows the path it
+// replaces.)  Keys past the valid range (a recycled block's stale bytes,
+// the null block of an idle row, unwritten cache slots) are never
+// loaded: their rows are zero-filled and their logits are -inf before
+// any max.
 //
 // What bounds it on the H100: each (row, head) reads its whole cache
 // (2 * C * hd * 2 bytes) for 4 * G * C * hd flops, 4 flops per byte at
 // G = 4: memory-bound, so the aim is to keep every SM streaming.  At 4
-// slots one block per (row, KV head) would be 32 blocks and leave 100 of
+// rows one block per (row, KV head) would be 32 blocks and leave 100 of
 // the 132 SMs idle, so the key range is split into 128-key pieces, one
 // block per (split, KV head, row), in three launches:
-//   1. logits: stage the split's keys with cp.async (16-byte pieces
-//      through the block table), G x 128 logits into a scratch row, and
-//      the split's max m_s and sum l_s = sum exp(s - m_s);
+//   1. logits: stage the split's keys with cp.async (16-byte pieces),
+//      G x 128 logits into a scratch row, and the split's max m_s and sum
+//      l_s = sum exp(s - m_s);
 //   2. P.V: each block merges the splits' (m_s, l_s) of its row into the
 //      row's max M and sum L, forms p = bf16(exp(s - M) / L) (the
 //      normalised, rounded probabilities of the reference), stages its
 //      values and writes a partial P.V;
 //   3. sum: the partials of each (row, head), added in f32.
 // The logits scratch adds 16 bytes per key and query group to the 512
-// of K and V.  Splits wholly past positions[b] (or before the window)
-// exit at once and are skipped.  Plain FMA arithmetic on CUDA cores: with
-// G = 4 query rows a tensor-core tile would be 3/4 padding, and the
-// bytes, not the flops, set the time.
+// of K and V.  Splits wholly outside the valid range exit at once and
+// are skipped.  Plain FMA arithmetic on CUDA cores: with G = 4 query
+// rows a tensor-core tile would be 3/4 padding, and the bytes, not the
+// flops, set the time.
 #include <math.h>
 
 #include "common.cuh"
@@ -69,31 +82,40 @@ struct Split {
     }
 };
 
+// PAGED: positions[b] is row b's last valid index; contiguous: positions
+// is kv_len, the same count of valid slots for every row.
+template <bool PAGED>
 __device__ __forceinline__ Split split_of(const int* __restrict__ positions, int b,
                                           int split, int window) {
     Split s;
     s.k0 = split * KEYS;
-    s.pos = positions[b];
+    s.pos = PAGED ? positions[b] : positions[0] - 1;
     s.kmin = window > 0 ? max(0, s.pos - window + 1) : 0;
     return s;
 }
 
-// Rows [k0, k0 + KEYS) of head h of one pool into dst, zero where invalid.
+// Rows [k0, k0 + KEYS) of head h of row b into dst, zero where invalid.
+// Contiguous: bs = C, mb = 1 and row b is block b (no table).
+template <bool PAGED>
 __device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ pool,
                                       const int* __restrict__ table, const Split& sp,
-                                      int h, int hkv, int hd, int bs, int mb, int ld) {
+                                      int b, int h, int hkv, int hd, int bs, int mb, int ld) {
     const int vec = hd / 8;
     for (int i = threadIdx.x; i < KEYS * vec; i += NTHREAD) {
         const int r = i / vec, c8 = i - r * vec;
         const int kp = sp.k0 + r;
         const bool in = sp.valid(kp, mb * bs);
         size_t off = 0;
-        if (in) off = (((size_t)table[kp / bs] * hkv + h) * bs + kp % bs) * hd + c8 * 8;
+        if (in) {
+            const size_t blk = PAGED ? (size_t)table[kp / bs] : (size_t)b;
+            off = ((blk * hkv + h) * bs + kp % bs) * hd + c8 * 8;
+        }
         cp_async16(dst + r * ld + c8 * 8, pool + off, in);
     }
     cp_async_commit();
 }
 
+template <bool PAGED>
 __global__ void __launch_bounds__(NTHREAD)
 decode_logits_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
                      const int* __restrict__ tables, const int* __restrict__ positions,
@@ -106,7 +128,7 @@ decode_logits_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
     float* sc = reinterpret_cast<float*>(smem + L.s);
     const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const Split sp = split_of(positions, b, split, window);
+    const Split sp = split_of<PAGED>(positions, b, split, window);
     const size_t bh = (size_t)b * hkv + h;
     float* ml = part_ml + (bh * nsplit + split) * g * 2;
     if (sp.empty()) {
@@ -116,7 +138,8 @@ decode_logits_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
         }
         return;
     }
-    stage(ks, kpool, tables + (size_t)b * mb, sp, h, hkv, hd, bs, mb, L.ld);
+    stage<PAGED>(ks, kpool, PAGED ? tables + (size_t)b * mb : nullptr, sp, b, h, hkv, hd,
+                 bs, mb, L.ld);
     const bf16* qb = q + bh * g * hd;
     for (int i = tid; i < g * hd; i += NTHREAD) qs[i] = __bfloat162float(qb[i]);
     cp_async_wait_all();
@@ -160,6 +183,7 @@ decode_logits_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
     }
 }
 
+template <bool PAGED>
 __global__ void __launch_bounds__(NTHREAD)
 decode_pv_kernel(const bf16* __restrict__ vpool, const int* __restrict__ tables,
                  const int* __restrict__ positions, const float* __restrict__ logits,
@@ -172,10 +196,11 @@ decode_pv_kernel(const bf16* __restrict__ vpool, const int* __restrict__ tables,
     float* stat = reinterpret_cast<float*>(smem + L.q);   // (M, L) per query row
     const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int tid = threadIdx.x;
-    const Split sp = split_of(positions, b, split, window);
+    const Split sp = split_of<PAGED>(positions, b, split, window);
     if (sp.empty()) return;
     const size_t bh = (size_t)b * hkv + h;
-    stage(vs, vpool, tables + (size_t)b * mb, sp, h, hkv, hd, bs, mb, L.ld);
+    stage<PAGED>(vs, vpool, PAGED ? tables + (size_t)b * mb : nullptr, sp, b, h, hkv, hd,
+                 bs, mb, L.ld);
 
     // The row's softmax max M and sum L from the splits' (m_s, l_s).
     const float* ml = part_ml + bh * nsplit * g * 2;
@@ -214,6 +239,7 @@ decode_pv_kernel(const bf16* __restrict__ vpool, const int* __restrict__ tables,
     }
 }
 
+template <bool PAGED>
 __global__ void __launch_bounds__(NTHREAD)
 decode_sum_kernel(const float* __restrict__ part_acc, const int* __restrict__ positions,
                   bf16* __restrict__ out, int hkv, int g, int hd, int nsplit, int window) {
@@ -222,9 +248,48 @@ decode_sum_kernel(const float* __restrict__ part_acc, const int* __restrict__ po
     for (int o = threadIdx.x; o < g * hd; o += NTHREAD) {
         float a = 0.0f;
         for (int s = 0; s < nsplit; ++s)
-            if (!split_of(positions, b, s, window).empty()) a += acc[(size_t)s * g * hd + o];
+            if (!split_of<PAGED>(positions, b, s, window).empty()) a += acc[(size_t)s * g * hd + o];
         out[(size_t)bh * g * hd + o] = __float2bfloat16(a);
     }
+}
+
+// The three launches on one stream.  PAGED: tables (B,MB) and positions
+// (B,); contiguous: tables unused, positions = kv_len (1,), bs = C, mb = 1.
+template <bool PAGED>
+int launch_decode(const void* q, const void* k, const void* v, const void* tables,
+                  const void* positions, void* logits, void* part_ml, void* part_acc,
+                  void* out, int b, int hkv, int g, int hd, int bs, int mb, float scale,
+                  int window, void* stream) {
+    if (g > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int nsplit = (mb * bs + KEYS - 1) / KEYS;
+    const size_t smem = smem_layout(hd, g).total;
+    const void* staged[] = {reinterpret_cast<const void*>(decode_logits_kernel<PAGED>),
+                            reinterpret_cast<const void*>(decode_pv_kernel<PAGED>)};
+    for (const void* fn : staged) {
+        cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const dim3 grid(nsplit, hkv, b);
+    decode_logits_kernel<PAGED><<<grid, NTHREAD, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const int*>(tables), static_cast<const int*>(positions),
+        static_cast<float*>(logits), static_cast<float*>(part_ml), hkv, g, hd, bs, mb,
+        nsplit, scale, window);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    decode_pv_kernel<PAGED><<<grid, NTHREAD, smem, st>>>(
+        static_cast<const bf16*>(v), static_cast<const int*>(tables),
+        static_cast<const int*>(positions), static_cast<const float*>(logits),
+        static_cast<const float*>(part_ml), static_cast<float*>(part_acc), hkv, g, hd, bs,
+        mb, nsplit, window);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    decode_sum_kernel<PAGED><<<b * hkv, NTHREAD, 0, st>>>(
+        static_cast<const float*>(part_acc), static_cast<const int*>(positions),
+        static_cast<bf16*>(out), hkv, g, hd, nsplit, window);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -239,34 +304,18 @@ extern "C" int flash_decode_paged_bf16(const void* q, const void* k_pool, const 
                                        void* logits, void* part_ml, void* part_acc, void* out,
                                        int b, int hkv, int g, int hd, int bs, int mb,
                                        float scale, int window, void* stream) {
-    if (g > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int nsplit = (mb * bs + KEYS - 1) / KEYS;
-    const size_t smem = smem_layout(hd, g).total;
-    const void* staged[] = {reinterpret_cast<const void*>(decode_logits_kernel),
-                            reinterpret_cast<const void*>(decode_pv_kernel)};
-    for (const void* fn : staged) {
-        cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const dim3 grid(nsplit, hkv, b);
-    decode_logits_kernel<<<grid, NTHREAD, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
-        static_cast<const int*>(tables), static_cast<const int*>(positions),
-        static_cast<float*>(logits), static_cast<float*>(part_ml), hkv, g, hd, bs, mb,
-        nsplit, scale, window);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    decode_pv_kernel<<<grid, NTHREAD, smem, st>>>(
-        static_cast<const bf16*>(v_pool), static_cast<const int*>(tables),
-        static_cast<const int*>(positions), static_cast<const float*>(logits),
-        static_cast<const float*>(part_ml), static_cast<float*>(part_acc), hkv, g, hd, bs,
-        mb, nsplit, window);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    decode_sum_kernel<<<b * hkv, NTHREAD, 0, st>>>(
-        static_cast<const float*>(part_acc), static_cast<const int*>(positions),
-        static_cast<bf16*>(out), hkv, g, hd, nsplit, window);
-    return static_cast<int>(cudaGetLastError());
+    return launch_decode<true>(q, k_pool, v_pool, tables, positions, logits, part_ml,
+                               part_acc, out, b, hkv, g, hd, bs, mb, scale, window, stream);
+}
+
+// q (B,Hkv,G,hd), k/v (B,Hkv,C,hd), out (B,Hkv,G,hd): bf16, contiguous,
+// 16-byte aligned; kv_len (1,) int32 on the card, 0 <= kv_len <= C.
+// f32 scratch with nsplit = ceil(C / 128) shaped as for the paged entry.
+// hd % 8 == 0, hd <= 256, G <= 16.
+extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
+                                 const void* kv_len, void* logits, void* part_ml,
+                                 void* part_acc, void* out, int b, int hkv, int g, int hd,
+                                 int c, float scale, void* stream) {
+    return launch_decode<false>(q, k, v, nullptr, kv_len, logits, part_ml, part_acc, out, b,
+                                hkv, g, hd, c, 1, scale, -1, stream);
 }

@@ -1,21 +1,26 @@
-"""Paged flash-decode (``csrc/flash_decode.cu``) and its plain version.
+"""Flash-decode (``csrc/flash_decode.cu``), paged and contiguous, and
+their plain versions.
 
-Replaces ``repro.kernels.flash_decode.flash_decode_paged`` on the card.
-The reference wrote this kernel for the paged serving runtime but its
-decode step reads the pool with a gather and an einsum instead
-(``attention._update_read_paged``); the port launches the kernel there
-for bf16 pools.  The plain version computes what that decode step
-computes: q.k in f32, f32 softmax, the normalised probabilities rounded
-to the values' dtype for P.V (a no-op for f32 inputs, where it is the
-reference's ``flash_decode_paged_ref``), f32 accumulation, output in q's
-dtype.
+Replaces ``repro.kernels.flash_decode.flash_decode_paged`` and
+``flash_decode`` on the card.  The reference wrote these kernels for its
+decode step but reads the cache with a gather and an einsum instead
+(``attention._update_read_paged`` / ``_update_read_contiguous``); the
+port launches the kernels there for bf16 caches.  The plain versions
+compute what that decode step computes: q.k in f32, f32 softmax, the
+normalised probabilities rounded to the values' dtype for P.V (a no-op
+for f32 inputs, where they are the reference's ``flash_decode_paged_ref``
+and ``flash_decode_ref``), f32 accumulation, output in q's dtype.
 
-q ``(B, Hkv, G, hd)``; pools ``(NB, Hkv, bs, hd)``; block_tables
-``(B, MB)`` int32; positions ``(B,)`` int32, the last valid logical
-index of each row (inclusive).  Every row needs at least one valid key.
-``window`` (not in the reference kernel) keeps keys at
-``idx > positions - window``, as the reference's decode mask does for
-sliding-window configs.
+* **paged** — q ``(B, Hkv, G, hd)``; pools ``(NB, Hkv, bs, hd)``;
+  block_tables ``(B, MB)`` int32; positions ``(B,)`` int32, the last
+  valid logical index of each row (inclusive).  Every row needs at
+  least one valid key.  ``window`` (not in the reference kernel) keeps
+  keys at ``idx > positions - window``, as the reference's decode mask
+  does for sliding-window configs.
+* **contiguous** — k/v ``(B, Hkv, C, hd)``; kv_len ``(1,)`` int32, the
+  number of valid slots of every row (a ring buffer's filled slots hold
+  keys out of position order, which a softmax does not mind).  On the
+  card kv_len stays on the device: the kernel reads it itself.
 """
 from __future__ import annotations
 
@@ -25,13 +30,94 @@ import torch
 
 from repro_torch.kernels import build
 
-launches = 0          # kernel launches since the last reset
+launches = 0              # flash_decode_paged launches since the last reset
+launches_contiguous = 0   # flash_decode launches since the last reset
 KEYS_PER_SPLIT = 128  # keys per block of the split pass (csrc KEYS)
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16
 
 _ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGS_CONTIGUOUS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
+def attend_decode(q, keys, vals, valid, scale):
+    """Masked one-token attention of the reference's decode step, the
+    read of every cache that no kernel serves: q rounded to the keys'
+    dtype, f32 logits and softmax, P rounded to the values' dtype, f32
+    P.V, f32 out.  valid: (B, C); masked values are selected to 0 (a
+    recycled block may hold NaN, and 0 * NaN = NaN)."""
+    logits = torch.einsum("bhgd,bhcd->bhgc", q.to(keys.dtype).float(),
+                          keys.float()) * scale
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    vals = torch.where(valid[:, None, :, None], vals,
+                       torch.zeros((), dtype=vals.dtype, device=vals.device))
+    p = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
+    return torch.einsum("bhgc,bhcd->bhgd", p.to(vals.dtype).float(),
+                        vals.float())
+
+
+def _check_operands(name, q, k, v):
+    b, h, g, d = q.shape
+    for label, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_cuda or x.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {label} must be a bf16 CUDA tensor, got "
+                             f"{x.dtype} on {x.device}")
+    if k.shape != v.shape or k.shape[1] != h or k.shape[3] != d:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not match "
+                         f"q{tuple(q.shape)}")
+    if d % 8 or d > MAX_HEAD_DIM or g > MAX_GROUP:
+        raise ValueError(f"{name}: head dim {d} must be a multiple of 8 and "
+                         f"<= {MAX_HEAD_DIM}; group {g} <= {MAX_GROUP}")
+
+
+def _scratch(q, nkeys):
+    """f32 logits, split (max, sum) and partial P.V for ``nkeys`` keys."""
+    b, h, g, d = q.shape
+    nsplit = -(-nkeys // KEYS_PER_SPLIT)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty((b, h, g, nsplit * KEYS_PER_SPLIT), **f32),
+            torch.empty((b, h, nsplit, g, 2), **f32),
+            torch.empty((b, h, nsplit, g, d), **f32))
+
+
+def flash_decode_ref(q, k, v, kv_len, *, scale=None):
+    """Attend slots ``idx < kv_len[0]`` of the contiguous cache."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    idx = torch.arange(k.shape[2], device=q.device)
+    valid = (idx < kv_len.to(q.device).long().reshape(-1)[0])[None, :]
+    return attend_decode(q, k, v, valid.expand(q.shape[0], -1),
+                         scale).to(q.dtype)
+
+
+def flash_decode(q, k, v, kv_len, *, scale=None) -> torch.Tensor:
+    """Kernel of :func:`flash_decode_ref` for a bf16 cache; kv_len is a
+    (1,) int32 CUDA tensor with 0 <= kv_len <= C."""
+    global launches_contiguous
+    _check_operands("flash_decode", q, k, v)
+    if k.shape[0] != q.shape[0]:
+        raise ValueError(f"flash_decode: cache {tuple(k.shape)} has another "
+                         f"batch than q{tuple(q.shape)}")
+    if not kv_len.is_cuda or kv_len.dtype != torch.int32 or kv_len.numel() != 1:
+        raise ValueError("flash_decode: kv_len must be a (1,) int32 CUDA tensor")
+    b, h, g, d = q.shape
+    c = k.shape[2]
+    q, k, v = (build.aligned16(x) for x in (q, k, v))
+    kv_len = kv_len.contiguous()
+    logits, part_ml, part_acc = _scratch(q, c)
+    out = torch.empty_like(q)
+    scale = d ** -0.5 if scale is None else scale
+    lib, fn = build.entry("flash_decode", "flash_decode_bf16", _ARGS_CONTIGUOUS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  kv_len.data_ptr(), logits.data_ptr(),
+                  part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+                  b, h, g, d, c, float(scale), stream)
+    build.check(lib, "flash_decode", code)
+    launches_contiguous += 1
+    return out
 
 
 def flash_decode_paged_ref(q, k_pool, v_pool, block_tables, positions, *,
@@ -46,37 +132,21 @@ def flash_decode_paged_ref(q, k_pool, v_pool, block_tables, positions, *,
     def gather(pool):                      # (B, MB, Hkv, bs, d) -> (B, Hkv, C, d)
         return pool[tbl].transpose(1, 2).reshape(b, h, mb * bs, d)
 
-    keys, vals = gather(k_pool), gather(v_pool)
-    logits = torch.einsum("bhgd,bhcd->bhgc", q.float(), keys.float()) * scale
     idx = torch.arange(mb * bs, device=q.device)[None, :]
     pos = positions.to(q.device).long()[:, None]
     valid = idx <= pos
     if window is not None:
         valid &= idx > pos - window
-    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
-    vals = torch.where(valid[:, None, :, None], vals,
-                       torch.zeros((), dtype=vals.dtype, device=vals.device))
-    p = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
-    out = torch.einsum("bhgc,bhcd->bhgd", p.to(vals.dtype).float(), vals.float())
-    return out.to(q.dtype)
+    return attend_decode(q, gather(k_pool), gather(v_pool), valid,
+                         scale).to(q.dtype)
 
 
 def flash_decode_paged(q, k_pool, v_pool, block_tables, positions, *,
                        scale=None, window=None) -> torch.Tensor:
     """Kernel of :func:`flash_decode_paged_ref` for bf16 pools."""
     global launches
+    _check_operands("flash_decode_paged", q, k_pool, v_pool)
     b, h, g, d = q.shape
-    for label, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if not x.is_cuda or x.dtype != torch.bfloat16:
-            raise ValueError(f"flash_decode_paged: {label} must be a bf16 CUDA "
-                             f"tensor, got {x.dtype} on {x.device}")
-    if k_pool.shape != v_pool.shape or k_pool.shape[1] != h \
-            or k_pool.shape[3] != d:
-        raise ValueError(f"flash_decode_paged: pools {tuple(k_pool.shape)} do "
-                         f"not match q{tuple(q.shape)}")
-    if d % 8 or d > MAX_HEAD_DIM or g > MAX_GROUP:
-        raise ValueError(f"flash_decode_paged: head dim {d} must be a multiple "
-                         f"of 8 and <= {MAX_HEAD_DIM}; group {g} <= {MAX_GROUP}")
     for label, x in (("block_tables", block_tables), ("positions", positions)):
         if not x.is_cuda or x.dtype != torch.int32 or x.shape[0] != b:
             raise ValueError(f"flash_decode_paged: {label} must be int32 on "
@@ -88,11 +158,7 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, positions, *,
     q, k_pool, v_pool = (build.aligned16(x) for x in (q, k_pool, v_pool))
     tables = block_tables.contiguous()
     positions = positions.contiguous()
-    nsplit = -(-mb * bs // KEYS_PER_SPLIT)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    logits = torch.empty((b, h, g, nsplit * KEYS_PER_SPLIT), **f32)
-    part_ml = torch.empty((b, h, nsplit, g, 2), **f32)
-    part_acc = torch.empty((b, h, nsplit, g, d), **f32)
+    logits, part_ml, part_acc = _scratch(q, mb * bs)
     out = torch.empty_like(q)
     scale = d ** -0.5 if scale is None else scale
     lib, fn = build.entry("flash_decode", "flash_decode_paged_bf16", _ARGS)

@@ -2,13 +2,16 @@
 
 The counterpart of ``repro.kernels.ops``.  A CPU tensor takes the plain
 PyTorch version (``kernels.ref``) under the reference's routing; a CUDA
-tensor always launches the Hopper kernel, or raises where this slice has
-no kernel (Q4_0).  Nothing here falls back from the card to the plain
+tensor always launches the Hopper kernel, or raises where the kernel
+cannot take it.  Nothing here falls back from the card to the plain
 version:
 
-* a tail-padded Q8_0 weight (``logical`` set) takes the plain version
-  on the CPU, as in the reference; on the card ``x`` is zero-padded to
-  the stored K and the kernel runs (the padded weight columns are 0);
+* a tail-padded Q8_0 or Q4_0 weight (``logical`` set) takes the plain
+  version on the CPU, as in the reference; on the card ``x`` is
+  zero-padded to the stored K and the kernel runs (the padded weight
+  columns are 0);
+* ``quantized_matmul_w8a8`` quantizes x to Q8_0 blocks as the reference
+  does and launches the integer kernel on the card;
 * a Q3_K weight goes to its kernel as stored: the kernel unpacks the
   6-bit scale codes itself (the reference unpacks them in ``ops``);
 * attention launches its kernel for every Sq on the card (the
@@ -18,7 +21,9 @@ version:
 * paged prefill launches ``flash_prefill_paged`` (bf16 pools) or
   ``flash_prefill_paged_q8`` (Q8_0 pools), and paged decode of a bf16
   pool launches ``flash_decode_paged``; both update or read the pools
-  the caller passes, in place.
+  the caller passes, in place;
+* contiguous decode of a bf16 cache launches ``flash_decode``, which
+  reads ``kv_len`` on the card.
 """
 from __future__ import annotations
 
@@ -31,14 +36,18 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import q3k_matmul as _q3k
+from repro_torch.kernels import q4_matmul as _q4
 from repro_torch.kernels import q8_matmul as _q8
 from repro_torch.kernels import ref
 
 KERNEL_MODULES = {"flash_attention": _fa, "q8_matmul": _q8,
                   "q3k_matmul": _q3k, "flash_prefill_paged": _fp,
-                  "flash_prefill_paged_q8": _fp, "flash_decode_paged": _fd}
+                  "flash_prefill_paged_q8": _fp, "flash_decode_paged": _fd,
+                  "q4_matmul": _q4, "q8_matmul_w8a8": _q8, "flash_decode": _fd}
 # The module attribute holding each kernel's count ("launches" if absent).
-_COUNTERS = {"flash_prefill_paged_q8": "launches_q8"}
+_COUNTERS = {"flash_prefill_paged_q8": "launches_q8",
+             "q8_matmul_w8a8": "launches_w8a8",
+             "flash_decode": "launches_contiguous"}
 
 
 def launch_counts() -> dict[str, int]:
@@ -67,7 +76,13 @@ def quantized_matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
         else:
             y = ref.q8_matmul_ref(xf, w)
     elif isinstance(w, Q4_0Tensor):
-        raise quant.q4_0_not_ported()
+        n = w.qs.shape[0]
+        if on_card:
+            if w.logical is not None:
+                xf = F.pad(xf, (0, 2 * w.qs.shape[-1] - w.logical))
+            y = _q4.q4_matmul(xf, w.qs, w.d)
+        else:
+            y = ref.q4_matmul_ref(xf, w)
     elif isinstance(w, Q3KTensor):
         n = w.ql.shape[0]
         if on_card:
@@ -77,6 +92,22 @@ def quantized_matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
     else:
         raise TypeError(f"quantized_matmul: unsupported weight {type(w).__name__}")
     return y.reshape(*lead, n).to(out_dtype)
+
+
+def quantized_matmul_w8a8(x: torch.Tensor, w: Q8_0Tensor, *,
+                          out_dtype=None) -> torch.Tensor:
+    """Integer-path (OP_SML8) matmul: x quantized to Q8_0 blocks (K
+    zero-padded to the weight's stored K, as ``quantize_q8_0`` pads),
+    then int8 x int8 block dots scaled by both block scales."""
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    xa = quant.quantize_q8_0(x.reshape(-1, x.shape[-1]))
+    xs = xa.d.float()
+    if x.is_cuda:
+        y = _q8.q8_matmul_w8a8(xa.qs, xs, w.qs, w.d)
+    else:
+        y = ref.q8_matmul_w8a8_ref(xa.qs, xs, w)
+    return y.reshape(*lead, w.qs.shape[0]).to(out_dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -128,3 +159,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
     fn = _fd.flash_decode_paged if q.is_cuda else _fd.flash_decode_paged_ref
     return fn(q, k_pool, v_pool, block_tables, positions, scale=scale,
               window=window)
+
+
+def decode_attention(q, k, v, kv_len, *, scale: float | None = None
+                     ) -> torch.Tensor:
+    """One-token GQA decode against a contiguous cache: q (B, Hkv, G, hd),
+    k/v (B, Hkv, C, hd), kv_len (1,) int32 valid slots of every row."""
+    fn = _fd.flash_decode if q.is_cuda else _fd.flash_decode_ref
+    return fn(q, k, v, kv_len, scale=scale)

@@ -1,7 +1,11 @@
-"""Wrapper of the Hopper fused-dequant Q8_0 matmul (``csrc/q8_matmul.cu``).
+"""Wrappers of the Hopper Q8_0 matmuls: the fused-dequant weight-only
+kernel (``csrc/q8_matmul.cu``) and the integer w8a8 kernel
+(``csrc/q8_matmul_w8a8.cu``).
 
-Replaces ``repro.kernels.q8_matmul.q8_matmul`` on the card.  Its plain
-version is :func:`repro_torch.kernels.ref.q8_matmul_ref`.
+Replace ``repro.kernels.q8_matmul.q8_matmul`` and ``q8_matmul_w8a8`` on
+the card.  Their plain versions are
+:func:`repro_torch.kernels.ref.q8_matmul_ref` and
+:func:`~repro_torch.kernels.ref.q8_matmul_w8a8_ref`.
 """
 from __future__ import annotations
 
@@ -12,9 +16,11 @@ import torch
 from repro_torch.core.quant import QK8_0
 from repro_torch.kernels import build
 
-launches = 0          # kernel launches since the last reset
+launches = 0          # q8_matmul launches since the last reset
+launches_w8a8 = 0     # q8_matmul_w8a8 launches since the last reset
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS_W8A8 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def q8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
@@ -44,4 +50,40 @@ def q8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tens
                   m, n, kdim, stream)
     build.check(lib, "q8_matmul", code)
     launches += 1
+    return y
+
+
+def q8_matmul_w8a8(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
+                   ws: torch.Tensor) -> torch.Tensor:
+    """Integer-path matmul.  xq: (M,K) int8 and xs: (M,K/32) f32, the Q8_0
+    activations; wq: (N,K) int8 and ws: (N,K/32) fp16 (``Q8_0Tensor``'s
+    fields).  Returns (M, N) f32.  K % 32 == 0."""
+    global launches_w8a8
+    m, kdim = xq.shape
+    n = wq.shape[0]
+    nb = kdim // QK8_0
+    if not all(t.is_cuda for t in (xq, xs, wq, ws)):
+        raise ValueError("q8_matmul_w8a8: all operands must be CUDA tensors")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8 \
+            or wq.shape != (n, kdim) or kdim % QK8_0:
+        raise ValueError(f"q8_matmul_w8a8: xq {xq.dtype}{tuple(xq.shape)} and wq "
+                         f"{wq.dtype}{tuple(wq.shape)} must be int8 with one K, "
+                         "K % 32 == 0")
+    if xs.shape != (m, nb) or xs.dtype != torch.float32 \
+            or ws.shape != (n, nb) or ws.dtype != torch.float16:
+        raise ValueError(f"q8_matmul_w8a8: scales xs {xs.dtype}{tuple(xs.shape)}, "
+                         f"ws {ws.dtype}{tuple(ws.shape)}; expected float32"
+                         f"{(m, nb)} and float16{(n, nb)}")
+    xq, wq = build.aligned16(xq), build.aligned16(wq)
+    xs, ws = xs.contiguous(), ws.contiguous()
+    y = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    if m == 0 or n == 0:
+        return y
+    lib, fn = build.entry("q8_matmul_w8a8", "q8_matmul_w8a8_s8", _ARGS_W8A8)
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        code = fn(xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                  y.data_ptr(), m, n, kdim, stream)
+    build.check(lib, "q8_matmul_w8a8", code)
+    launches_w8a8 += 1
     return y

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.quant import Q3KTensor, Q8_0Tensor
+from repro_torch.core.quant import QK8_0, Q3KTensor, Q4_0Tensor, Q8_0Tensor
 
 
 def _bf16_product(x: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
@@ -22,6 +22,31 @@ def _bf16_product(x: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
 def q8_matmul_ref(x: torch.Tensor, w: Q8_0Tensor) -> torch.Tensor:
     """y = x @ dequant(w).T with the weight rounded to bf16; f32 out."""
     return _bf16_product(x, quant.dequantize_q8_0(w, torch.bfloat16))
+
+
+def q8_matmul_w8a8_ref(xq: torch.Tensor, xs: torch.Tensor,
+                       w: Q8_0Tensor) -> torch.Tensor:
+    """Integer-path matmul (the paper's OP_SML8/OP_AD24 analogue).
+
+    xq: (M, K) int8; xs: (M, K/32) f32 block scales; w: Q8_0 (N, K).
+    y[m, n] = sum_b (xq[m, b, :] . wq[n, b, :]) * xs[m, b] * ws[n, b],
+    each block dot an exact integer (|dot| <= 32 * 128^2 < 2^24, so an f32
+    product of the int8 values computes it exactly, on the CPU and on the
+    card alike), scaled as ``(dot * xs) * ws`` and summed over the blocks
+    in f32."""
+    m, k = xq.shape
+    n = w.qs.shape[0]
+    nb = k // QK8_0
+    a = xq.reshape(m, nb, QK8_0).float().transpose(0, 1)     # (nb, M, 32)
+    b = w.qs.reshape(n, nb, QK8_0).float().transpose(0, 1)   # (nb, N, 32)
+    ints = torch.bmm(a, b.transpose(1, 2))                   # (nb, M, N)
+    scaled = ints * xs.float().t()[:, :, None] * w.d.float().t()[:, None, :]
+    return scaled.sum(dim=0)
+
+
+def q4_matmul_ref(x: torch.Tensor, w: Q4_0Tensor) -> torch.Tensor:
+    """y = x @ dequant(w).T with the weight rounded to bf16; f32 out."""
+    return _bf16_product(x, quant.dequantize_q4_0(w, torch.bfloat16))
 
 
 def q3k_matmul_ref(x: torch.Tensor, w: Q3KTensor) -> torch.Tensor:

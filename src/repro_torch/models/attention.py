@@ -1,16 +1,20 @@
 """GQA attention (``repro.models.attention``): full-sequence attention
-with RoPE, and the paged KV-cache paths of LM serving — fused chunk
-prefill (``attention_prefill_paged``) and one-token decode
-(``attention_decode`` with ``block_tables``).
+with RoPE, and the KV-cache paths of LM decoding — the paged pools of
+the serving runtime (fused chunk prefill ``attention_prefill_paged`` and
+one-token decode with ``block_tables``) and the contiguous per-row
+caches of the reference's generation loop (``attention_decode`` without
+``block_tables``: one shared scalar ``pos``, or per-row positions; a
+ring buffer of ``sliding_window`` slots for windowed configs).
 
-The paged pools are updated in place (the reference returns new arrays):
-the fused prefill kernel writes the chunk's rows, and decode scatters
-the new token's K/V with plain tensor indexing.  A bf16 pool is then read
-by the ``flash_decode_paged`` kernel; a Q8_0 pool keeps the reference's
-gather -> dequantize -> einsum in plain PyTorch, because the reference
-has no kernel for that read.  The contiguous and row-wise decode caches
-(``_update_read_contiguous`` / ``_update_read_rowwise``) and M-RoPE are
-not ported.
+Every cache is updated in place (the reference returns new arrays): the
+fused prefill kernel writes the chunk's rows, and decode writes the new
+token's K/V with plain tensor indexing.  A bf16 cache is then read by a
+kernel — ``flash_decode_paged`` for a pool, ``flash_decode`` for a
+contiguous cache at a scalar ``pos``.  A Q8_0 cache, and a contiguous
+cache at per-row positions, keep the reference's (dequantize ->) einsum
+read in plain PyTorch: the reference has no kernel for those reads, and
+``flash_decode``, like its Pallas kernel, reads bf16 and takes one
+``kv_len`` for all rows.  M-RoPE is not ported.
 """
 from __future__ import annotations
 
@@ -23,27 +27,27 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
 from repro_torch.core.qlinear import apply_linear, init_linear
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_decode import attend_decode
 from repro_torch.models import layers
 
 
 class KVCache(NamedTuple):
-    """Paged KV pool of one layer.  k/v: (NB, Hkv, bs, hd) (int8 when
-    quantized); scales only for the quantized variant:
-    (NB, Hkv, bs, hd // 32) float16."""
+    """KV cache of one layer: a contiguous cache, k/v (B, Hkv, C, hd), or
+    a paged pool, k/v (NB, Hkv, bs, hd); int8 when quantized, with f16
+    scales (..., hd // 32) only for the quantized variant."""
     k: torch.Tensor
     v: torch.Tensor
     k_scale: torch.Tensor | None
     v_scale: torch.Tensor | None
 
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[2]
 
-def init_paged_kv_cache(num_blocks: int, cfg: ModelConfig, block_size: int,
-                        quantized: bool = False, device="cuda") -> KVCache:
-    """Physical block pool for the paged serving runtime; block 0 is the
-    null block idle slots point at (see ``serving.kvcache``)."""
-    device = resolve_device(device)
-    shape = (num_blocks, cfg.num_kv_heads, block_size, cfg.hd)
+
+def _zeros_cache(shape, quantized: bool, device) -> KVCache:
     if quantized:
-        sshape = (num_blocks, cfg.num_kv_heads, block_size, cfg.hd // 32)
+        sshape = (*shape[:-1], shape[-1] // 32)
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
                        torch.zeros(shape, dtype=torch.int8, device=device),
                        torch.zeros(sshape, dtype=torch.float16, device=device),
@@ -51,6 +55,25 @@ def init_paged_kv_cache(num_blocks: int, cfg: ModelConfig, block_size: int,
     return KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=device),
                    torch.zeros(shape, dtype=torch.bfloat16, device=device),
                    None, None)
+
+
+def init_kv_cache(batch: int, cfg: ModelConfig, max_len: int,
+                  quantized: bool = False, device="cuda") -> KVCache:
+    """Contiguous cache of ``min(max_len, sliding_window)`` slots per row
+    (a ring buffer for windowed configs)."""
+    cap = max_len
+    if cfg.sliding_window is not None:
+        cap = min(cap, cfg.sliding_window)
+    return _zeros_cache((batch, cfg.num_kv_heads, cap, cfg.hd), quantized,
+                        resolve_device(device))
+
+
+def init_paged_kv_cache(num_blocks: int, cfg: ModelConfig, block_size: int,
+                        quantized: bool = False, device="cuda") -> KVCache:
+    """Physical block pool for the paged serving runtime; block 0 is the
+    null block idle slots point at (see ``serving.kvcache``)."""
+    return _zeros_cache((num_blocks, cfg.num_kv_heads, block_size, cfg.hd),
+                        quantized, resolve_device(device))
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -169,26 +192,101 @@ def attention_prefill_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 # ------------------------------------------------------------- decode
 
+def _write(cache: KVCache, index, k, v) -> None:
+    """Write the new token's K/V (B, Hkv, 1, hd) at ``cache.k[index]``, in
+    place; a Q8_0 cache stores its quants and scales."""
+    if cache.k_scale is None:
+        cache.k[index] = k[:, :, 0].to(cache.k.dtype)
+        cache.v[index] = v[:, :, 0].to(cache.v.dtype)
+        return
+    kq, kd = _quantize_kv(k)
+    vq, vd = _quantize_kv(v)
+    for buf, upd in ((cache.k, kq), (cache.v, vq), (cache.k_scale, kd),
+                     (cache.v_scale, vd)):
+        buf[index] = upd[:, :, 0]
+
+
+def _read(cache: KVCache) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole contiguous cache as bf16 (keys, vals)."""
+    if cache.k_scale is None:
+        return cache.k, cache.v
+    return (_dequantize_kv(cache.k, cache.k_scale),
+            _dequantize_kv(cache.v, cache.v_scale))
+
+
+def _contiguous_slot(cfg: ModelConfig, cap: int, pos: int) -> tuple[int, int]:
+    """(slot, kv_len) of a contiguous cache of ``cap`` slots at a shared
+    scalar ``pos``: the token goes to slot ``pos % cap`` (ring buffer,
+    windowed configs) or ``min(pos, cap-1)``, and slots ``c < kv_len``
+    hold tokens, with ``kv_len = min(pos, cap-1) + 1``, or
+    ``min(pos+1, cap)`` in the ring (all of its filled slots are valid)."""
+    if cfg.sliding_window is not None:
+        return pos % cap, min(pos + 1, cap)
+    return min(pos, cap - 1), min(pos, cap - 1) + 1
+
+
+def scalar_pos_tensors(cfg: ModelConfig, pos: int, batch: int, cap: int,
+                       device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device tensors of a decode step at a shared scalar ``pos`` on
+    contiguous caches of ``cap`` slots: (pos_vec (B,) int32 for RoPE,
+    kv_len (1,) int32 for ``flash_decode``).  ``lm_decode_step`` builds
+    them once per step for all its layers."""
+    kv_len = _contiguous_slot(cfg, cap, pos)[1]
+    return (torch.full((batch,), pos, dtype=torch.int32, device=device),
+            torch.full((1,), kv_len, dtype=torch.int32, device=device))
+
+
+def _update_read_contiguous(cfg: ModelConfig, cache: KVCache, k, v,
+                            pos: int):
+    """Contiguous rows, one shared scalar ``pos``: write the token at its
+    slot (:func:`_contiguous_slot`).  Returns (keys, vals, kv_len)."""
+    slot, kv_len = _contiguous_slot(cfg, cache.capacity, pos)
+    _write(cache, (slice(None), slice(None), slot), k, v)
+    return (*_read(cache), kv_len)
+
+
+def _update_read_rowwise(cfg: ModelConfig, cache: KVCache, k, v,
+                         pos_vec: torch.Tensor):
+    """Contiguous rows with *per-row* positions ((B,) int32): row r
+    writes at its own slot.  Returns (keys, vals, valid (B, C))."""
+    cap = cache.capacity
+    b = k.shape[0]
+    rows = torch.arange(b, device=k.device)
+    pos_l = pos_vec.long()
+    if cfg.sliding_window is not None:
+        slot = pos_l % cap
+    else:
+        slot = pos_l.clamp(max=cap - 1)
+    _write(cache, (rows, slice(None), slot), k, v)
+    keys, vals = _read(cache)
+    idx = torch.arange(cap, device=k.device)[None, :]
+    if cfg.sliding_window is None:
+        valid = idx <= pos_l.clamp(max=cap - 1)[:, None]
+    else:
+        valid = idx < (pos_l + 1).clamp(max=cap)[:, None]
+    return keys, vals, valid
+
+
+def _paged_index(block_tables, pos_l, bs):
+    """Index of each row's position ``pos_l`` in a paged pool: block
+    ``tables[r, pos // bs]``, offset ``pos % bs``."""
+    rows = torch.arange(block_tables.shape[0], device=block_tables.device)
+    return block_tables[rows, pos_l // bs].long(), slice(None), pos_l % bs
+
+
 def _update_read_paged(cfg: ModelConfig, cache: KVCache, k, v, pos_vec,
                        block_tables):
     """Q8_0 paged pool: scatter the new token's quantized K/V at block
     ``tables[r, pos // bs]`` offset ``pos % bs`` (in place), gather and
     dequantize the logical window, and mask ``idx <= pos`` (and the
-    sliding window).  Returns (keys, vals, valid (B, MB*bs)), masked
-    values selected to 0 (recycled blocks may hold NaN)."""
+    sliding window).  Returns (keys, vals, valid (B, MB*bs)); recycled
+    blocks may hold NaN, which the read selects away."""
     b = k.shape[0]
     bs = cache.k.shape[2]
     mb = block_tables.shape[1]
-    rows = torch.arange(b, device=k.device)
     pos_l = pos_vec.long()
-    bid = block_tables[rows, pos_l // bs].long()
-    off = pos_l % bs
+    _write(cache, _paged_index(block_tables, pos_l, bs), k, v)
     tbl = block_tables.long()
-    kq, kd = _quantize_kv(k)
-    vq, vd = _quantize_kv(v)
-    for pool, upd in ((cache.k, kq), (cache.v, vq), (cache.k_scale, kd),
-                      (cache.v_scale, vd)):
-        pool[bid, :, off] = upd[:, :, 0]
 
     def gather(pool):
         # (B, MB, Hkv, bs, d*) -> (B, Hkv, MB*bs, d*)
@@ -201,22 +299,34 @@ def _update_read_paged(cfg: ModelConfig, cache: KVCache, k, v, pos_vec,
     valid = idx <= pos_l[:, None]
     if cfg.sliding_window is not None:
         valid &= idx > (pos_l[:, None] - cfg.sliding_window)
-    vals = torch.where(valid[:, None, :, None], vals,
-                       torch.zeros((), dtype=vals.dtype, device=vals.device))
     return keys, vals, valid
 
 
-def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                     pos: torch.Tensor, cache: KVCache, *, rope: bool = True,
-                     block_tables: torch.Tensor
+def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos,
+                     cache: KVCache, *, rope: bool = True,
+                     block_tables: torch.Tensor | None = None,
+                     pos_tensors: tuple | None = None
                      ) -> tuple[torch.Tensor, KVCache]:
-    """One-token decode on the paged pool.  x: (B, 1, d); pos: (B,) int32
-    per-slot positions (the position each row writes); block_tables:
-    (B, MB) int32.  Returns (out (B, 1, d), cache updated in place)."""
-    if block_tables is None:
-        raise NotImplementedError("only the paged decode cache is ported")
+    """One-token decode.  x: (B, 1, d); pos: the position each row writes,
+    a scalar shared by all rows (an int, or a 0-d tensor) or (B,) int32
+    per-row positions.  ``pos_tensors``: :func:`scalar_pos_tensors` of a
+    scalar ``pos``, built here when not given.
+
+    ``block_tables`` (B, MB) int32 selects the paged pool (per-row
+    positions required): a bf16 pool is read by ``flash_decode_paged``.
+    Without it the cache is contiguous: at a scalar ``pos`` a bf16 cache
+    is read by ``flash_decode`` with ``kv_len`` valid slots; a Q8_0 cache,
+    or per-row positions, take the reference's einsum read
+    (:func:`attend_decode`).  Returns (out (B, 1, d), cache updated in
+    place)."""
     b = x.shape[0]
-    pos_vec = pos.to(device=x.device, dtype=torch.int32)
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() > 0
+    if per_row:
+        pos_vec = pos.to(device=x.device, dtype=torch.int32)
+    else:
+        pos = _as_int(pos)
+        pos_vec, kv_len_t = pos_tensors or scalar_pos_tensors(
+            cfg, pos, b, cache.capacity, x.device)
     q = _split_heads(apply_linear(p["wq"], x), cfg.num_heads)
     k = _split_heads(apply_linear(p["wk"], x), cfg.num_kv_heads)
     v = _split_heads(apply_linear(p["wv"], x), cfg.num_kv_heads)
@@ -226,27 +336,30 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     g = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, cfg.num_kv_heads, g, cfg.hd)
     scale = cfg.hd ** -0.5
-    if cache.k_scale is None:
-        bs = cache.k.shape[2]
-        rows = torch.arange(b, device=x.device)
-        pos_l = pos_vec.long()
-        bid = block_tables[rows, pos_l // bs].long()
-        off = pos_l % bs
-        cache.k[bid, :, off] = k[:, :, 0].to(cache.k.dtype)
-        cache.v[bid, :, off] = v[:, :, 0].to(cache.v.dtype)
-        out = ops.paged_decode_attention(
-            qg.to(cache.k.dtype), cache.k, cache.v, block_tables, pos_vec,
-            scale=scale, window=cfg.sliding_window)
+    quantized = cache.k_scale is not None
+    if block_tables is not None:
+        assert per_row, "paged decode requires per-slot positions"
+        if not quantized:
+            _write(cache, _paged_index(block_tables, pos_vec.long(),
+                                       cache.k.shape[2]), k, v)
+            out = ops.paged_decode_attention(
+                qg.to(cache.k.dtype), cache.k, cache.v, block_tables, pos_vec,
+                scale=scale, window=cfg.sliding_window)
+        else:
+            # No kernel reads a Q8_0 pool in the reference's decode either:
+            # gather, dequantize to bf16, einsum with f32 accumulation.
+            out = attend_decode(qg, *_update_read_paged(
+                cfg, cache, k, v, pos_vec, block_tables), scale)
+    elif per_row:
+        out = attend_decode(qg, *_update_read_rowwise(cfg, cache, k, v,
+                                                      pos_vec), scale)
     else:
-        # No kernel reads a Q8_0 pool in the reference's decode either:
-        # gather, dequantize to bf16, einsum with f32 accumulation.
-        keys, vals, valid = _update_read_paged(cfg, cache, k, v, pos_vec,
-                                               block_tables)
-        logits = torch.einsum("bhgd,bhcd->bhgc", qg.to(keys.dtype).float(),
-                              keys.float()) * scale
-        logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
-        probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhgc,bhcd->bhgd", probs.to(vals.dtype).float(),
-                           vals.float())
+        keys, vals, kv_len = _update_read_contiguous(cfg, cache, k, v, pos)
+        if not quantized:
+            out = ops.decode_attention(qg.to(keys.dtype), keys, vals,
+                                       kv_len_t, scale=scale)
+        else:
+            valid = torch.arange(cache.capacity, device=x.device) < kv_len
+            out = attend_decode(qg, keys, vals, valid[None, :], scale)
     out = out.reshape(b, 1, cfg.num_heads * cfg.hd).to(x.dtype)
     return apply_linear(p["wo"], out), cache

@@ -122,7 +122,8 @@ def apply_embedding(emb: Linear, tokens: torch.Tensor) -> torch.Tensor:
         sub = Q8_0Tensor(w.qs[tokens], w.d[tokens])
         return quant.dequantize_q8_0(sub, torch.bfloat16)
     if isinstance(w, Q4_0Tensor):
-        raise quant.q4_0_not_ported()
+        return quant.dequantize_q4_0(Q4_0Tensor(w.qs[tokens], w.d[tokens]),
+                                     torch.bfloat16)
     if isinstance(w, Q3KTensor):
         sub = Q3KTensor(w.ql[tokens], w.qh[tokens], w.scales[tokens],
                         w.d[tokens], scale_bits=w.scale_bits)

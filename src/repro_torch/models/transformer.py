@@ -1,14 +1,16 @@
 """The dense attention-only LM stack (``repro.models.transformer``):
-parameters, the full-sequence forward, and the paged-cache serving paths
-(one-token decode, fused chunk prefill and its decode-step scan).
+parameters, the full-sequence forward, one-token decode on a contiguous
+or a paged cache, and the paged serving paths (fused chunk prefill and
+its decode-step scan).
 
 The reference stacks layer parameters over a leading period axis for
 ``lax.scan``; here ``params["layers"]`` is a plain list with one dict
 per layer, walked by a Python loop (``weights.from_reference`` unstacks
-the reference's layout).  Likewise the serving cache is a list with one
-paged :class:`~repro_torch.models.attention.KVCache` per layer, with no
-recurrent or cross-attention fields, and its pools are updated in place.
-MoE, SSM, hybrid and enc-dec stacks come with later slices.
+the reference's layout).  Likewise the cache is a list with one
+:class:`~repro_torch.models.attention.KVCache` per layer (contiguous
+rows, or a paged pool), with no recurrent or cross-attention fields,
+updated in place.  MoE, SSM, hybrid and enc-dec stacks come with later
+slices.
 """
 from __future__ import annotations
 
@@ -133,17 +135,21 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 def init_cache(params: dict, cfg: ModelConfig, batch: int, max_len: int, *,
                quantized_kv: bool = False, block_size: int | None = None,
                num_blocks: int | None = None, device="cuda") -> list:
-    """One paged KV pool (num_blocks, Hkv, block_size, hd) per layer; the
-    slot -> block mapping lives host-side in ``serving.kvcache``.  Only
-    the paged layout is ported, so ``block_size`` and ``num_blocks`` are
-    required (``batch``/``max_len`` size the runtime, not the pools)."""
-    del params, batch, max_len
+    """One KV cache per layer: with ``block_size``/``num_blocks`` a paged
+    pool (num_blocks, Hkv, block_size, hd), whose slot -> block mapping
+    lives host-side in ``serving.kvcache``; otherwise contiguous rows
+    (batch, Hkv, min(max_len, sliding_window), hd)."""
+    del params
     _check_supported(cfg)
-    if block_size is None or num_blocks is None:
-        raise NotImplementedError("only the paged cache (block_size and "
-                                  "num_blocks) is ported")
-    return [attn_mod.init_paged_kv_cache(num_blocks, cfg, block_size,
-                                         quantized=quantized_kv, device=device)
+    if (block_size is None) != (num_blocks is None):
+        raise ValueError("paged cache needs both block_size and num_blocks")
+    if block_size is not None:
+        return [attn_mod.init_paged_kv_cache(num_blocks, cfg, block_size,
+                                             quantized=quantized_kv,
+                                             device=device)
+                for _ in range(cfg.num_layers)]
+    return [attn_mod.init_kv_cache(batch, cfg, max_len, quantized=quantized_kv,
+                                   device=device)
             for _ in range(cfg.num_layers)]
 
 
@@ -152,22 +158,37 @@ def _is_quantized(cache: list) -> bool:
 
 
 def lm_decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                   pos: torch.Tensor, cache: list, *,
-                   block_tables: torch.Tensor
+                   pos, cache: list, *,
+                   block_tables: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, list]:
-    """token: (B, 1); pos: (B,) int32 per-slot positions; block_tables:
-    (B, MB) int32 -> (logits (B, 1, V) f32, cache updated in place)."""
+    """token: (B, 1); pos: a scalar shared by all rows (an int, or a 0-d
+    tensor) or (B,) int32 per-slot positions; ``block_tables`` (B, MB)
+    int32 selects the paged cache (per-slot positions required), else
+    the cache is contiguous.  -> (logits (B, 1, V) f32, cache updated in
+    place)."""
     _check_supported(cfg)
     x = L.apply_embedding(params["embed"], token)
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() > 0
+    pos_tensors = None
+    if not per_row:
+        pos = attn_mod._as_int(pos)
+        if block_tables is None:       # shared by every layer's cache
+            pos_tensors = attn_mod.scalar_pos_tensors(
+                cfg, pos, token.shape[0], cache[0].capacity, x.device)
     if cfg.pos_embed == "sinusoidal":
-        x = x + torch.stack([_sinusoidal(1, cfg.d_model, offset=int(o),
-                                         device=x.device) for o in pos])
+        if per_row:
+            x = x + torch.stack([_sinusoidal(1, cfg.d_model, offset=int(o),
+                                             device=x.device) for o in pos])
+        else:
+            x = x + _sinusoidal(1, cfg.d_model, offset=pos,
+                                device=x.device)[None]
     rope = cfg.pos_embed == "rope"
     new = []
     for p, c in zip(params["layers"], cache):
         h = _apply_norm(cfg, p["norm1"], x)
         y, c = attn_mod.attention_decode(p["attn"], cfg, h, pos, c, rope=rope,
-                                         block_tables=block_tables)
+                                         block_tables=block_tables,
+                                         pos_tensors=pos_tensors)
         new.append(c)
         x = _apply_ffn(p, cfg, x + y)
     x = _apply_norm(cfg, params["final_norm"], x)

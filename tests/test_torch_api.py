@@ -58,6 +58,11 @@ def test_import_and_engine_leave_jax_unloaded():
         "prefix_share=True, **kw)\n"
         "    cb.submit(Request(rid=0, prompt=[3] * 9, max_new=3))\n"
         "    assert len(cb.run()[0].out) == 3\n"
+        "from repro_torch.core.policy import get_policy\n"
+        "from repro_torch.core.qlinear import quantize_params\n"
+        "from repro_torch.train.serve_step import greedy_generate\n"
+        "q4 = quantize_params(p, get_policy('q4_0'))\n"
+        "assert greedy_generate(q4, cfg, [[3] * 4], 2, device='cpu').shape == (1, 6)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n")

@@ -12,7 +12,11 @@ excess precision) where the port rounds every op as the reference does
 when run op by op.  The reference itself differs between the two ways
 of running by about as much (its TINY UNet, jit against op by op on the
 CPU: corr 0.99982, max|d| 4.7e-2), while op by op the port matches it
-exactly (tests/test_torch_unet.py).
+exactly (tests/test_torch_unet.py).  Under ``q4_0`` the correlation
+bound is 0.9998: the same difference leaves its three images at corr
+0.99989-0.99994 (``q8_0`` and ``q3_k``: 0.99991-0.99995), while the Q4_0
+matmul itself agrees with the reference's to the bit
+(tests/test_torch_kernels.py).
 """
 import numpy as np
 import pytest
@@ -29,6 +33,7 @@ from repro_torch.configs import TINY_SD  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
 
 CORR, MAX_ABS = 0.9999, 5e-2
+CORR_BY_PRESET = {"q4_0": 0.9998}
 
 
 def jax_noise(req, hw):
@@ -71,10 +76,10 @@ def assert_images_close(jimg, timg, corr=CORR, max_abs=MAX_ABS):
         assert c > corr and d <= max_abs, (rid, c, d)
 
 
-@pytest.mark.parametrize("weight_quant", [None, "q8_0", "q3_k"])
+@pytest.mark.parametrize("weight_quant", [None, "q8_0", "q4_0", "q3_k"])
 def test_turbo_images_match(params, weight_quant):
     toks = _tokens(3)
     specs = [dict(rid=i, tokens=toks[i], seed=i) for i in range(3)]
     jimg, timg = run_pair(params, specs, weight_quant=weight_quant)
     assert timg[0].shape == (16, 16, 3)
-    assert_images_close(jimg, timg)
+    assert_images_close(jimg, timg, corr=CORR_BY_PRESET.get(weight_quant, CORR))

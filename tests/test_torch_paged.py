@@ -403,8 +403,6 @@ def test_unported_stacks_raise():
         moe=tbase.MoEConfig(num_experts=4, top_k=2)))
     with pytest.raises(NotImplementedError):
         tT.init_cache({}, moe, 1, 8, block_size=4, num_blocks=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tT.init_cache({}, TCFG, 1, 8, device="cpu")     # contiguous layout
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "llama3-405b", "h2o-danube-3-4b",

@@ -1,10 +1,10 @@
 """Port parity: quantized storage formats and quantized linears.
 
 The port's ``repro_torch.core.quant`` must give the reference's bytes
-exactly (``qs``/``d`` for Q8_0, ``ql``/``qh``/``scales``/``d`` for
-Q3_K) on the edge cases of ``tests/test_quant.py`` and on random data,
-for both Q3_K scale widths.  Q4_0 is not ported yet: a converted Q4_0
-weight keeps its bytes, and quantizing to it raises.
+exactly (``qs``/``d`` for Q8_0 and Q4_0, ``ql``/``qh``/``scales``/``d``
+for Q3_K) on the edge cases of ``tests/test_quant.py`` and on random
+data, for both Q3_K scale widths; a converted Q4_0 weight keeps its
+bytes and dequantizes as the reference's does.
 """
 import dataclasses
 
@@ -50,7 +50,7 @@ EDGE = {
 
 
 @pytest.mark.parametrize("case", sorted(EDGE))
-@pytest.mark.parametrize("fmt", ["q8_0"])
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_0"])
 def test_block32_bytes_match(fmt, case):
     x = EDGE[case]
     jt = jq.quantize(jnp.asarray(x), fmt)
@@ -65,7 +65,7 @@ def test_block32_bytes_match(fmt, case):
 @pytest.mark.parametrize("case", sorted(EDGE))
 def test_q4_0_converter_keeps_bytes(case):
     """A reference Q4_0 weight crosses into the port's storage type with
-    its bytes, ``logical`` and shape; using it raises until ported."""
+    its bytes, ``logical`` and shape, and dequantizes to the same values."""
     jt = jq.quantize_q4_0(jnp.asarray(EDGE[case]))
     tt = from_reference(jt, "cpu")
     assert isinstance(tt, tq.Q4_0Tensor)
@@ -73,8 +73,11 @@ def test_q4_0_converter_keeps_bytes(case):
     _eq(jt.d, tt.d)
     assert jt.logical == tt.logical and tuple(jt.shape) == tt.shape
     assert tt.nbytes() == np.asarray(jt.qs).nbytes + np.asarray(jt.d).nbytes
-    with pytest.raises(NotImplementedError, match="q4_0"):
-        tq.dequantize(tt)
+    for dtype, jdtype in ((torch.float32, jnp.float32),
+                          (torch.bfloat16, jnp.bfloat16)):
+        np.testing.assert_array_equal(
+            tq.dequantize(tt, dtype).float().numpy(),
+            np.asarray(jq.dequantize(jt, jdtype), np.float32))
 
 
 Q3K_EDGE = ["zeros_256", "equal_256", "max_negative", "random",
@@ -120,6 +123,14 @@ def test_pack_unpack_helpers_match():
     _eq(jl, tl)
     _eq(jh, th)
     _eq(jq.unpack_q3(jl, jh), tq.unpack_q3(tl, th))
+    q4 = rng.integers(0, 16, (5, 96)).astype(np.uint8)
+    q4[0, :2] = [1, 14]          # asymmetric: a swapped nibble order differs
+    jp4 = jq.pack_q4(jnp.asarray(q4))
+    tp4 = tq.pack_q4(torch.from_numpy(q4))
+    _eq(jp4, tp4)
+    assert int(tp4[0, 0]) == 1 | (14 << 4)
+    _eq(jq.unpack_q4(jp4), tq.unpack_q4(tp4))
+    np.testing.assert_array_equal(tq.unpack_q4(tp4).numpy(), q4.astype(np.int8) - 8)
     sc = rng.integers(0, 64, (3, 4, 16)).astype(np.uint8)
     _eq(jq.pack_scales6(jnp.asarray(sc)), tq.pack_scales6(torch.from_numpy(sc)))
     packed = tq.pack_scales6(torch.from_numpy(sc))
@@ -141,7 +152,8 @@ LINEAR_CASES = [("attn_qkv", 256), ("attn_qkv", 320), ("conv", 288),
                 ("time_embed", 64), ("mlp_down", 40)]
 
 
-@pytest.mark.parametrize("preset", ["none", "q8_0", "q3_k", "q3_k_imax"])
+@pytest.mark.parametrize("preset", ["none", "q8_0", "q4_0", "q3_k",
+                                    "q3_k_imax"])
 @pytest.mark.parametrize("role,k", LINEAR_CASES)
 def test_quantize_linear_matches(preset, role, k):
     """Same storage choice (dense when K is not a block multiple) and the
@@ -161,22 +173,6 @@ def test_quantize_linear_matches(preset, role, k):
             a, b = getattr(tlin.w, f.name), getattr(conv.w, f.name)
             assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
     assert tql.param_bytes(tlin) == jql.param_bytes(jlin)
-
-
-@pytest.mark.parametrize("role,k", LINEAR_CASES)
-def test_quantize_linear_q4_0_not_ported(role, k):
-    """Under the q4_0 preset the port raises where the reference would
-    store Q4_0, and keeps the same dense weight where it stays dense."""
-    w = jnp.asarray(_rand((8, k), seed=k), jnp.bfloat16)
-    policy = jpolicy.get_policy("q4_0")
-    jlin = jql.quantize_linear(jql.Linear(w, None, role), policy)
-    tin = from_reference(jql.Linear(w, None, role), "cpu")
-    if isinstance(jlin.w, jq.Q4_0Tensor):
-        with pytest.raises(NotImplementedError, match="q4_0"):
-            tql.quantize_linear(tin, tpolicy.get_policy("q4_0"))
-    else:
-        tlin = tql.quantize_linear(tin, tpolicy.get_policy("q4_0"))
-        assert torch.equal(tlin.w, from_reference(jlin, "cpu").w)
 
 
 def test_to_tensor_keeps_dtypes_and_bits():
