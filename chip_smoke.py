@@ -8,7 +8,8 @@ caught and passed over):
 1. card    — ``nvidia-smi`` name and power limit; fails without CUDA.
 2. build   — ``nvcc`` builds every kernel under ``src/repro_torch/csrc``
              (one process per source, all at once) and prints the seconds
-             and the ptxas register/shared-memory report.
+             and the ptxas report (registers and spills) of each kernel
+             function, each template instantiation under its own name.
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes and at edge shapes (Sq < 8, ragged
              tiles, tail-padded Q8_0 and Q4_0 weights through ``ops``, a K
@@ -38,7 +39,10 @@ caught and passed over):
              ``DiffusionEngine(device="cuda", max_batch=2)`` under the
              none, q8_0, q3_k and q4_0 presets: 3 requests each, checked images
              and exact launch counts, per-phase times, peak memory, and a
-             torch.profiler breakdown of one UNet step and one VAE pass.
+             torch.profiler breakdown of one UNet step and one VAE pass;
+             the UNet's attention per eval (each UNet shape's kernel time
+             times its launches per eval) beside the profiler's
+             ``flash_attention_kernel`` total in that step.
 6. full_lm — Granite-8B at full width (36 layers, d 4096, GQA 32/8, hd
              128) with seeded synthetic weights made on the card, served by
              ``ContinuousBatcher(slots=4, block_size=16, prefill_chunk=256)``:
@@ -120,7 +124,16 @@ ATTN_SHAPES = [  # (B, H, Sq, Sk, D, causal, window)
     (2, 8, 256, 256, 160, False, None),    # UNet level-2 self-attention
     (2, 12, 77, 77, 64, True, None),       # CLIP causal self-attention
     (2, 8, 1024, 1000, 64, False, None),   # ragged last key tile
+    (2, 8, 1024, 77, 80, False, None),     # UNet level-1 cross-attention
+    (2, 8, 256, 77, 160, False, None),     # UNet level-2 cross-attention
+    (2, 8, 64, 64, 160, False, None),      # UNet mid self-attention
+    (2, 8, 64, 77, 160, False, None),      # UNet mid cross-attention
 ]
+# Launches of each UNet shape (head dims 40/80/160) per UNet eval: levels
+# 0/1/2 have 5 spatial transformers each (2 down, 3 up), the mid block
+# (Sq = 64) 1; each transformer runs one self- and one cross-attention.
+UNET_ATTN_PER_EVAL = {shape: 1 if shape[2] == 64 else 5 for shape in ATTN_SHAPES
+                      if shape[4] in (40, 80, 160)}
 # Granite-8B through lm_forward (KV heads repeated to 32): full_gen's
 # make_prefill on 128-token prompts, and its check over 159 tokens.
 ATTN_LM_SHAPES = [(4, 32, 128, 128, 128, True, None),
@@ -216,6 +229,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn`` (the sum of its kernels) under
+    torch.profiler, which leaves out the host time between launches that
+    ``cuda_ms`` includes for small shapes; nan when the profiler saw no
+    device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return sum(us) / 1e3 / iters if us else float("nan")
+
+
 def bound(flops: float, nbytes: float,
           peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
@@ -244,7 +275,7 @@ def phase_build() -> None:
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     for name in build.KERNELS:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "error")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -286,10 +317,15 @@ def _attn_case(shape, gen, timed: bool) -> dict:
         flops = 4.0 * b * h * pairs * d
         nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * h * sk * d)
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        mask = mask.cuda()
+
+        def library():
+            if window is None:
+                return sdpa(q, k, v, is_causal=causal)
+            return sdpa(q, k, v, attn_mask=mask)
         row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
-                   library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=causal)
-                                      if window is None else
-                                      sdpa(q, k, v, attn_mask=mask.cuda())))
+                   library_ms=cuda_ms(library), device_ms=device_ms(kern),
+                   library_device_ms=device_ms(library))
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
     return row
 
@@ -653,6 +689,9 @@ def _log_rows(rows: dict) -> None:
                       f" ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
                       f"library {r['library_ms']:.4f} bound {r['bound_ms']:.4f}"
                       f" ({r['bound_by']})")
+            if "device_ms" in r:
+                timing += (f"; device ms {r['device_ms']:.4f} library "
+                           f"{r['library_device_ms']:.4f}")
             log(f"[kernels] {name} {r['shape']} max|err| "
                 f"{r['max_abs_err']:.3e}{timing}")
 
@@ -708,9 +747,11 @@ def _kind(name: str) -> str:
     return "other (elementwise, norms, copies)"
 
 
-def _profile(label: str, fn) -> None:
+def _profile(label: str, fn) -> dict[str, list]:
     """One warm call of ``fn`` under torch.profiler: device time by kind
-    and by kernel, against the call's wall time (CUDA events)."""
+    and by kernel, against the call's wall time (CUDA events).  Returns
+    ``{kernel name: [ms, launches]}`` (empty when the profiler saw no
+    device kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -732,7 +773,7 @@ def _profile(label: str, fn) -> None:
     if not by_name:
         log(f"[profile] {label}: the profiler saw no device kernels "
             f"(device time not measured); wall {wall:.2f} ms")
-        return
+        return by_name
     busy = sum(ms for ms, _ in by_name.values())
     kinds: dict[str, list] = {}
     for name, (ms, n) in by_name.items():
@@ -745,9 +786,28 @@ def _profile(label: str, fn) -> None:
                     sorted(kinds.items(), key=lambda kv: -kv[1][0])))
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         log(f"[profile]   {ms:8.3f} ms {n:5d}x {name[:90]}")
+    return by_name
 
 
-def _phase_times(engine, gen, label: str) -> dict:
+def _log_unet_attention(attn_rows: list[dict], unet_profile: dict) -> None:
+    """The UNet's attention per eval from the kernels phase (each UNet
+    shape's time times its launches per eval) beside the profiler's
+    ``flash_attention_kernel`` total in one UNet eval."""
+    timed = {r["shape"]: r for r in attn_rows if "ms" in r}
+    n = sum(UNET_ATTN_PER_EVAL.values())
+    est = {key: sum(w * timed[shape][key] for shape, w in UNET_ATTN_PER_EVAL.items())
+           for key in ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")}
+    prof = [row for name, row in unet_profile.items() if "flash_attention_kernel" in name]
+    seen = (f"{sum(ms for ms, _ in prof):.4f} ms over {sum(c for _, c in prof)} launches"
+            if prof else "not measured (no device kernels in the profile)")
+    log(f"[attention] UNet eval, {n} launches weighted by shape: kernel "
+        f"{est['ms']:.4f} ms (device {est['device_ms']:.4f}), SDPA "
+        f"{est['library_ms']:.4f} ms (device {est['library_device_ms']:.4f}), "
+        f"bound {est['bound_ms']:.4f} ms; profiler flash_attention_kernel in "
+        f"the none unet_step: {seen}")
+
+
+def _phase_times(engine, gen, label: str) -> tuple[dict, dict]:
     from repro_torch.models import clip as clip_mod
     from repro_torch.models import unet as unet_mod
     from repro_torch.models import vae as vae_mod
@@ -772,12 +832,12 @@ def _phase_times(engine, gen, label: str) -> dict:
         times = {"clip_ms": cuda_ms(clip, iters=5),
                  "unet_step_ms": cuda_ms(unet, iters=5),
                  "vae_ms": cuda_ms(vae, iters=3, warmup=1)}
-        _profile(f"{label} unet_step", unet)
+        unet_profile = _profile(f"{label} unet_step", unet)
         _profile(f"{label} vae", vae)
-    return times
+    return times, unet_profile
 
 
-def phase_full() -> dict[str, int]:
+def phase_full(attn_rows: list[dict]) -> dict[str, int]:
     from repro_torch.configs import SD_TURBO
     from repro_torch.core.qlinear import param_bytes
     from repro_torch.engine import (DiffusionEngine, GenerateRequest,
@@ -824,7 +884,9 @@ def phase_full() -> dict[str, int]:
         want.update({k: batches * v for k, v in LAUNCHES_PER_BATCH[preset].items()})
         if counts != want:
             raise AssertionError(f"{preset}: launches {counts}, expected {want}")
-        times = _phase_times(eng, gen, preset)
+        times, unet_profile = _phase_times(eng, gen, preset)
+        if preset == "none":
+            _log_unet_attention(attn_rows, unet_profile)
         log(f"[full] {preset}: 3 images in {wall:.2f} s wall; launches {counts}; "
             f"peak {peak:.2f} GiB; weights {param_bytes(eng.params) / 2**20:.0f} MiB; "
             + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
@@ -1412,7 +1474,8 @@ def main() -> int:
     phase_tiny()
     phase_tiny_lm()
     phase_tiny_gen()
-    for phase in (phase_full, lambda: phase_full_lm(card), lambda: phase_full_gen(card)):
+    for phase in (lambda: phase_full(rows["flash_attention"]),
+                  lambda: phase_full_lm(card), lambda: phase_full_gen(card)):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
     for name in KERNEL_META:

@@ -4,26 +4,63 @@
 // (_flash_kernel).  q: (BH,Sq,D), k/v: (BH,Sk,D), bf16 in, bf16 out.
 //   logits = (q . k) * scale  in f32; causal mask bottom-right aligned
 //   (kpos <= qpos + Sk - Sq); optional window (kpos > qpos + Sk - Sq - W);
-//   keys past Sk masked for any Sk; p = exp(logits - m) in f32, rounded to
-//   bf16 for the P.V product (as the Pallas kernel does), f32 accumulate;
-//   out = acc / l, and rows with no unmasked key give 0.
+//   keys past Sk masked for any Sk; p = exp(logits - m) in f32, the
+//   unnormalised p rounded to bf16 for the P.V product (the Pallas
+//   kernel's rounding point), f32 accumulate; out = acc / l in bf16, and
+//   rows with no unmasked key give 0.
 //
-// What bounds it on the H100: at the UNet's Sq = Sk = 4096 and head dims
-// 40/80/160 the work is the two products (4*Sq*Sk*D flops per head) and
-// the exp of every logit; the bytes (q, k, v, out once each) are small,
-// so it is compute-bound.  Design: one block of 4 warps per (b*h,
-// 64-query tile); each warp owns 16 query rows.  A loop over 64-key
-// tiles replaces the Pallas kernel's sequential third grid axis.  K and
-// V tiles are double-buffered in shared memory with cp.async (16-byte
-// copies, zero-filled past Sk and past D), so the next tile streams in
-// while the current one is used.  S = Q K^T and O += P V run on the
-// tensor cores through WMMA (bf16 16x16x16, f32 accumulate); the running
-// max m and sum l live in registers (two lanes per row, interleaved
-// columns); the f32 output accumulator lives in shared memory so it can
-// be rescaled by exp(m_old - m_new) per row.  Shared-memory rows are
-// padded to spread banks.  D is padded to a multiple of 16 with zeros,
-// which leaves q.k and P.V unchanged.  Key tiles past the causal
-// diagonal or before the window are skipped.  No wgmma/TMA yet.
+// What bounds it on the H100.  Per logit the kernel does 2*DP flops of
+// each product on the tensor cores and one exp on the special-function
+// units (16 ex2 per clock per SM).  At the UNet's D = 40 (DP = 48) the
+// exps set the floor, by reckoning from those rates: 2*8*4096^2 logits
+// over 132 SMs * 16/clk at about 1.98 GHz is about 0.064 ms, above the
+// 0.043 ms tensor-core bound; from D = 80 up the products dominate.  The
+// bytes (q, k, v and out once each) are small at every main-path shape.
+// Measured, the kernel sits well above both: within a CTA the warps meet
+// at one barrier per tile, so their Q.K^T, exp and P.V phases run in step
+// and the tensor cores and the exp units take turns, while several
+// hundred instructions issue per warp per 64-key tile.  Pipelining Q.K^T
+// of the next tile under the current softmax needs 32 more registers per
+// thread and lost more occupancy than it gained; the wgmma/TMA form is
+// the next step.
+//
+// Design (FlashAttention-2 on mma.sync):
+// - Templated on the padded head dim DP = 16, 32, ..., 192 (all twelve
+//   built; the host dispatches on (d + 15) / 16 * 16), so every loop over
+//   DP unrolls and S, P and O live in registers.  D pads with zero
+//   columns, which leaves q.k unchanged; only the first D columns are
+//   stored.
+// - One CTA per (b*h, query tile of BQ rows); each warp owns 16 rows.  BQ
+//   rule: 128 rows (8 warps) when BH * ceil(Sq/128) CTAs cover every SM,
+//   else 64 (4 warps), so the UNet's levels 1, 2 and mid, CLIP and
+//   make_prefill still spread over the card.  Tiles run in reverse order
+//   so the heaviest causal tiles start first.
+// - Q is loaded once (cp.async) and moved by ldmatrix.x4 into the A
+//   fragments of mma.m16n8k16 (bf16 in, f32 accumulate), where it stays
+//   for the whole key loop.
+// - K and V stream through a ring of STAGES (3 up to DP = 96, else 2)
+//   64-key tiles in shared memory, filled by 16-byte cp.async (zero past
+//   Sk); each thread copies one column chunk of every rpp-th row, with
+//   addresses worked out once, and columns past D are zeroed once.  One
+//   barrier per tile.  Rows are padded by 16 bytes, so ldmatrix on K (B
+//   operand of Q.K^T) and ldmatrix.trans on V (B operand of P.V) hit 8
+//   distinct bank groups.
+// - S = Q K^T is 8 n8-tiles x 4 f32 per thread; nothing goes to shared
+//   memory.  The row max and sum reduce over the quad of lanes sharing a
+//   row (two shuffles); p = ex2(s * scale*log2(e) - m * scale*log2(e)),
+//   one FMA and one ex2 per logit; l sums the f32 p.  Masks are evaluated
+//   only on tiles that cross Sk, the causal diagonal or the window's edge
+//   of the warp's rows; tiles wholly outside the mask are skipped (CTA
+//   range kstart..kend, then per warp).
+// - P is the S registers rounded to bf16 pairs, which is exactly the A
+//   fragment of the next mma: the rounding point is the Pallas kernel's,
+//   and P.V needs no shared memory.
+// - O is DP/8 n8-tiles x 4 f32 per thread, rescaled by alpha in
+//   registers and divided by l once at the end (l = 0 gives 0).  It is
+//   staged as bf16 through the warp's own rows of the Q buffer, then
+//   written with 16-byte coalesced stores.
+// A head dim that is not a multiple of 8 takes element-wise loads and
+// stores (correct, slow); no main-path shape has one.
 #include <math.h>
 
 #include "common.cuh"
@@ -32,215 +69,403 @@ using namespace repro;
 
 namespace {
 
-constexpr int BQ = 64;     // query rows per block (16 per warp)
-constexpr int BKV = 64;    // keys per tile
-constexpr int NWARP = 4;
-constexpr int NTHREAD = NWARP * 32;
-constexpr int S_LD = BKV + 4;   // f32 score row stride
-constexpr int P_LD = BKV + 8;   // bf16 probability row stride
+constexpr int BKV = 64;          // keys per tile
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared-memory carve-up for padded head dim dp: Q, K[2], V[2] (bf16,
-// row stride dp + 8), S (f32), P (bf16), O (f32, row stride dp + 4).
-struct Smem {
-    int ld, o_ld;
-    size_t q, k, v, s, p, o, total;
+template <int DP>
+struct Cfg {
+    static constexpr int LD = DP + 8;               // smem row stride (bf16)
+    static constexpr int STAGES = DP <= 96 ? 3 : 2;
+    static constexpr int CPR = DP / 8;              // 16-byte chunks per row
+    static size_t smem(int bq) { return (size_t)(bq + 2 * STAGES * BKV) * LD * 2; }
 };
 
-__host__ __device__ inline Smem smem_layout(int dp) {
-    Smem m;
-    m.ld = dp + 8;
-    m.o_ld = dp + 4;
-    const size_t q_bytes = (size_t)BQ * m.ld * 2, kv_bytes = (size_t)BKV * m.ld * 2;
-    m.q = 0;
-    m.k = m.q + q_bytes;
-    m.v = m.k + 2 * kv_bytes;
-    m.s = m.v + 2 * kv_bytes;
-    m.p = m.s + (size_t)BQ * S_LD * 4;
-    m.o = m.p + (size_t)BQ * P_LD * 2;
-    m.total = m.o + (size_t)BQ * m.o_ld * 4;
-    return m;
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// c(16x8, f32) += a(16x16, bf16, row) b(16x8, bf16, col).
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// Two floats rounded to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Rows [row0, row0+rows) of a (n, d) bf16 matrix into dst (row stride
-// ld, dp columns), zero past n and past d.  With vec (d % 8 == 0) the
+// LD, DP columns), zero past n and past d.  With vec (d % 8 == 0) the
 // copy is asynchronous (cp.async); otherwise element by element.
+template <int DP, int NT>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src,
-                                          int row0, int rows, int n, int d, int dp,
-                                          int ld, bool vec) {
+                                          int row0, int rows, int n, int d, bool vec) {
+    constexpr int LD = Cfg<DP>::LD, CPR = Cfg<DP>::CPR;
     if (vec) {
-        const int cpr = dp / 8;
-        for (int i = threadIdx.x; i < rows * cpr; i += NTHREAD) {
-            const int r = i / cpr, c8 = i - r * cpr;
+        for (int i = threadIdx.x; i < rows * CPR; i += NT) {
+            const int r = i / CPR, c8 = i - r * CPR;
             const int gr = row0 + r;
             const bool in = gr < n && c8 * 8 < d;
-            cp_async16(dst + r * ld + c8 * 8, in ? src + (size_t)gr * d + c8 * 8 : src, in);
+            cp_async16(dst + r * LD + c8 * 8, in ? src + (size_t)gr * d + c8 * 8 : src, in);
         }
     } else {
         const bf16 zero = __float2bfloat16(0.0f);
-        for (int i = threadIdx.x; i < rows * dp; i += NTHREAD) {
-            const int r = i / dp, c = i - r * dp;
+        for (int i = threadIdx.x; i < rows * DP; i += NT) {
+            const int r = i / DP, c = i - r * DP;
             const int gr = row0 + r;
-            dst[r * ld + c] = (gr < n && c < d) ? src[(size_t)gr * d + c] : zero;
+            dst[r * LD + c] = (gr < n && c < d) ? src[(size_t)gr * d + c] : zero;
         }
     }
 }
 
-__global__ void __launch_bounds__(NTHREAD)
+// 16-byte asynchronous copy to a shared-memory address; with !valid
+// nothing is read and 16 zero bytes are written.
+__device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0));
+}
+
+// This thread's share of the 16-byte copies of one K and one V tile when
+// d % 8 == 0: one column chunk of rows row0, row0 + rpp, ... of the tile
+// (rpp = NT / (d/8) rows per pass; threads with row0 >= rpp idle), with
+// addresses worked out once.  Columns past d are never copied: the
+// ring's pad columns are zeroed once before the key loop.
+template <int DP, int NT>
+struct TileCopy {
+    static constexpr int LD = Cfg<DP>::LD;
+    static constexpr int PER = (BKV + NT / Cfg<DP>::CPR - 1) / (NT / Cfg<DP>::CPR);
+    static constexpr uint32_t STAGE_BYTES = BKV * LD * 2;
+    static constexpr uint32_t V_BYTES = Cfg<DP>::STAGES * STAGE_BYTES;  // K ring -> V ring
+    const bf16* gk;     // K of key row0, this thread's chunk
+    uint32_t sk0;       // shared address of the chunk in stage 0 of the K ring
+    int row0, rpp;
+
+    __device__ __forceinline__ TileCopy(const bf16* kb, const bf16* kring, int d) {
+        const int cpr = max(d / 8, 1);
+        rpp = NT / cpr;
+        row0 = threadIdx.x / cpr;
+        const int c8 = threadIdx.x - row0 * cpr;
+        gk = kb + (size_t)row0 * d + c8 * 8;
+        sk0 = static_cast<uint32_t>(__cvta_generic_to_shared(kring)) +
+              2u * (row0 * LD + c8 * 8);
+    }
+
+    // Keys [k0, k0 + BKV) into ring stage st; zero past sk.  V lies
+    // v_minus_k elements after K in device memory.
+    __device__ __forceinline__ void issue(int st, int k0, int sk, int d,
+                                          ptrdiff_t v_minus_k) const {
+        const size_t g = (size_t)k0 * d;
+        const uint32_t s = sk0 + st * STAGE_BYTES;
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+            const int r = row0 + j * rpp;
+            if (row0 < rpp && r < BKV) {
+                const bool in = k0 + r < sk;
+                const bf16* src = gk + g + (size_t)j * rpp * d;
+                const uint32_t sj = s + 2u * j * rpp * LD;
+                cp_async16_s(sj, src, in);
+                cp_async16_s(sj + V_BYTES, src + v_minus_k, in);
+            }
+        }
+    }
+};
+
+template <int DP, int NT>
+__global__ void __launch_bounds__(NT)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                       int sq, int sk, int d, int dp, float scale,
-                       int causal, int window) {
+                       int sq, int sk, int d, float scale, int causal, int window) {
+    constexpr int LD = Cfg<DP>::LD, STAGES = Cfg<DP>::STAGES, CPR = Cfg<DP>::CPR;
+    constexpr int KS = DP / 16;       // k-steps of Q.K^T; n16 pairs of P.V
+    constexpr int NS = BKV / 8;       // n8-tiles of S
+    constexpr int BQ = NT / 2;        // 16 rows per warp
     extern __shared__ __align__(128) unsigned char smem[];
-    const Smem L = smem_layout(dp);
-    const int ld = L.ld, o_ld = L.o_ld;
-    bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
-    bf16* kbuf = reinterpret_cast<bf16*>(smem + L.k);
-    bf16* vbuf = reinterpret_cast<bf16*>(smem + L.v);
-    float* ss = reinterpret_cast<float*>(smem + L.s);
-    bf16* ps = reinterpret_cast<bf16*>(smem + L.p);
-    float* os = reinterpret_cast<float*>(smem + L.o);
+    bf16* qs = reinterpret_cast<bf16*>(smem);
+    bf16* kring = qs + BQ * LD;
+    bf16* vring = kring + STAGES * BKV * LD;
 
-    const int q0 = blockIdx.x * BQ;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
     const bf16* qb = q + (size_t)blockIdx.y * sq * d;
     const bf16* kb = k + (size_t)blockIdx.y * sk * d;
     const bf16* vb = v + (size_t)blockIdx.y * sk * d;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int offset = sk - sq;              // bottom-right causal alignment
-    const bool vec = (d % 8) == 0;
+    const int g = lane >> 2, t = lane & 3;
+    const int off = sk - sq;             // bottom-right causal alignment
+    const bool vec = (d & 7) == 0;
 
-    // Keys any row of this block can see.
+    // Keys any row of this CTA can see.
     int kend = sk;
-    if (causal) kend = min(sk, min(q0 + BQ, sq) - 1 + offset + 1);
-    int kstart = 0;
-    if (window > 0) kstart = max(0, q0 + offset - window + 1);
+    if (causal) kend = min(sk, min(q0 + BQ, sq) + off);
+    const int kstart = window > 0 ? max(0, q0 + off - window + 1) : 0;
+    const int ntiles = kend > kstart ? (kend - kstart + BKV - 1) / BKV : 0;
 
-    load_rows(qs, qb, q0, BQ, sq, d, dp, ld, vec);
-    if (kstart < kend) {
-        load_rows(kbuf, kb, kstart, BKV, sk, d, dp, ld, vec);
-        load_rows(vbuf, vb, kstart, BKV, sk, d, dp, ld, vec);
-    }
-    cp_async_commit();
-    for (int i = tid; i < BQ * o_ld; i += NTHREAD) os[i] = 0.0f;
-
-    // Softmax state of row `row`, held by lanes 2r and 2r+1 of its warp;
-    // lane `half` owns the tile's columns half, half+2, half+4, ...
-    const int row = warp * 16 + (lane >> 1);
-    const int half = lane & 1;
-    const int qpos = q0 + row;
-    float m_i = -INFINITY, l_i = 0.0f;
-    const size_t kv_elems = (size_t)BKV * ld;
-
-    int buf = 0;
-    for (int k0 = kstart; k0 < kend; k0 += BKV, buf ^= 1) {
-        // Prefetch the next tile into the other buffer (it was last read
-        // in the previous iteration, which ended with a barrier).
-        if (k0 + BKV < kend) {
-            load_rows(kbuf + (buf ^ 1) * kv_elems, kb, k0 + BKV, BKV, sk, d, dp, ld, vec);
-            load_rows(vbuf + (buf ^ 1) * kv_elems, vb, k0 + BKV, BKV, sk, d, dp, ld, vec);
+    const TileCopy<DP, NT> copy(kb, kring, d);
+    auto load_tile = [&](int tile) {
+        const int st = tile % STAGES, k0 = kstart + tile * BKV;
+        if (vec) {
+            copy.issue(st, k0, sk, d, v - k);
+        } else {
+            load_rows<DP, NT>(kring + st * BKV * LD, kb, k0, BKV, sk, d, false);
+            load_rows<DP, NT>(vring + st * BKV * LD, vb, k0, BKV, sk, d, false);
         }
+    };
+    if (ntiles > 0) {
+        load_rows<DP, NT>(qs, qb, q0, BQ, sq, d, vec);
+        if (vec && d < DP)               // the ring's pad columns, once
+            for (int r = tid; r < 2 * STAGES * BKV; r += NT)
+                *reinterpret_cast<uint4*>(kring + r * LD + d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < ntiles) load_tile(s);
         cp_async_commit();
-        cp_async_wait_prev();                // this tile (and Q) has landed
-        __syncthreads();
-        const bf16* ks = kbuf + buf * kv_elems;
-        const bf16* vs = vbuf + buf * kv_elems;
-
-        // S(16 x BKV) = Q(16 x dp) K^T for this warp's rows.
-#pragma unroll
-        for (int j = 0; j < BKV / 16; ++j) {
-            FragC acc;
-            wmma::fill_fragment(acc, 0.0f);
-            for (int kk = 0; kk < dp; kk += 16) {
-                FragA a;
-                FragBCol b;
-                wmma::load_matrix_sync(a, qs + warp * 16 * ld + kk, ld);
-                wmma::load_matrix_sync(b, ks + j * 16 * ld + kk, ld);
-                wmma::mma_sync(acc, a, b, acc);
-            }
-            wmma::store_matrix_sync(ss + warp * 16 * S_LD + j * 16, acc, S_LD,
-                                    wmma::mem_row_major);
-        }
-        __syncwarp();
-
-        // Online softmax over this lane's 32 columns of the row.
-        float* srow = ss + row * S_LD;
-        bf16* prow = ps + row * P_LD;
-        float mx = -INFINITY;
-#pragma unroll 8
-        for (int i = 0; i < BKV / 2; ++i) {
-            const int c = 2 * i + half;
-            const int kp = k0 + c;
-            bool ok = kp < sk;
-            if (causal) ok = ok && kp <= qpos + offset;
-            if (window > 0) ok = ok && kp > qpos + offset - window;
-            const float s = ok ? srow[c] * scale : -INFINITY;
-            srow[c] = s;
-            mx = fmaxf(mx, s);
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        const float m_new = fmaxf(m_i, mx);
-        const bool empty = m_new == -INFINITY;   // no unmasked key yet
-        const float alpha = empty ? 1.0f : expf(m_i - m_new);
-        float lsum = 0.0f;
-#pragma unroll 8
-        for (int i = 0; i < BKV / 2; ++i) {
-            const int c = 2 * i + half;
-            const float p = empty ? 0.0f : expf(srow[c] - m_new);
-            lsum += p;
-            prow[c] = __float2bfloat16(p);
-        }
-        lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-        l_i = l_i * alpha + lsum;
-        m_i = m_new;
-        float* orow = os + row * o_ld;
-        for (int c = half; c < dp; c += 2) orow[c] *= alpha;
-        __syncwarp();
-
-        // O(16 x dp) += P(16 x BKV) V(BKV x dp).
-        for (int j = 0; j < dp / 16; ++j) {
-            FragC acc;
-            wmma::load_matrix_sync(acc, os + warp * 16 * o_ld + j * 16, o_ld,
-                                   wmma::mem_row_major);
-#pragma unroll
-            for (int kk = 0; kk < BKV; kk += 16) {
-                FragA a;
-                FragBRow b;
-                wmma::load_matrix_sync(a, ps + warp * 16 * P_LD + kk, P_LD);
-                wmma::load_matrix_sync(b, vs + kk * ld + j * 16, ld);
-                wmma::mma_sync(acc, a, b, acc);
-            }
-            wmma::store_matrix_sync(os + warp * 16 * o_ld + j * 16, acc, o_ld,
-                                    wmma::mem_row_major);
-        }
-        __syncthreads();                     // K/V[buf] free for the prefetch
     }
-    cp_async_wait_all();
-    __syncthreads();                         // O zeroed by all, if no tile ran
 
-    if (qpos < sq) {
-        const float* orow = os + row * o_ld;
-        bf16* out = o + (size_t)blockIdx.y * sq * d + (size_t)qpos * d;
-        for (int c = half; c < d; c += 2)
-            out[c] = __float2bfloat16(l_i > 0.0f ? orow[c] / l_i : 0.0f);
+    // The warp's rows on the key axis: qlo/qhi are the diagonal positions
+    // (qpos + off) of its first and last live row, qd[r] those of this
+    // thread's rows g and g + 8.
+    const int qw0 = q0 + warp * 16;
+    const bool live = qw0 < sq;
+    const int qlo = qw0 + off, qhi = min(qw0 + 15, sq - 1) + off;
+    const int qd[2] = {qlo + g, qlo + g + 8};
+    // p = 2^(s*c - m*c); a negative scale flips the sign of q (exact in
+    // bf16) so that the row max is taken on s*|scale|.
+    const float c = fmaxf(fabsf(scale) * LOG2E, 1e-30f);
+    const uint32_t qsign = scale < 0.0f ? 0x80008000u : 0u;
+
+    uint32_t qf[KS][4];
+    float acc[2 * KS][4];
+#pragma unroll
+    for (int n = 0; n < 2 * KS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+    for (int it = 0; it < ntiles; ++it) {
+        cp_async_wait<STAGES - 2>();       // tile it (and Q) landed
+        __syncthreads();                   // ... for all; stage it-1 free
+        if (it + STAGES - 1 < ntiles) load_tile(it + STAGES - 1);
+        cp_async_commit();
+        if (it == 0) {
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) {
+                ldsm_x4(qf[kk], qs + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD
+                                    + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) qf[kk][e] ^= qsign;
+            }
+        }
+        const int k0 = kstart + it * BKV;
+        if (!live || (causal && k0 > qhi) || (window > 0 && k0 + BKV - 1 <= qlo - window))
+            continue;                      // no key of this tile for the warp
+        const bool edge = k0 + BKV > sk || (causal && k0 + BKV - 1 > qlo) ||
+                          (window > 0 && k0 <= qhi - window);
+        const bf16* kt = kring + (it % STAGES) * BKV * LD;
+        const bf16* vt = vring + (it % STAGES) * BKV * LD;
+
+        // S(16 x 64) = Q K^T.
+        float s[NS][4];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+            for (int jp = 0; jp < NS / 2; ++jp) {
+                uint32_t b[4];
+                ldsm_x4(b, kt + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * LD
+                               + kk * 16 + ((lane >> 3) & 1) * 8);
+                mma16816(s[2 * jp], qf[kk], b[0], b[1]);
+                mma16816(s[2 * jp + 1], qf[kk], b[2], b[3]);
+            }
+        if (edge) {
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int kp = k0 + 8 * j + 2 * t + (e & 1);
+                    const int qp = qd[e >> 1];
+                    const bool ok = kp < sk && (!causal || kp <= qp) &&
+                                    (window <= 0 || kp > qp - window);
+                    if (!ok) s[j][e] = -INFINITY;
+                }
+        }
+
+        // Online softmax of rows g (r = 0) and g + 8 (r = 1).  O and l are
+        // rescaled only when a row max of the warp moved (else alpha = 1).
+        float mx[2], mc[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = m[r];
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+                mx[r] = fmaxf(mx[r], fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            mc[r] = mx[r] == -INFINITY ? 0.0f : mx[r] * c;   // no unmasked key yet
+        }
+        if (__any_sync(0xffffffffu, mx[0] != m[0] || mx[1] != m[1])) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const float alpha = ex2(m[r] * c - mc[r]);
+                l[r] *= alpha;
+#pragma unroll
+                for (int n = 0; n < 2 * KS; ++n) {
+                    acc[n][2 * r] *= alpha;
+                    acc[n][2 * r + 1] *= alpha;
+                }
+            }
+        }
+        m[0] = mx[0];
+        m[1] = mx[1];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[j][e] = ex2(fmaf(s[j][e], c, -mc[e >> 1]));
+                l[e >> 1] += s[j][e];
+            }
+
+        // O(16 x DP) += P(16 x 64) V(64 x DP), P packed to bf16 in registers.
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk) {
+            const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                   pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                   pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                   pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+            for (int np = 0; np < KS; ++np) {
+                uint32_t b[4];
+                ldsm_x4_t(b, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD
+                                 + np * 16 + (lane >> 4) * 8);
+                mma16816(acc[2 * np], a, b[0], b[1]);
+                mma16816(acc[2 * np + 1], a, b[2], b[3]);
+            }
+        }
     }
+
+    // out = acc / l in bf16 (0 where l = 0), staged in the warp's own Q
+    // rows (read only by this warp, at tile 0), then 16-byte stores.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    bf16* stage = qs + warp * 16 * LD;
+#pragma unroll
+    for (int n = 0; n < 2 * KS; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const float lo = l[r] > 0.0f ? acc[n][2 * r] / l[r] : 0.0f;
+            const float hi = l[r] > 0.0f ? acc[n][2 * r + 1] / l[r] : 0.0f;
+            *reinterpret_cast<uint32_t*>(stage + (g + 8 * r) * LD + 8 * n + 2 * t) =
+                pack_bf16(lo, hi);
+        }
+    __syncwarp();
+    bf16* ob = o + (size_t)blockIdx.y * sq * d;
+    if (vec) {
+        for (int i = lane; i < 16 * CPR; i += 32) {
+            const int r = i / CPR, c8 = i - r * CPR;
+            if (qw0 + r < sq && c8 * 8 < d)
+                *reinterpret_cast<uint4*>(ob + (size_t)(qw0 + r) * d + c8 * 8) =
+                    *reinterpret_cast<const uint4*>(stage + r * LD + c8 * 8);
+        }
+    } else {
+        for (int i = lane; i < 16 * DP; i += 32) {
+            const int r = i / DP, cc = i - r * DP;
+            if (qw0 + r < sq && cc < d) ob[(size_t)(qw0 + r) * d + cc] = stage[r * LD + cc];
+        }
+    }
+}
+
+// BQ rule: 128 query rows (256 threads) per CTA when BH * ceil(Sq/128)
+// CTAs cover every SM, else 64 (128 threads).  The SM count and the
+// shared-memory limits are set up once per device.
+constexpr int MAX_DEVICES = 64;
+
+template <int DP>
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int bh, int sq,
+           int sk, int d, float scale, int causal, int window, cudaStream_t stream) {
+    static int sms_of[MAX_DEVICES];     // 0 until set up on that device
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+    if (sms_of[dev] == 0) {
+        int sms = 0;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(flash_attention_kernel<DP, 256>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(Cfg<DP>::smem(128)));
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(flash_attention_kernel<DP, 128>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(Cfg<DP>::smem(64)));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        sms_of[dev] = sms;
+    }
+    if ((long long)bh * ((sq + 127) / 128) >= sms_of[dev])
+        flash_attention_kernel<DP, 256><<<dim3((sq + 127) / 128, bh), 256, Cfg<DP>::smem(128),
+                                          stream>>>(q, k, v, o, sq, sk, d, scale, causal, window);
+    else
+        flash_attention_kernel<DP, 128><<<dim3((sq + 63) / 64, bh), 128, Cfg<DP>::smem(64),
+                                          stream>>>(q, k, v, o, sq, sk, d, scale, causal, window);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q: (BH,Sq,D), k/v: (BH,Sk,D), o: (BH,Sq,D), bf16, contiguous, 16-byte
-// aligned.  window <= 0 means no window.  D <= 192.
+// aligned.  window <= 0 means no window.  1 <= D <= 192.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                     int bh, int sq, int sk, int d, float scale,
                                     int causal, int window, void* stream) {
-    const int dp = (d + 15) / 16 * 16;
-    const size_t smem = smem_layout(dp).total;
-    cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((sq + BQ - 1) / BQ, bh);
-    flash_attention_kernel<<<grid, NTHREAD, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, d, dp, scale,
-        causal, window);
-    return static_cast<int>(cudaGetLastError());
+    const bf16* qp = static_cast<const bf16*>(q);
+    const bf16* kp = static_cast<const bf16*>(k);
+    const bf16* vp = static_cast<const bf16*>(v);
+    bf16* op = static_cast<bf16*>(o);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_FA_ARGS qp, kp, vp, op, bh, sq, sk, d, scale, causal, window, st
+    switch ((d + 15) / 16 * 16) {
+        case 16: return launch<16>(REPRO_FA_ARGS);
+        case 32: return launch<32>(REPRO_FA_ARGS);
+        case 48: return launch<48>(REPRO_FA_ARGS);
+        case 64: return launch<64>(REPRO_FA_ARGS);
+        case 80: return launch<80>(REPRO_FA_ARGS);
+        case 96: return launch<96>(REPRO_FA_ARGS);
+        case 112: return launch<112>(REPRO_FA_ARGS);
+        case 128: return launch<128>(REPRO_FA_ARGS);
+        case 144: return launch<144>(REPRO_FA_ARGS);
+        case 160: return launch<160>(REPRO_FA_ARGS);
+        case 176: return launch<176>(REPRO_FA_ARGS);
+        case 192: return launch<192>(REPRO_FA_ARGS);
+    }
+#undef REPRO_FA_ARGS
+    return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,7 +12,7 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches since the last reset
-MAX_HEAD_DIM = 192   # shared memory of the double-buffered tiles
+MAX_HEAD_DIM = 192   # the largest padded head dim the kernel is built for
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
