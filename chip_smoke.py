@@ -13,11 +13,15 @@ caught and passed over):
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes and at edge shapes (Sq < 8, ragged
              tiles, tail-padded Q8_0 and Q4_0 weights through ``ops``, a K
-             that ends inside the w8a8 kernel's K stage, kv_len = 1 and C,
-             C off the decode split, hd = 120), with the tolerance stated
-             beside it;
+             that ends inside the w8a8 kernel's K stage, q4_matmul's decode
+             path with two token groups, kv_len = 1 and C, kv_len off the
+             16-key range step, hd = 120 and 256, G = 1 and 16, logits
+             recomputed), with the tolerance stated beside it, and every matmul and
+             flash_decode shape called twice for the same bits;
              per shape the kernel's, the plain version's and a yardstick
-             PyTorch call's time (CUDA events) and the roofline bound.
+             PyTorch call's time (CUDA events), the roofline bound, and for
+             attention, flash_decode and the matmuls the kernel's and the
+             yardstick's device time under torch.profiler.
              ``q8_matmul_w8a8`` has no model path (as in the reference): its
              launches are counted through ``ops.quantized_matmul_w8a8``, its
              only entry point, at the LM shapes.
@@ -153,15 +157,21 @@ Q8_EDGE = [(3, 70, 96), (3, 70, 100)]      # K = 100: tail-padded weight
 Q3K_SHAPES = [(4096, 320, 1280), (256, 1280, 1280), (154, 768, 768),
               (64, 1280, 5120)] + LM_MATMUL_SHAPES
 Q3K_EDGE = [(5, 100, 512)]
-Q4_SHAPES = LM_MATMUL_SHAPES + Q8_SHAPES[:4]
-Q4_EDGE = [(77, 320, 768), (1, 70, 96), (3, 70, 100)]   # K = 100: tail-padded
+# q4_matmul takes its decode path up to M_GEMV = 16 rows (csrc/q4_matmul.cu):
+# M = 8 and 16 put the choice on record.
+Q4_SHAPES = LM_MATMUL_SHAPES + Q8_SHAPES[:4] + [(8, 14336, 4096), (16, 14336, 4096)]
+Q4_EDGE = [(77, 320, 768), (1, 70, 96), (3, 70, 100),   # K = 100: tail-padded
+           (16, 70, 96), (9, 70, 100)]                  # decode path, two token groups
 W8A8_SHAPES = LM_MATMUL_SHAPES
 W8A8_EDGE = [(4, 1000, 4128), (5, 70, 96)]   # K/32 = 129 and 3: a partial K stage
 # Contiguous decode at Granite-8B's widths: (B, Hkv, G, hd, C, kv_len).
-FLASH_DECODE_SHAPES = [(4, 8, 4, 128, 2048, 2000)]
+# The second is full_gen's own: a 2048-slot cache at position 159.
+FLASH_DECODE_SHAPES = [(4, 8, 4, 128, 2048, 2000), (4, 8, 4, 128, 2048, 160)]
 FLASH_DECODE_EDGE = [(4, 8, 4, 128, 2048, 1), (4, 8, 4, 128, 2048, 2048),
-                     (4, 8, 4, 128, 2080, 2071),      # C off the 128-key split
-                     (4, 8, 4, 120, 2048, 1500)]      # h2o-danube-3-4b's hd
+                     (4, 8, 4, 128, 2080, 2071),      # kv_len off the 16-key step
+                     (4, 8, 4, 120, 2048, 1500),      # h2o-danube-3-4b's hd
+                     (2, 2, 1, 256, 300, 7),          # G = 1, hd 256, kv_len < 8 CTAs
+                     (1, 2, 16, 128, 9000, 8999)]     # G = 16: logits recomputed
 
 # Paged attention at Granite-8B's widths (Hkv 8, G 4, hd 128, bs 16).
 # Prefill: (T, pos0, MB, window, poison); the first two are the main path's
@@ -407,10 +417,13 @@ def _matmul_case(kind: str, shape, gen, timed: bool) -> dict:
     tol = MATMUL_RTOL * max(1.0, want.abs().max().item())
     if not (torch.isfinite(out).all() and err <= tol):
         raise AssertionError(f"{kind} {shape}: max|err| {err} > {tol}")
+    if not torch.equal(kern(), out):
+        raise AssertionError(f"{kind} {shape}: a second call gave other bits")
     row = {"shape": shape, "max_abs_err": err}
     if timed:
         row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                   library_ms=cuda_ms(library))
+                   library_ms=cuda_ms(library), device_ms=device_ms(kern),
+                   library_device_ms=device_ms(library))
         # bytes: x (bf16, or int8 + f32 scales for w8a8), the weight, y f32.
         row["bound_ms"], row["bound_by"] = bound(
             2.0 * m * n * kdim, xbytes + wbytes + 4 * m * n, ops_flops)
@@ -436,11 +449,17 @@ def _flash_decode_case(case, gen, timed: bool) -> dict:
     out, want = kern(), plain()
     torch.cuda.synchronize()
     row = {"shape": case, "max_abs_err": _check_attn("flash_decode", case, out, want)}
+    if not torch.equal(kern(), out):
+        raise AssertionError(f"flash_decode {case}: a second call gave other bits")
     if timed:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         kl, vl = k[:, :, :n], v[:, :, :n]
+
+        def library():
+            return sdpa(q, kl, vl, scale=scale)
         row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
-                   library_ms=cuda_ms(lambda: sdpa(q, kl, vl, scale=scale)))
+                   library_ms=cuda_ms(library), device_ms=device_ms(kern),
+                   library_device_ms=device_ms(library))
         nbytes = 2 * 2 * b * hkv * g * hd + 2 * 2 * b * hkv * n * hd
         row["bound_ms"], row["bound_by"] = bound(4.0 * b * hkv * g * hd * n, nbytes)
     return row
@@ -733,7 +752,7 @@ def phase_tiny() -> None:
 OURS = ("flash_attention_kernel", "q8_matmul_kernel", "q3k_matmul_kernel",
         "attend_kernel", "write_bf16_kernel", "write_q8_kernel",
         "decode_logits_kernel", "decode_pv_kernel", "decode_sum_kernel",
-        "q4_matmul_kernel", "w8a8_kernel")
+        "decode_cluster_kernel", "q4_matmul_kernel", "q4_gemv_kernel", "w8a8_kernel")
 
 
 def _kind(name: str) -> str:

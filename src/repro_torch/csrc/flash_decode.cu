@@ -1,61 +1,454 @@
-// Flash-decode (one new token per row, GQA) for Hopper (sm_90a): the
-// paged entry and the contiguous entry share the three kernels below,
-// templated on how a key's row is addressed.
+// Flash-decode (one new token per row, GQA) for Hopper (sm_90a): a
+// contiguous entry, one thread-block-cluster launch per call, and a
+// paged entry in three launches.
 //
-// Replaces: src/repro/kernels/flash_decode.py :: flash_decode_paged
-// (_paged_decode_kernel) and :: flash_decode (_decode_kernel).
+// Replaces: src/repro/kernels/flash_decode.py :: flash_decode
+// (_decode_kernel) and :: flash_decode_paged (_paged_decode_kernel).
 //
+// Contiguous (flash_decode_bf16): q (B,Hkv,G,hd), k/v (B,Hkv,C,hd) bf16
+// and kv_len (1,) int32 on the card, read by the kernel itself (no host
+// sync): every row attends to the slots idx < kv_len[0].
 // Paged (flash_decode_paged_bf16): q (B,Hkv,G,hd) bf16; pools
 // (NB,Hkv,bs,hd) bf16; tables (B,MB) int32; positions (B,) int32, the
 // last valid logical index of each row (inclusive).  Row b's query group
 // attends to the keys at idx <= positions[b] (and idx > positions[b] -
 // window) of its table.
-// Contiguous (flash_decode_bf16): k/v (B,Hkv,C,hd) bf16 and kv_len (1,)
-// int32 on the card, read by the kernels themselves (no host sync): every
-// row attends to the slots idx < kv_len[0].  It is the paged layout with
-// one block of C rows per row (block b of row b).
 //
 // Both compute what the reference's decode step computes when it reads a
-// bf16 cache (models/attention.py: _update_read_paged /
-// _update_read_contiguous and the einsums of attention_decode): logits
+// bf16 cache (models/attention.py: _update_read_contiguous /
+// _update_read_paged and the einsums of attention_decode): logits
 // q.k * scale in f32, softmax in f32, the normalised probabilities
 // rounded to bf16, P.V summed in f32; out (B,Hkv,G,hd) bf16.  (The Pallas
 // kernels round the unnormalised p instead; the port follows the path it
-// replaces.)  Keys past the valid range (a recycled block's stale bytes,
-// the null block of an idle row, unwritten cache slots) are never
-// loaded: their rows are zero-filled and their logits are -inf before
-// any max.
+// replaces.)  Every key's p needs its row's global max M and sum L, so the
+// keys of one (row, head) are seen twice: once for M and L, once for P.V.
+// Keys past the valid range (unwritten cache slots, a recycled block's
+// stale bytes, the null block of an idle row) are never loaded: their
+// rows are zero-filled and their logits are -inf before any max.
 //
-// What bounds it on the H100: each (row, head) reads its whole cache
-// (2 * C * hd * 2 bytes) for 4 * G * C * hd flops, 4 flops per byte at
-// G = 4: memory-bound, so the aim is to keep every SM streaming.  At 4
-// rows one block per (row, KV head) would be 32 blocks and leave 100 of
-// the 132 SMs idle, so the key range is split into 128-key pieces, one
-// block per (split, KV head, row), in three launches:
-//   1. logits: stage the split's keys with cp.async (16-byte pieces),
-//      G x 128 logits into a scratch row, and the split's max m_s and sum
-//      l_s = sum exp(s - m_s);
-//   2. P.V: each block merges the splits' (m_s, l_s) of its row into the
-//      row's max M and sum L, forms p = bf16(exp(s - M) / L) (the
-//      normalised, rounded probabilities of the reference), stages its
-//      values and writes a partial P.V;
-//   3. sum: the partials of each (row, head), added in f32.
-// The logits scratch adds 16 bytes per key and query group to the 512
-// of K and V.  Splits wholly outside the valid range exit at once and
-// are skipped.  Plain FMA arithmetic on CUDA cores: with G = 4 query
-// rows a tensor-core tile would be 3/4 padding, and the bytes, not the
-// flops, set the time.
+// What bounds it on the H100: each (row, head) reads its K and V
+// (2 * kv_len * hd * 2 bytes) for 4 * G * kv_len * hd flops, 4 flops per
+// byte at G = 4: device-memory bytes, 9.8 us at the headline shape.  At
+// 4 rows and 8 KV heads there are only 32 (row, head) pairs for 132 SMs,
+// so each pair is cut over its keys, and the pieces have to agree on M
+// and L.
+//
+// Contiguous entry: one launch, grid (CLUSTER, Hkv, B) with cluster dims
+// (CLUSTER, 1, 1), one cluster of CLUSTER = 8 CTAs (the portable size)
+// per (row, KV head).  16 (non-portable) was measured too: a cluster has
+// to fit in one GPC, which bounds how many 16-CTA clusters run at once,
+// and 16 was slower with Granite-8B's 32 (row, head) pairs at 4 rows, at
+// the headline shape (4,8,4,128,2048,2000) and at the generation path's
+// 160 keys; it was faster only at one row (PERF.md).
+// CTA r reads kv_len and takes the keys [r*Kc, min((r+1)*Kc, kv_len)),
+// Kc = ceil(kv_len / CLUSTER) rounded up to 16: the split follows
+// kv_len, not C, so at position 159 of a 2048-slot cache five CTAs take
+// 32 keys each and three find nothing.  An empty CTA keeps m = -inf,
+// l = 0 and has a zero partial.
+//   1. K and V rows go through a 2-slot ring of 64-key tiles with
+//      cp.async (16-byte pieces), in the order K tiles, then V tiles: a
+//      CTA with one tile issues its K and V at once, and V loads hide
+//      behind the logits and the cluster barrier.  (64-key tiles keep a
+//      CTA at ~50 KB of shared memory at hd 128, so 4 fit per SM.)
+//   2. Logits on the tensor cores: the G query rows (zero-padded to 16)
+//      are the A operand of mma.sync m16n8k16, 16 keys per warp and tile
+//      the B operand (ldmatrix from the ring), f32 accumulate: the same
+//      f32 dot of bf16 values as q.k in f32.  The G x Kc logits stay in
+//      shared memory and each tile updates the CTA's (m, l) per query row
+//      online.  Where G * Kc * 4 bytes would exceed LOGITS_MAX_BYTES = 32
+//      KB (G = 4: C > 16384; G = 16: C > 4096) they are not kept: phase 2
+//      recomputes them tile by tile from K with the same arithmetic (the
+//      ring then carries K0 V0 K1 V1 ...).
+//   3. Each CTA stores its (m, l) into every peer's shared memory at its
+//      rank (distributed shared memory), once a cluster barrier arrived
+//      at on entry shows every peer has started; cluster.sync(); each
+//      CTA forms
+//      M = max m, L = sum l * exp(m - M) over the ranks in order (pieces
+//      with l = 0 left out).
+//   4. For each V tile, P = bf16(__fdiv_rn(exp(s - M), L)) of its keys
+//      into shared memory, and the CTA's f32 partial P.V (16 x hd) on the
+//      tensor cores, P as A, V as B (ldmatrix.trans), each warp a quarter
+//      of the columns.
+//   5. Each CTA keeps its partial in its own shared memory;
+//      cluster.sync(); CTA r owns 1/CLUSTER of the G*hd outputs, adds the
+//      CLUSTER partials of its slice in rank order from its peers' shared
+//      memory, and writes bf16 out.  A last cluster barrier keeps each
+//      CTA's shared memory alive until its peers have read it.
+// The tensor cores matter here for issue slots, not for flops: with
+// CUDA-core FMAs every 8 FMAs of the logits need two shared-memory loads
+// of q, where one mma.sync instruction does 16 x 8 x 16 products.
+// Nothing but q, K, V, kv_len and out touches device memory, and every
+// sum has a fixed order: the same inputs give the same bits.  Rows of a
+// tile are hdp + 8 elements apart (hdp = hd rounded up to 16), an odd
+// number of 16-byte units, so each ldmatrix's 8 rows hit distinct banks;
+// the pad columns of q and of the ring are zeroed once.
+//
+// Paged entry: three launches over 128-key splits of the table's key
+// range (one block per split, KV head and row): logits and each split's
+// (m, l) into f32 scratch; P.V, each block merging the splits' (m, l);
+// the sum of the partials.  Splits wholly outside the valid range exit at
+// once.
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include "common.cuh"
 
 using namespace repro;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int KEYS = 128;        // keys per split (one per thread)
+constexpr int KEYS = 128;        // keys per split of the paged kernels
 constexpr int NTHREAD = 128;
 constexpr int MAX_G = 16;
+constexpr int MAX_DEVICES = 64;
+
+// ------------------------------------------------- contiguous: one cluster
+
+constexpr int CLUSTER = 8;       // CTAs per (row, KV head)
+constexpr int KT = 64;           // keys per ring tile
+constexpr int LOGITS_MAX_BYTES = 32768;
+constexpr int NWARP = NTHREAD / 32;
+constexpr int MAX_PAIRS = 4;     // 16-column output pairs per warp: hd <= 256
+constexpr int MAX_QV = MAX_G * 256 / 8 / NTHREAD;   // q's 16-byte pieces per thread
+static_assert(KT == 16 * NWARP, "each warp takes 16 keys of a tile in the logits");
+static_assert(KT == 64, "the online (m, l) update reads two logits per lane");
+
+// Shared memory of the cluster kernel.  Rows of 16 bf16 (query rows past
+// G are zero) or of KT keys; bf16 row strides are an odd number of 16-byte
+// units, so the 8 rows of an ldmatrix hit distinct banks.
+struct ClusterSmem {
+    int hdp, ld, ldp;        // hd rounded up to 16; K/V/Q row stride; P row stride
+    size_t slots, q, p, logits, mlbox, stat, part, total;
+};
+
+__host__ __device__ inline ClusterSmem cluster_smem(int hd, int g, int ldl) {
+    ClusterSmem m;
+    m.hdp = (hd + 15) / 16 * 16;
+    m.ld = m.hdp + 8;
+    m.ldp = KT + 8;
+    m.slots = 0;                                          // 2 x KT rows
+    m.q = m.slots + (size_t)2 * KT * m.ld * 2;            // 16 rows, bf16
+    m.p = m.q + (size_t)16 * m.ld * 2;                    // 16 x KT, bf16
+    m.logits = m.p + (size_t)16 * m.ldp * 2;              // G x ldl, f32
+    m.mlbox = m.logits + (size_t)g * ldl * 4;             // (m, l) of each rank
+    m.stat = m.mlbox + (size_t)CLUSTER * MAX_G * 2 * 4;   // merged (M, L)
+    m.part = m.stat + MAX_G * 2 * 4;                      // partial P.V, G x hd
+    m.total = m.part + (size_t)g * hd * 4;
+    return m;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(NTHREAD)
+decode_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const int* __restrict__ kv_len,
+                      bf16* __restrict__ out, int g, int hd, int c, int ldl,
+                      int recompute, float scale) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster_arrive();                    // this CTA has started (waited on below)
+    extern __shared__ __align__(128) unsigned char smem[];
+    const ClusterSmem S = cluster_smem(hd, g, ldl);
+    bf16* slots = reinterpret_cast<bf16*>(smem + S.slots);
+    bf16* qs = reinterpret_cast<bf16*>(smem + S.q);
+    bf16* ps = reinterpret_cast<bf16*>(smem + S.p);
+    float* lg = reinterpret_cast<float*>(smem + S.logits);
+    float* mlbox = reinterpret_cast<float*>(smem + S.mlbox);
+    float* stat = reinterpret_cast<float*>(smem + S.stat);
+    float* part = reinterpret_cast<float*>(smem + S.part);
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int h = blockIdx.y, b = blockIdx.z, hkv = gridDim.y;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int nc = hd / 8, ld = S.ld, hdp = S.hdp;
+
+    const int n = min(max(kv_len[0], 0), c);
+    const int kc = ((n + CLUSTER - 1) / CLUSTER + 15) / 16 * 16;
+    const int lo = min(rank * kc, n);
+    const int nk = min(lo + kc, n) - lo;
+    const int nt = (nk + KT - 1) / KT;
+    const int items = nt * (recompute ? 3 : 2);
+    const size_t bh = (size_t)b * hkv + h;
+    const bf16* kb = k + (bh * c + lo) * hd;
+    const bf16* vb = v + (bh * c + lo) * hd;
+
+    // Ring item j: K tiles 0..nt-1, then V tiles (K0 V0 K1 V1 ... when
+    // the logits are recomputed).  Every call commits one group, empty
+    // past the last item, so "all but the newest group" is always item j
+    // when item j is consumed.  A warp copies 32 / lpr rows at a time.
+    const int lpr = nc <= 16 ? 16 : 32;
+    auto is_v = [&](int j) { return j >= nt && (!recompute || ((j - nt) & 1)); };
+    auto tile = [&](int j) { return j < nt ? j : recompute ? (j - nt) >> 1 : j - nt; };
+    auto slot = [&](int j) { return slots + (j & 1) * KT * ld; };
+    auto issue = [&](int j) {
+        if (j < items) {
+            const bf16* src = (is_v(j) ? vb : kb) + (size_t)tile(j) * KT * hd;
+            const int valid = nk - tile(j) * KT;
+            bf16* dst = slot(j);
+            const int c8 = lane % lpr;
+            for (int r = warp * (32 / lpr) + lane / lpr; r < KT; r += NTHREAD / lpr) {
+                const bool in = r < valid;
+                if (c8 < nc)
+                    cp_async16(dst + r * ld + c8 * 8, in ? src + (size_t)r * hd + c8 * 8 : src, in);
+            }
+        }
+        cp_async_commit();
+    };
+    // s = q.k * scale for the tile's keys (-inf past `valid`) into dst
+    // (row stride ldl): warp w takes keys 16w..16w+15, two m16n8k16 per
+    // 16 columns of hd, the query rows as A.
+    auto logits = [&](const bf16* ks, float* dst, int valid) {
+        float s[2][4] = {};
+        for (int kk = 0; kk < hdp / 16; ++kk) {
+            uint32_t a[4], bk[4];
+            ldsm_x4(a, qs + (lane & 15) * ld + kk * 16 + (lane >> 4) * 8);
+            ldsm_x4(bk, ks + (warp * 16 + (lane >> 4) * 8 + (lane & 7)) * ld + kk * 16
+                            + ((lane >> 3) & 1) * 8);
+            mma16816(s[0], a, bk[0], bk[1]);
+            mma16816(s[1], a, bk[2], bk[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int row = gid + 8 * (e >> 1), key = warp * 16 + 8 * j + 2 * tig + (e & 1);
+                if (row < g) dst[row * ldl + key] = key < valid ? s[j][e] * scale : -INFINITY;
+            }
+    };
+    // The CTA's (m, l) per query row, updated online by one tile's logits.
+    float* ml = mlbox + rank * MAX_G * 2;          // this CTA's own entry
+    auto update = [&](const float* src) {
+        for (int gi = warp; gi < g; gi += NWARP) {
+            const float x0 = src[gi * ldl + lane], x1 = src[gi * ldl + lane + 32];
+            float mx = fmaxf(x0, x1);
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+            const float m_old = ml[2 * gi], l_old = ml[2 * gi + 1];
+            const float m = fmaxf(m_old, mx);
+            float sum = (x0 == -INFINITY ? 0.0f : expf(x0 - m))
+                        + (x1 == -INFINITY ? 0.0f : expf(x1 - m));
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+            if (lane == 0) {
+                ml[2 * gi] = m;
+                ml[2 * gi + 1] = (l_old > 0.0f ? l_old * expf(m_old - m) : 0.0f) + sum;
+            }
+        }
+    };
+    // One tile's logits (from column col of src) -> P, the bf16-rounded
+    // normalised probabilities (0 at -inf).
+    auto probs = [&](const float* src, int col) {
+        for (int i = tid; i < g * KT; i += NTHREAD) {
+            const int gi = i / KT, r = i - gi * KT;
+            const float s = src[gi * ldl + col + r];
+            const float p = s == -INFINITY ? 0.0f
+                                           : __fdiv_rn(expf(s - stat[2 * gi]), stat[2 * gi + 1]);
+            ps[gi * S.ldp + r] = __float2bfloat16(p);
+        }
+    };
+    // acc += P (16 x valid keys) . V: warp w takes the 16-column pairs w,
+    // w + NWARP, ... of hd.
+    float acc[MAX_PAIRS][2][4] = {};
+    auto pv = [&](const bf16* vs, int valid) {
+        for (int kk = 0; kk < (valid + 15) / 16; ++kk) {
+            uint32_t a[4];
+            ldsm_x4(a, ps + (lane & 15) * S.ldp + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int i = 0; i < MAX_PAIRS; ++i) {
+                const int pair = warp + NWARP * i;
+                if (pair < hdp / 16) {
+                    uint32_t bv[4];
+                    ldsm_x4_t(bv, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld
+                                      + pair * 16 + (lane >> 4) * 8);
+                    mma16816(acc[i][0], a, bv[0], bv[1]);
+                    mma16816(acc[i][1], a, bv[2], bv[3]);
+                }
+            }
+        }
+    };
+
+    // q's 16-byte pieces into registers before the ring's first copies, so
+    // that they do not queue behind them; then q as 16 bf16 rows in shared
+    // memory.  The ring's and q's columns past hd, q's rows past G and P's
+    // rows past G stay zero.
+    const uint4* qb = reinterpret_cast<const uint4*>(q + bh * g * hd);
+    uint4 qv[MAX_QV];
+#pragma unroll
+    for (int i = 0; i < MAX_QV; ++i)
+        if (tid + i * NTHREAD < g * nc) qv[i] = qb[tid + i * NTHREAD];
+    issue(0);
+    issue(1);
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    const int units = ld / 8;                  // 16-byte units per q/ring row
+#pragma unroll
+    for (int i = 0; i < MAX_QV; ++i) {
+        const int u = tid + i * NTHREAD;
+        if (u < g * nc)
+            *reinterpret_cast<uint4*>(qs + (u / nc) * ld + (u % nc) * 8) = qv[i];
+    }
+    for (int u = tid; u < 16 * units; u += NTHREAD) {
+        const int r = u / units, cu = u - r * units;
+        if (r >= g || cu >= nc) *reinterpret_cast<uint4*>(qs + r * ld + cu * 8) = zero;
+    }
+    for (int u = tid; u < 2 * KT * (units - nc); u += NTHREAD) {
+        const int r = u / (units - nc), cu = nc + u - r * (units - nc);
+        *reinterpret_cast<uint4*>(slots + r * ld + cu * 8) = zero;
+    }
+    for (int u = g * (S.ldp / 8) + tid; u < 16 * (S.ldp / 8); u += NTHREAD)
+        reinterpret_cast<uint4*>(ps)[u] = zero;
+    for (int gi = tid; gi < g; gi += NTHREAD) {
+        ml[2 * gi] = -INFINITY;
+        ml[2 * gi + 1] = 0.0f;
+    }
+
+    // Phase 1: logits and the CTA's (m, l).
+    for (int j = 0; j < nt; ++j) {
+        cp_async_wait_prev();
+        __syncthreads();
+        float* dst = lg + (recompute ? 0 : j * KT);
+        logits(slot(j), dst, nk - j * KT);
+        __syncthreads();
+        issue(j + 2);
+        update(dst);
+    }
+
+    // Every peer's (m, l) pushed into this CTA's box at its rank; then the
+    // row's M and L in rank order.
+    __syncthreads();
+    cluster_wait();                      // every CTA of the cluster has started
+    for (int i = tid; i < CLUSTER * g; i += NTHREAD) {
+        const int peer = i / g, gi = i - peer * g;
+        float* box = cluster.map_shared_rank(mlbox, peer) + (rank * MAX_G + gi) * 2;
+        box[0] = ml[2 * gi];
+        box[1] = ml[2 * gi + 1];
+    }
+    cluster.sync();
+    for (int gi = tid; gi < g; gi += NTHREAD) {
+        float m = -INFINITY;
+        for (int rr = 0; rr < CLUSTER; ++rr)
+            if (mlbox[(rr * MAX_G + gi) * 2 + 1] > 0.0f) m = fmaxf(m, mlbox[(rr * MAX_G + gi) * 2]);
+        float l = 0.0f;
+        for (int rr = 0; rr < CLUSTER; ++rr) {
+            const float lr = mlbox[(rr * MAX_G + gi) * 2 + 1];
+            if (lr > 0.0f) l += lr * expf(mlbox[(rr * MAX_G + gi) * 2] - m);
+        }
+        stat[2 * gi] = m;
+        stat[2 * gi + 1] = l;
+    }
+    __syncthreads();
+
+    // Phase 2: P.V, each tile's P formed from the kept logits while its V
+    // lands (or from logits recomputed from K when they were not kept).
+    for (int j = nt; j < items; ++j) {
+        const int t = tile(j);
+        if (is_v(j) && !recompute) probs(lg, t * KT);
+        cp_async_wait_prev();
+        __syncthreads();
+        if (is_v(j)) {
+            pv(slot(j), min(KT, nk - t * KT));
+            __syncthreads();
+            issue(j + 2);
+        } else {
+            logits(slot(j), lg, nk - t * KT);
+            __syncthreads();
+            issue(j + 2);
+            probs(lg, 0);
+        }
+    }
+
+    // This CTA's partial (rows < G, columns < hd) into its own shared
+    // memory; cluster.sync(); the owner of each slice of the G*hd outputs
+    // adds the CLUSTER partials in rank order from its peers' shared
+    // memory and writes bf16 out; a last cluster barrier keeps every
+    // CTA's shared memory alive until its peers have read it.
+#pragma unroll
+    for (int i = 0; i < MAX_PAIRS; ++i) {
+        const int pair = warp + NWARP * i;
+        if (pair >= hdp / 16) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {
+                const int row = gid + 8 * (e >> 1), d = pair * 16 + 8 * j + 2 * tig;
+                if (row < g && d < hd)
+                    *reinterpret_cast<float2*>(part + row * hd + d) =
+                        make_float2(acc[i][j][e], acc[i][j][e + 1]);
+            }
+    }
+    cluster.sync();
+    const int total = g * hd, per = (total + CLUSTER - 1) / CLUSTER;
+    const int o1 = min((rank + 1) * per, total);
+    for (int o = rank * per + tid; o < o1; o += NTHREAD) {
+        float a = 0.0f;
+#pragma unroll
+        for (int rr = 0; rr < CLUSTER; ++rr) a += cluster.map_shared_rank(part, rr)[o];
+        out[bh * total + o] = __float2bfloat16(a);
+    }
+    cluster_arrive();
+    cluster_wait();
+}
+
+int launch_cluster(const bf16* q, const bf16* k, const bf16* v, const int* kv_len,
+                   bf16* out, int b, int hkv, int g, int hd, int c, float scale,
+                   cudaStream_t stream) {
+    if (g > MAX_G || hd > MAX_PAIRS * NWARP * 16) return static_cast<int>(cudaErrorInvalidValue);
+    // The logits are kept when they fit for the longest range C allows.
+    const int kc_max = ((c + CLUSTER - 1) / CLUSTER + 15) / 16 * 16;
+    const int tiles_max = (kc_max + KT - 1) / KT;
+    const int recompute = (size_t)g * tiles_max * KT * 4 > LOGITS_MAX_BYTES;
+    const int ldl = recompute ? KT : tiles_max * KT;
+    const size_t smem = cluster_smem(hd, g, ldl).total;
+
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CLUSTER, hkv, b);
+    cfg.blockDim = dim3(NTHREAD);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+
+    // Once per device: allow the largest shared memory (and a cluster
+    // past the portable 8); once per device and larger shared memory than
+    // checked so far: make sure one cluster fits on the card.
+    static size_t checked[MAX_DEVICES];      // 0 until set up on that device
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+    if (checked[dev] == 0) {
+        if (CLUSTER > 8)
+            err = cudaFuncSetAttribute(decode_cluster_kernel,
+                                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(
+                decode_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(cluster_smem(256, MAX_G, LOGITS_MAX_BYTES / 4 / MAX_G).total));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (smem > checked[dev]) {
+        int clusters = 0;
+        err = cudaOccupancyMaxActiveClusters(&clusters, decode_cluster_kernel, &cfg);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+        checked[dev] = smem;
+    }
+    err = cudaLaunchKernelEx(&cfg, decode_cluster_kernel, q, k, v, kv_len, out, g, hd, c,
+                             ldl, recompute, scale);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------ paged: three passes
 
 // Shared memory of passes 1 and 2: one bf16 K or V tile (row stride hd + 8,
 // a 16-byte multiple that spreads the banks) and G x KEYS f32 scores.
@@ -82,24 +475,21 @@ struct Split {
     }
 };
 
-// PAGED: positions[b] is row b's last valid index; contiguous: positions
-// is kv_len, the same count of valid slots for every row.
-template <bool PAGED>
+// positions[b] is row b's last valid index.
 __device__ __forceinline__ Split split_of(const int* __restrict__ positions, int b,
                                           int split, int window) {
     Split s;
     s.k0 = split * KEYS;
-    s.pos = PAGED ? positions[b] : positions[0] - 1;
+    s.pos = positions[b];
     s.kmin = window > 0 ? max(0, s.pos - window + 1) : 0;
     return s;
 }
 
-// Rows [k0, k0 + KEYS) of head h of row b into dst, zero where invalid.
-// Contiguous: bs = C, mb = 1 and row b is block b (no table).
-template <bool PAGED>
+// Rows [k0, k0 + KEYS) of head h through row b's table into dst, zero
+// where invalid.
 __device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ pool,
                                       const int* __restrict__ table, const Split& sp,
-                                      int b, int h, int hkv, int hd, int bs, int mb, int ld) {
+                                      int h, int hkv, int hd, int bs, int mb, int ld) {
     const int vec = hd / 8;
     for (int i = threadIdx.x; i < KEYS * vec; i += NTHREAD) {
         const int r = i / vec, c8 = i - r * vec;
@@ -107,7 +497,7 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ pool,
         const bool in = sp.valid(kp, mb * bs);
         size_t off = 0;
         if (in) {
-            const size_t blk = PAGED ? (size_t)table[kp / bs] : (size_t)b;
+            const size_t blk = (size_t)table[kp / bs];
             off = ((blk * hkv + h) * bs + kp % bs) * hd + c8 * 8;
         }
         cp_async16(dst + r * ld + c8 * 8, pool + off, in);
@@ -115,7 +505,6 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ pool,
     cp_async_commit();
 }
 
-template <bool PAGED>
 __global__ void __launch_bounds__(NTHREAD)
 decode_logits_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
                      const int* __restrict__ tables, const int* __restrict__ positions,
@@ -128,7 +517,7 @@ decode_logits_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
     float* sc = reinterpret_cast<float*>(smem + L.s);
     const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const Split sp = split_of<PAGED>(positions, b, split, window);
+    const Split sp = split_of(positions, b, split, window);
     const size_t bh = (size_t)b * hkv + h;
     float* ml = part_ml + (bh * nsplit + split) * g * 2;
     if (sp.empty()) {
@@ -138,8 +527,7 @@ decode_logits_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
         }
         return;
     }
-    stage<PAGED>(ks, kpool, PAGED ? tables + (size_t)b * mb : nullptr, sp, b, h, hkv, hd,
-                 bs, mb, L.ld);
+    stage(ks, kpool, tables + (size_t)b * mb, sp, h, hkv, hd, bs, mb, L.ld);
     const bf16* qb = q + bh * g * hd;
     for (int i = tid; i < g * hd; i += NTHREAD) qs[i] = __bfloat162float(qb[i]);
     cp_async_wait_all();
@@ -183,7 +571,6 @@ decode_logits_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
     }
 }
 
-template <bool PAGED>
 __global__ void __launch_bounds__(NTHREAD)
 decode_pv_kernel(const bf16* __restrict__ vpool, const int* __restrict__ tables,
                  const int* __restrict__ positions, const float* __restrict__ logits,
@@ -196,11 +583,10 @@ decode_pv_kernel(const bf16* __restrict__ vpool, const int* __restrict__ tables,
     float* stat = reinterpret_cast<float*>(smem + L.q);   // (M, L) per query row
     const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int tid = threadIdx.x;
-    const Split sp = split_of<PAGED>(positions, b, split, window);
+    const Split sp = split_of(positions, b, split, window);
     if (sp.empty()) return;
     const size_t bh = (size_t)b * hkv + h;
-    stage<PAGED>(vs, vpool, PAGED ? tables + (size_t)b * mb : nullptr, sp, b, h, hkv, hd,
-                 bs, mb, L.ld);
+    stage(vs, vpool, tables + (size_t)b * mb, sp, h, hkv, hd, bs, mb, L.ld);
 
     // The row's softmax max M and sum L from the splits' (m_s, l_s).
     const float* ml = part_ml + bh * nsplit * g * 2;
@@ -239,7 +625,6 @@ decode_pv_kernel(const bf16* __restrict__ vpool, const int* __restrict__ tables,
     }
 }
 
-template <bool PAGED>
 __global__ void __launch_bounds__(NTHREAD)
 decode_sum_kernel(const float* __restrict__ part_acc, const int* __restrict__ positions,
                   bf16* __restrict__ out, int hkv, int g, int hd, int nsplit, int window) {
@@ -248,45 +633,43 @@ decode_sum_kernel(const float* __restrict__ part_acc, const int* __restrict__ po
     for (int o = threadIdx.x; o < g * hd; o += NTHREAD) {
         float a = 0.0f;
         for (int s = 0; s < nsplit; ++s)
-            if (!split_of<PAGED>(positions, b, s, window).empty()) a += acc[(size_t)s * g * hd + o];
+            if (!split_of(positions, b, s, window).empty()) a += acc[(size_t)s * g * hd + o];
         out[(size_t)bh * g * hd + o] = __float2bfloat16(a);
     }
 }
 
-// The three launches on one stream.  PAGED: tables (B,MB) and positions
-// (B,); contiguous: tables unused, positions = kv_len (1,), bs = C, mb = 1.
-template <bool PAGED>
-int launch_decode(const void* q, const void* k, const void* v, const void* tables,
-                  const void* positions, void* logits, void* part_ml, void* part_acc,
-                  void* out, int b, int hkv, int g, int hd, int bs, int mb, float scale,
-                  int window, void* stream) {
+// The three launches on one stream.
+int launch_paged(const void* q, const void* k, const void* v, const void* tables,
+                 const void* positions, void* logits, void* part_ml, void* part_acc,
+                 void* out, int b, int hkv, int g, int hd, int bs, int mb, float scale,
+                 int window, void* stream) {
     if (g > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int nsplit = (mb * bs + KEYS - 1) / KEYS;
     const size_t smem = smem_layout(hd, g).total;
-    const void* staged[] = {reinterpret_cast<const void*>(decode_logits_kernel<PAGED>),
-                            reinterpret_cast<const void*>(decode_pv_kernel<PAGED>)};
+    const void* staged[] = {reinterpret_cast<const void*>(decode_logits_kernel),
+                            reinterpret_cast<const void*>(decode_pv_kernel)};
     for (const void* fn : staged) {
         cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     const dim3 grid(nsplit, hkv, b);
-    decode_logits_kernel<PAGED><<<grid, NTHREAD, smem, st>>>(
+    decode_logits_kernel<<<grid, NTHREAD, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const int*>(tables), static_cast<const int*>(positions),
         static_cast<float*>(logits), static_cast<float*>(part_ml), hkv, g, hd, bs, mb,
         nsplit, scale, window);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    decode_pv_kernel<PAGED><<<grid, NTHREAD, smem, st>>>(
+    decode_pv_kernel<<<grid, NTHREAD, smem, st>>>(
         static_cast<const bf16*>(v), static_cast<const int*>(tables),
         static_cast<const int*>(positions), static_cast<const float*>(logits),
         static_cast<const float*>(part_ml), static_cast<float*>(part_acc), hkv, g, hd, bs,
         mb, nsplit, window);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    decode_sum_kernel<PAGED><<<b * hkv, NTHREAD, 0, st>>>(
+    decode_sum_kernel<<<b * hkv, NTHREAD, 0, st>>>(
         static_cast<const float*>(part_acc), static_cast<const int*>(positions),
         static_cast<bf16*>(out), hkv, g, hd, nsplit, window);
     return static_cast<int>(cudaGetLastError());
@@ -304,18 +687,18 @@ extern "C" int flash_decode_paged_bf16(const void* q, const void* k_pool, const 
                                        void* logits, void* part_ml, void* part_acc, void* out,
                                        int b, int hkv, int g, int hd, int bs, int mb,
                                        float scale, int window, void* stream) {
-    return launch_decode<true>(q, k_pool, v_pool, tables, positions, logits, part_ml,
-                               part_acc, out, b, hkv, g, hd, bs, mb, scale, window, stream);
+    return launch_paged(q, k_pool, v_pool, tables, positions, logits, part_ml, part_acc, out,
+                        b, hkv, g, hd, bs, mb, scale, window, stream);
 }
 
 // q (B,Hkv,G,hd), k/v (B,Hkv,C,hd), out (B,Hkv,G,hd): bf16, contiguous,
 // 16-byte aligned; kv_len (1,) int32 on the card, 0 <= kv_len <= C.
-// f32 scratch with nsplit = ceil(C / 128) shaped as for the paged entry.
-// hd % 8 == 0, hd <= 256, G <= 16.
+// hd % 8 == 0, hd <= 256, G <= 16.  No scratch: one cluster launch.
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
-                                 const void* kv_len, void* logits, void* part_ml,
-                                 void* part_acc, void* out, int b, int hkv, int g, int hd,
-                                 int c, float scale, void* stream) {
-    return launch_decode<false>(q, k, v, nullptr, kv_len, logits, part_ml, part_acc, out, b,
-                                hkv, g, hd, c, 1, scale, -1, stream);
+                                 const void* kv_len, void* out, int b, int hkv, int g,
+                                 int hd, int c, float scale, void* stream) {
+    return launch_cluster(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v), static_cast<const int*>(kv_len),
+                          static_cast<bf16*>(out), b, hkv, g, hd, c, scale,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -21,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "q8_matmul", "q3k_matmul", "flash_prefill",
@@ -127,6 +129,24 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     if code != 0:
         msg = lib.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def launch(name: str, symbol: str, argtypes: list, device, *args) -> None:
+    """Call the C entry ``symbol`` of kernel ``name`` with ``args`` and the
+    current stream of ``device`` (a CUDA ``torch.device``) as its last
+    argument, with that device current; raise on a CUDA error.  It takes
+    the raw stream handle rather than building a ``torch.cuda.Stream``,
+    and enters a device context only when another device is current: at
+    decode shapes the host time of a call is the floor under a kernel's
+    time on the main path."""
+    lib, fn = entry(name, symbol, argtypes)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, stream)
+    check(lib, symbol, code)
 
 
 def aligned16(t):

@@ -42,12 +42,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if scale is None:
         scale = d ** -0.5
-    lib, fn = build.entry("flash_attention", "flash_attention_bf16", _ARGS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  b * h, sq, sk, d, float(scale), int(causal),
-                  -1 if window is None else int(window), stream)
-    build.check(lib, "flash_attention", code)
+    build.launch("flash_attention", "flash_attention_bf16", _ARGS, q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b * h, sq, sk, d, float(scale), int(causal),
+                 -1 if window is None else int(window))
     launches += 1
     return out

@@ -32,13 +32,13 @@ from repro_torch.kernels import build
 
 launches = 0              # flash_decode_paged launches since the last reset
 launches_contiguous = 0   # flash_decode launches since the last reset
-KEYS_PER_SPLIT = 128  # keys per block of the split pass (csrc KEYS)
+KEYS_PER_SPLIT = 128  # keys per block of the paged split pass (csrc KEYS)
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16
 
 _ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_ARGS_CONTIGUOUS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+_ARGS_CONTIGUOUS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -73,7 +73,8 @@ def _check_operands(name, q, k, v):
 
 
 def _scratch(q, nkeys):
-    """f32 logits, split (max, sum) and partial P.V for ``nkeys`` keys."""
+    """The paged kernels' f32 logits, split (max, sum) and partial P.V
+    for ``nkeys`` keys."""
     b, h, g, d = q.shape
     nsplit = -(-nkeys // KEYS_PER_SPLIT)
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -93,7 +94,8 @@ def flash_decode_ref(q, k, v, kv_len, *, scale=None):
 
 def flash_decode(q, k, v, kv_len, *, scale=None) -> torch.Tensor:
     """Kernel of :func:`flash_decode_ref` for a bf16 cache; kv_len is a
-    (1,) int32 CUDA tensor with 0 <= kv_len <= C."""
+    (1,) int32 CUDA tensor with 0 <= kv_len <= C.  One cluster launch
+    that allocates nothing but ``out``."""
     global launches_contiguous
     _check_operands("flash_decode", q, k, v)
     if k.shape[0] != q.shape[0]:
@@ -105,17 +107,11 @@ def flash_decode(q, k, v, kv_len, *, scale=None) -> torch.Tensor:
     c = k.shape[2]
     q, k, v = (build.aligned16(x) for x in (q, k, v))
     kv_len = kv_len.contiguous()
-    logits, part_ml, part_acc = _scratch(q, c)
     out = torch.empty_like(q)
     scale = d ** -0.5 if scale is None else scale
-    lib, fn = build.entry("flash_decode", "flash_decode_bf16", _ARGS_CONTIGUOUS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  kv_len.data_ptr(), logits.data_ptr(),
-                  part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-                  b, h, g, d, c, float(scale), stream)
-    build.check(lib, "flash_decode", code)
+    build.launch("flash_decode", "flash_decode_bf16", _ARGS_CONTIGUOUS, q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+                 out.data_ptr(), b, h, g, d, c, float(scale))
     launches_contiguous += 1
     return out
 
@@ -161,14 +157,11 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, positions, *,
     logits, part_ml, part_acc = _scratch(q, mb * bs)
     out = torch.empty_like(q)
     scale = d ** -0.5 if scale is None else scale
-    lib, fn = build.entry("flash_decode", "flash_decode_paged_bf16", _ARGS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                  tables.data_ptr(), positions.data_ptr(), logits.data_ptr(),
-                  part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, h,
-                  g, d, bs, mb,
-                  float(scale), -1 if window is None else int(window), stream)
-    build.check(lib, "flash_decode_paged", code)
+    build.launch("flash_decode", "flash_decode_paged_bf16", _ARGS, q.device,
+                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 tables.data_ptr(), positions.data_ptr(), logits.data_ptr(),
+                 part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, h,
+                 g, d, bs, mb, float(scale),
+                 -1 if window is None else int(window))
     launches += 1
     return out

@@ -165,14 +165,11 @@ def flash_prefill_paged(q, k_new, v_new, k_pool, v_pool, block_table, pos0,
     table = block_table.contiguous()
     out = torch.empty_like(q)
     scale = d ** -0.5 if scale is None else scale
-    lib, fn = build.entry("flash_prefill", "flash_prefill_paged_bf16", _BF16_ARGS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                  k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-                  out.data_ptr(), t, h, g, d, bs, pos0, float(scale),
-                  -1 if window is None else int(window), stream)
-    build.check(lib, "flash_prefill_paged", code)
+    build.launch("flash_prefill", "flash_prefill_paged_bf16", _BF16_ARGS, q.device,
+                 q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                 k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+                 out.data_ptr(), t, h, g, d, bs, pos0, float(scale),
+                 -1 if window is None else int(window))
     launches += 1
     return out, k_pool, v_pool
 
@@ -202,14 +199,11 @@ def flash_prefill_paged_q8(q, k_new, v_new, kq_pool, vq_pool, ks_pool,
     table = block_table.contiguous()
     out = torch.empty_like(q)
     scale = d ** -0.5 if scale is None else scale
-    lib, fn = build.entry("flash_prefill", "flash_prefill_paged_q8", _Q8_ARGS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                  kq_pool.data_ptr(), vq_pool.data_ptr(), ks_pool.data_ptr(),
-                  vs_pool.data_ptr(), table.data_ptr(), out.data_ptr(), t, h, g,
-                  d, bs, pos0, float(scale), -1 if window is None else int(window),
-                  stream)
-    build.check(lib, "flash_prefill_paged_q8", code)
+    build.launch("flash_prefill", "flash_prefill_paged_q8", _Q8_ARGS, q.device,
+                 q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                 kq_pool.data_ptr(), vq_pool.data_ptr(), ks_pool.data_ptr(),
+                 vs_pool.data_ptr(), table.data_ptr(), out.data_ptr(), t, h, g,
+                 d, bs, pos0, float(scale),
+                 -1 if window is None else int(window))
     launches_q8 += 1
     return out, kq_pool, vq_pool, ks_pool, vs_pool

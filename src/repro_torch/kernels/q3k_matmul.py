@@ -46,11 +46,8 @@ def q3k_matmul(x: torch.Tensor, ql: torch.Tensor, qh: torch.Tensor,
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y
-    lib, fn = build.entry("q3k_matmul", "q3k_matmul_bf16", _ARGS)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), ql.data_ptr(), qh.data_ptr(), scales.data_ptr(),
-                  d.data_ptr(), y.data_ptr(), m, n, kdim, stream)
-    build.check(lib, "q3k_matmul", code)
+    build.launch("q3k_matmul", "q3k_matmul_bf16", _ARGS, x.device,
+                 x.data_ptr(), ql.data_ptr(), qh.data_ptr(), scales.data_ptr(),
+                 d.data_ptr(), y.data_ptr(), m, n, kdim)
     launches += 1
     return y

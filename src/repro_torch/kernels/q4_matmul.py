@@ -38,11 +38,7 @@ def q4_matmul(x: torch.Tensor, qs: torch.Tensor, d: torch.Tensor) -> torch.Tenso
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y
-    lib, fn = build.entry("q4_matmul", "q4_matmul_bf16", _ARGS)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), qs.data_ptr(), d.data_ptr(), y.data_ptr(),
-                  m, n, kdim, stream)
-    build.check(lib, "q4_matmul", code)
+    build.launch("q4_matmul", "q4_matmul_bf16", _ARGS, x.device, x.data_ptr(),
+                 qs.data_ptr(), d.data_ptr(), y.data_ptr(), m, n, kdim)
     launches += 1
     return y

@@ -43,12 +43,8 @@ def q8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tens
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y
-    lib, fn = build.entry("q8_matmul", "q8_matmul_bf16", _ARGS)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), wq.data_ptr(), ws.data_ptr(), y.data_ptr(),
-                  m, n, kdim, stream)
-    build.check(lib, "q8_matmul", code)
+    build.launch("q8_matmul", "q8_matmul_bf16", _ARGS, x.device, x.data_ptr(),
+                 wq.data_ptr(), ws.data_ptr(), y.data_ptr(), m, n, kdim)
     launches += 1
     return y
 
@@ -79,11 +75,8 @@ def q8_matmul_w8a8(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
     y = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     if m == 0 or n == 0:
         return y
-    lib, fn = build.entry("q8_matmul_w8a8", "q8_matmul_w8a8_s8", _ARGS_W8A8)
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        code = fn(xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                  y.data_ptr(), m, n, kdim, stream)
-    build.check(lib, "q8_matmul_w8a8", code)
+    build.launch("q8_matmul_w8a8", "q8_matmul_w8a8_s8", _ARGS_W8A8, xq.device,
+                 xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                 y.data_ptr(), m, n, kdim)
     launches_w8a8 += 1
     return y

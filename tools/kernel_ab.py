@@ -1,0 +1,164 @@
+"""Time the port's decode kernels from two builds on one card, in turns.
+
+    python3 tools/kernel_ab.py --base DIR           # another checkout against this one
+    python3 tools/kernel_ab.py --set FILE:NAME=V    # this checkout with a constant changed
+
+Side A is the checkout at DIR (for example the parent commit, unpacked
+with ``git archive`` under the gitignored ``build/``) or, with ``--set``,
+this checkout with ``constexpr int NAME = ...;`` in ``csrc/FILE`` set to
+V (the copy is built under ``build/``).  Side B is this checkout.  Each
+side runs in its own process, importing that side's ``repro_torch`` and
+building its kernels, in the order A, B, B, A, so drift of the card shows
+as a difference between the two A runs.  Per case it prints the CUDA-event
+time of 20 back-to-back calls (``ms``, which includes the Python wrapper's
+host time) and the profiler's device time (``device_ms``), and the card's
+name and power limit.  The cases are the decode shapes of
+``flash_decode``, ``flash_decode_paged`` and ``q4_matmul`` (M = 1..16
+and the tile path's shapes above).  It needs one card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FLASH_DECODE = [(4, 8, 4, 128, 2048, 2000), (4, 8, 4, 128, 2048, 160),
+                (1, 8, 4, 128, 2048, 2000), (4, 8, 4, 128, 4096, 4000)]
+Q4 = [(m, n, k) for m in (1, 4, 8, 16) for n, k in ((14336, 4096), (4096, 14336))] + [
+    (32, 14336, 4096), (256, 14336, 4096), (4096, 320, 320), (154, 768, 768),
+    (4096, 2560, 320)]
+PAGED = [(2000, 1990, 2011, 1500)]      # positions; MB 132, Hkv 8, G 4, hd 128, bs 16
+
+
+def _cuda_ms(fn, iters: int = 20) -> float:
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int = 20) -> float:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return sum(us) / 1e3 / iters if us else float("nan")
+
+
+def _with_constants(src_root: Path, sets: list[str]) -> Path:
+    """A copy of ``src_root``'s csrc under build/ with the constants set."""
+    csrc = src_root / "src" / "repro_torch" / "csrc"
+    dst = ROOT / "build" / ("ab_csrc_" + re.sub(r"\W", "_", "_".join(sets)))
+    if dst.exists():
+        shutil.rmtree(dst)
+    shutil.copytree(csrc, dst)
+    for item in sets:
+        fname, assign = item.split(":")
+        name, value = assign.split("=")
+        path = dst / fname
+        text, count = re.subn(rf"constexpr int {name} = -?\d+;",
+                              f"constexpr int {name} = {int(value)};", path.read_text())
+        if count != 1:
+            raise SystemExit(f"kernel_ab: no single 'constexpr int {name}' in {fname}")
+        path.write_text(text)
+    return dst
+
+
+def child(src_root: Path, sets: list[str]) -> None:
+    sys.path.insert(0, str(src_root / "src"))
+    import torch
+
+    from repro_torch.core import quant
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import q4_matmul as q4
+    if sets:
+        build.CSRC = _with_constants(src_root, sets)
+    build.build_all(("flash_decode", "q4_matmul"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def record(kind, case, fn):
+        fn()
+        torch.cuda.synchronize()
+        rows.append({"kind": kind, "case": list(case), "ms": _cuda_ms(fn),
+                     "device_ms": _device_ms(fn)})
+
+    for case in FLASH_DECODE:
+        b, hkv, g, hd, c, n = case
+        q, k, v = bf16(b, hkv, g, hd), bf16(b, hkv, c, hd), bf16(b, hkv, c, hd)
+        kv = torch.tensor([n], dtype=torch.int32, device="cuda")
+        record("flash_decode", case, lambda: fd.flash_decode(q, k, v, kv))
+    for positions in PAGED:
+        b, mb = len(positions), 132
+        tables = (torch.randperm(b * mb, generator=gen, device="cuda") + 1).to(
+            torch.int32).reshape(b, mb)
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        q = bf16(b, 8, 4, 128)
+        kpool, vpool = bf16(b * mb + 1, 8, 16, 128), bf16(b * mb + 1, 8, 16, 128)
+        record("flash_decode_paged", positions,
+               lambda: fd.flash_decode_paged(q, kpool, vpool, tables, pos))
+    for m, n, kdim in Q4:
+        x = bf16(m, kdim)
+        w = quant.quantize_q4_0(torch.randn((n, kdim), generator=gen, device="cuda"))
+        record("q4_matmul", (m, n, kdim), lambda: q4.q4_matmul(x, w.qs, w.d))
+    print(json.dumps(rows))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--base", type=Path, help="checkout of side A")
+    ap.add_argument("--set", dest="sets", action="append", default=[],
+                    metavar="FILE:NAME=VALUE", help="side A: this checkout, constant set")
+    ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        child(args.child, args.sets)
+        return 0
+    if (args.base is None) == (not args.sets):
+        ap.error("give --base DIR or --set FILE:NAME=VALUE")
+    side_a = [sys.executable, __file__, "--child", str((args.base or ROOT).resolve())]
+    side_a += [arg for s in args.sets for arg in ("--set", s)]
+    side_b = [sys.executable, __file__, "--child", str(ROOT)]
+    runs = []
+    for label, cmd in (("A", side_a), ("B", side_b), ("B", side_b), ("A", side_a)):
+        out = subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
+        runs.append((label, json.loads(out.strip().splitlines()[-1])))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"A = {args.base or 'this checkout with ' + ', '.join(args.sets)}; "
+          f"B = this checkout; {smi}")
+    print("kernel case: device ms A1 B1 B2 A2 | event ms A1 B1 B2 A2")
+    for i, row in enumerate(runs[0][1]):
+        dev = " ".join(f"{r[i]['device_ms']:.4f}" for _, r in runs)
+        ev = " ".join(f"{r[i]['ms']:.4f}" for _, r in runs)
+        print(f"{row['kind']} {tuple(row['case'])}: {dev} | {ev}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
