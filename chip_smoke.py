@@ -13,8 +13,8 @@ caught and passed over):
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes and at edge shapes (Sq < 8, ragged
              tiles, tail-padded Q8_0 and Q4_0 weights through ``ops``, a K
-             that ends inside the w8a8 kernel's K stage, q4_matmul's decode
-             path with two token groups, kv_len = 1 and C, kv_len off the
+             that ends inside the w8a8 kernel's K stage, the q8, q3k and q4
+             decode paths with two token groups, kv_len = 1 and C, kv_len off the
              16-key range step, hd = 120 and 256, G = 1 and 16, logits
              recomputed), with the tolerance stated beside it, and every matmul and
              flash_decode shape called twice for the same bits;
@@ -57,8 +57,9 @@ caught and passed over):
              invariants, a consistent runtime with every block returned,
              exact launch counts, ms per 256-token prefill chunk and per
              4-slot decode quantum, tokens/s, peak memory; the first run's
-             tokens against ``lm_forward`` on the card, and a profile of one
-             decode quantum and one prefill chunk.
+             tokens against ``lm_forward`` on the card, and under each
+             weight preset on the bf16 pool a profile of one decode quantum
+             and one prefill chunk.
 7. full_gen — the same Granite-8B through the reference's generation loop
              ``greedy_generate(max_len=2048)`` on a contiguous bf16 cache:
              4 prompts of 128 tokens, 32 new tokens (159 decode steps),
@@ -151,15 +152,21 @@ ATTN_EDGE = [
 # Granite-8B's linears at 4 decode slots (K = 4096 and 14336) and in a
 # 256-token prefill chunk follow the SD-Turbo shapes.
 LM_MATMUL_SHAPES = [(4, 14336, 4096), (4, 4096, 14336), (256, 14336, 4096)]
+# The quantized matmuls take their decode paths up to M_GEMV = 16 rows
+# (csrc/q8_matmul.cu, q3k_matmul.cu, q4_matmul.cu): Granite-8B's other
+# decode linears (q and o, k and v) and M = 8 and 16 put the choice on record.
+LM_DECODE_SHAPES = [(4, 4096, 4096), (4, 1024, 4096), (8, 14336, 4096),
+                    (16, 14336, 4096)]
 Q8_SHAPES = [(4096, 320, 320), (154, 768, 768), (4096, 2560, 320),
-             (1, 768, 3072)] + LM_MATMUL_SHAPES
-Q8_EDGE = [(3, 70, 96), (3, 70, 100)]      # K = 100: tail-padded weight
+             (1, 768, 3072)] + LM_MATMUL_SHAPES + LM_DECODE_SHAPES + [
+             (4, 49152, 4096)]                   # the LM head, Q8_0 under q8_0 and q3_k
+Q8_EDGE = [(3, 70, 96), (3, 70, 100),            # K = 100: tail-padded weight
+           (9, 70, 96), (16, 70, 100)]           # decode path, two token groups
 Q3K_SHAPES = [(4096, 320, 1280), (256, 1280, 1280), (154, 768, 768),
-              (64, 1280, 5120)] + LM_MATMUL_SHAPES
-Q3K_EDGE = [(5, 100, 512)]
-# q4_matmul takes its decode path up to M_GEMV = 16 rows (csrc/q4_matmul.cu):
-# M = 8 and 16 put the choice on record.
-Q4_SHAPES = LM_MATMUL_SHAPES + Q8_SHAPES[:4] + [(8, 14336, 4096), (16, 14336, 4096)]
+              (64, 1280, 5120)] + LM_MATMUL_SHAPES + LM_DECODE_SHAPES
+Q3K_EDGE = [(5, 100, 512), (3, 70, 256),         # one super-block, one warp
+            (9, 70, 256), (16, 70, 512)]         # decode path, two token groups
+Q4_SHAPES = LM_MATMUL_SHAPES + Q8_SHAPES[:4] + LM_DECODE_SHAPES[2:]
 Q4_EDGE = [(77, 320, 768), (1, 70, 96), (3, 70, 100),   # K = 100: tail-padded
            (16, 70, 96), (9, 70, 100)]                  # decode path, two token groups
 W8A8_SHAPES = LM_MATMUL_SHAPES
@@ -749,10 +756,11 @@ def phase_tiny() -> None:
                                      f"images disagree (corr {corr}, max {dmax})")
 
 
-OURS = ("flash_attention_kernel", "q8_matmul_kernel", "q3k_matmul_kernel",
-        "attend_kernel", "write_bf16_kernel", "write_q8_kernel",
-        "decode_logits_kernel", "decode_pv_kernel", "decode_sum_kernel",
-        "decode_cluster_kernel", "q4_matmul_kernel", "q4_gemv_kernel", "w8a8_kernel")
+OURS = ("flash_attention_kernel", "q8_matmul_kernel", "q8_gemv_kernel",
+        "q3k_matmul_kernel", "q3k_gemv_kernel", "attend_kernel", "write_bf16_kernel",
+        "write_q8_kernel", "decode_logits_kernel", "decode_pv_kernel",
+        "decode_sum_kernel", "decode_cluster_kernel", "q4_matmul_kernel",
+        "q4_gemv_kernel", "w8a8_kernel")
 
 
 def _kind(name: str) -> str:
@@ -1239,6 +1247,7 @@ def phase_full_lm(card: str) -> dict[str, int]:
             f"weights {param_bytes(cb.params) / 2**30:.2f} GiB; launches {counts}; {card}")
         if preset == "none" and not quantized:
             _check_against_forward(cb, base, cfg)
+        if not quantized:          # weights none, q8_0 and q3_k on the bf16 KV pool
             _profile_lm(cb, label)
         del cb
         torch.cuda.empty_cache()

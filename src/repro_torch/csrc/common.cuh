@@ -57,6 +57,43 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // ---------------------------------------------------------------------
+// Pieces of the quantized matmuls' decode paths (q8_matmul.cu,
+// q3k_matmul.cu, q4_matmul.cu): a CTA owns 16 weight rows, the m16 of
+// mma.sync m16n8k16, and NT groups of 8 tokens as its n8 columns.
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc[t] of each warp holds rows gid (acc[t][0..1]) and gid + 8 (2..3) of
+// the CTA's 16, tokens 8t + 2tig (+1), summed over the warp's K steps.
+// The warps' partial tiles are added in warp order through `red`, so the
+// sum is the same on every run; rows >= N and tokens >= M are not stored.
+template <int NT, int WARPS>
+__device__ __forceinline__ void gemv_store(const float (&acc)[NT][4],
+                                           float (&red)[WARPS][16 * 8 * NT],
+                                           float* __restrict__ y, int M, int N, int n0) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarp = blockDim.x >> 5;
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int row = gid + 8 * (i >> 1), tok = 8 * t + 2 * tig + (i & 1);
+            red[warp][row * 8 * NT + tok] = acc[t][i];
+        }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 16 * 8 * NT; i += blockDim.x) {
+        const int row = i / (8 * NT), tok = i - row * 8 * NT;
+        if (n0 + row >= N || tok >= M) continue;
+        float s = 0.0f;
+        for (int w = 0; w < nwarp; ++w) s += red[w][i];
+        y[(size_t)tok * N + n0 + row] = s;
+    }
+}
+
+// ---------------------------------------------------------------------
 // Dequant-GEMM skeleton shared by q8_matmul.cu and q3k_matmul.cu:
 //   y(M,N) f32 = x(M,K) bf16 @ W(N,K)^T,  W dequantized tile by tile.
 // A block owns a GEMM_BM x GEMM_BN output tile; its 4 warps own 32x32

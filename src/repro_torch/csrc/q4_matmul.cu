@@ -153,10 +153,6 @@ __device__ __forceinline__ void split_scale(__half d16, __nv_bfloat162& dh,
     dl = __bfloat162bfloat162(__float2bfloat16_rn(d - __bfloat162float(hi)));
 }
 
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 // One K step's codes and scales for a lane: block 4*step + tig of rows
 // gid and gid + 8.
 struct Codes {
@@ -246,22 +242,7 @@ q4_gemv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
 #pragma unroll
         for (int u = 0; u < GEMV_UNROLL; ++u) cur[u] = nxt[u];
     }
-    // acc[t]: rows gid (0, 1) and gid + 8 (2, 3), tokens 8t + 2tig (+1).
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int row = gid + 8 * (i >> 1), tok = 8 * t + 2 * tig + (i & 1);
-            red[warp][row * 8 * NT + tok] = acc[t][i];
-        }
-    __syncthreads();
-    for (int i = threadIdx.x; i < GEMV_ROWS * 8 * NT; i += blockDim.x) {
-        const int row = i / (8 * NT), tok = i - row * 8 * NT;
-        if (n0 + row >= N || tok >= M) continue;
-        float s = 0.0f;
-        for (int w = 0; w < nwarp; ++w) s += red[w][i];
-        y[(size_t)tok * N + n0 + row] = s;
-    }
+    gemv_store(acc, red, y, M, N, n0);
 }
 
 }  // namespace

@@ -13,12 +13,18 @@ as a difference between the two A runs.  Per case it prints the CUDA-event
 time of 20 back-to-back calls (``ms``, which includes the Python wrapper's
 host time) and the profiler's device time (``device_ms``), and the card's
 name and power limit.  The cases are the decode shapes of
-``flash_decode``, ``flash_decode_paged`` and ``q4_matmul`` (M = 1..16
-and the tile path's shapes above).  It needs one card.
+``flash_decode`` and ``flash_decode_paged``, and those of the quantized
+matmuls ``q4_matmul``, ``q8_matmul`` and ``q3k_matmul``: M = 1..16 on
+their decode paths, and the tile paths' shapes above (M = 32, a 256-token
+chunk, SD-Turbo's), where each case is also timed over copies of its
+weight, each call on the next, that together pass the L2 cache at the LM
+shapes (``cold device ms``).  It needs
+one card.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import re
 import shutil
@@ -29,9 +35,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 FLASH_DECODE = [(4, 8, 4, 128, 2048, 2000), (4, 8, 4, 128, 2048, 160),
                 (1, 8, 4, 128, 2048, 2000), (4, 8, 4, 128, 4096, 4000)]
-Q4 = [(m, n, k) for m in (1, 4, 8, 16) for n, k in ((14336, 4096), (4096, 14336))] + [
-    (32, 14336, 4096), (256, 14336, 4096), (4096, 320, 320), (154, 768, 768),
-    (4096, 2560, 320)]
+DECODE_MN = [(m, n, k) for m in (1, 4, 8, 16) for n, k in ((14336, 4096), (4096, 14336))]
+Q4 = DECODE_MN + [(32, 14336, 4096), (256, 14336, 4096), (4096, 320, 320),
+                  (154, 768, 768), (4096, 2560, 320)]
+Q8 = DECODE_MN + [(4, 4096, 4096), (4, 1024, 4096), (4, 49152, 4096), (32, 14336, 4096),
+                  (32, 4096, 14336), (256, 14336, 4096), (4096, 320, 320),
+                  (154, 768, 768), (4096, 2560, 320)]
+Q3K = DECODE_MN + [(4, 4096, 4096), (4, 1024, 4096), (32, 14336, 4096),
+                   (32, 4096, 14336), (256, 14336, 4096), (4096, 320, 1280),
+                   (256, 1280, 1280), (154, 768, 768)]
 PAGED = [(2000, 1990, 2011, 1500)]      # positions; MB 132, Hkv 8, G 4, hd 128, bs 16
 
 
@@ -91,10 +103,12 @@ def child(src_root: Path, sets: list[str]) -> None:
     from repro_torch.core import quant
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import q3k_matmul as q3k
     from repro_torch.kernels import q4_matmul as q4
+    from repro_torch.kernels import q8_matmul as q8
     if sets:
         build.CSRC = _with_constants(src_root, sets)
-    build.build_all(("flash_decode", "q4_matmul"))
+    build.build_all(("flash_decode", "q4_matmul", "q8_matmul", "q3k_matmul"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
 
@@ -121,10 +135,23 @@ def child(src_root: Path, sets: list[str]) -> None:
         kpool, vpool = bf16(b * mb + 1, 8, 16, 128), bf16(b * mb + 1, 8, 16, 128)
         record("flash_decode_paged", positions,
                lambda: fd.flash_decode_paged(q, kpool, vpool, tables, pos))
-    for m, n, kdim in Q4:
-        x = bf16(m, kdim)
-        w = quant.quantize_q4_0(torch.randn((n, kdim), generator=gen, device="cuda"))
-        record("q4_matmul", (m, n, kdim), lambda: q4.q4_matmul(x, w.qs, w.d))
+    # Each matmul case also runs over copies of its weight (up to 64, as far
+    # as 100 MB: past the 50 MB L2 for the LM shapes), each call on the next
+    # (``cold_device_ms``), as a serving step finds its weights.
+    for kind, cases, quantize, fn in (
+            ("q4_matmul", Q4, quant.quantize_q4_0, lambda x, w: q4.q4_matmul(x, w.qs, w.d)),
+            ("q8_matmul", Q8, quant.quantize_q8_0, lambda x, w: q8.q8_matmul(x, w.qs, w.d)),
+            ("q3k_matmul", Q3K, quant.quantize_q3_k,
+             lambda x, w: q3k.q3k_matmul(x, w.ql, w.qh, w.scales, w.d))):
+        for m, n, kdim in cases:
+            x = bf16(m, kdim)
+            ws = [quantize(torch.randn((n, kdim), generator=gen, device="cuda"))]
+            while len(ws) * ws[0].nbytes() < 100e6 and len(ws) < 64:
+                ws.append(quantize(torch.randn((n, kdim), generator=gen, device="cuda")))
+            turn = itertools.count()
+            record(kind, (m, n, kdim), lambda: fn(x, ws[0]))
+            rows[-1]["cold_device_ms"] = _device_ms(lambda: fn(x, ws[next(turn) % len(ws)]))
+            del ws
     print(json.dumps(rows))
 
 
@@ -152,11 +179,12 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(f"A = {args.base or 'this checkout with ' + ', '.join(args.sets)}; "
           f"B = this checkout; {smi}")
-    print("kernel case: device ms A1 B1 B2 A2 | event ms A1 B1 B2 A2")
+    print("kernel case: device ms A1 B1 B2 A2 | event ms A1 B1 B2 A2"
+          " [| cold device ms A1 B1 B2 A2]")
     for i, row in enumerate(runs[0][1]):
-        dev = " ".join(f"{r[i]['device_ms']:.4f}" for _, r in runs)
-        ev = " ".join(f"{r[i]['ms']:.4f}" for _, r in runs)
-        print(f"{row['kind']} {tuple(row['case'])}: {dev} | {ev}")
+        cols = [" ".join(f"{r[i][key]:.4f}" for _, r in runs)
+                for key in ("device_ms", "ms", "cold_device_ms") if key in row]
+        print(f"{row['kind']} {tuple(row['case'])}: " + " | ".join(cols))
     return 0
 
 
