@@ -157,15 +157,23 @@ LM_MATMUL_SHAPES = [(4, 14336, 4096), (4, 4096, 14336), (256, 14336, 4096)]
 # decode linears (q and o, k and v) and M = 8 and 16 put the choice on record.
 LM_DECODE_SHAPES = [(4, 4096, 4096), (4, 1024, 4096), (8, 14336, 4096),
                     (16, 14336, 4096)]
+# Granite-8B's other linears in a 256-token chunk (down; q and o; k and
+# v) and a ragged last chunk, on the tile paths of Q8_0 and Q3_K only
+# (csrc/common.cuh's CTA rule takes another tile for each).
+LM_CHUNK_SHAPES = [(256, 4096, 14336), (256, 4096, 4096), (256, 1024, 4096),
+                   (200, 4096, 4096)]
 Q8_SHAPES = [(4096, 320, 320), (154, 768, 768), (4096, 2560, 320),
              (1, 768, 3072)] + LM_MATMUL_SHAPES + LM_DECODE_SHAPES + [
-             (4, 49152, 4096)]                   # the LM head, Q8_0 under q8_0 and q3_k
+             (4, 49152, 4096)] + LM_CHUNK_SHAPES  # the LM head, Q8_0 under q8_0 and q3_k
 Q8_EDGE = [(3, 70, 96), (3, 70, 100),            # K = 100: tail-padded weight
-           (9, 70, 96), (16, 70, 100)]           # decode path, two token groups
+           (9, 70, 96), (16, 70, 100),           # decode path, two token groups
+           (17, 70, 96), (129, 100, 100),        # tile path: a half K step; tail-padded
+           (255, 70, 1152)]                      # ragged M and N, 18 K steps
 Q3K_SHAPES = [(4096, 320, 1280), (256, 1280, 1280), (154, 768, 768),
-              (64, 1280, 5120)] + LM_MATMUL_SHAPES + LM_DECODE_SHAPES
+              (64, 1280, 5120)] + LM_MATMUL_SHAPES + LM_DECODE_SHAPES + LM_CHUNK_SHAPES
 Q3K_EDGE = [(5, 100, 512), (3, 70, 256),         # one super-block, one warp
-            (9, 70, 256), (16, 70, 512)]         # decode path, two token groups
+            (9, 70, 256), (16, 70, 512),         # decode path, two token groups
+            (17, 70, 256), (129, 100, 512)]      # tile path: ragged M and N
 Q4_SHAPES = LM_MATMUL_SHAPES + Q8_SHAPES[:4] + LM_DECODE_SHAPES[2:]
 Q4_EDGE = [(77, 320, 768), (1, 70, 96), (3, 70, 100),   # K = 100: tail-padded
            (16, 70, 96), (9, 70, 100)]                  # decode path, two token groups
@@ -428,9 +436,18 @@ def _matmul_case(kind: str, shape, gen, timed: bool) -> dict:
         raise AssertionError(f"{kind} {shape}: a second call gave other bits")
     row = {"shape": shape, "max_abs_err": err}
     if timed:
+        # cuBLAS on the weight already dequantized to bf16 (what the
+        # `none` preset runs), beside dequantize + matmul.
+        wd = quant.dequantize(wt, torch.bfloat16)
+        xd = quant.dequantize_q8_0(xa, torch.bfloat16) if kind == "q8_matmul_w8a8" else x
+
+        def dense():
+            return torch.matmul(xd, wd.t())
         row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
                    library_ms=cuda_ms(library), device_ms=device_ms(kern),
-                   library_device_ms=device_ms(library))
+                   library_device_ms=device_ms(library), cublas_ms=cuda_ms(dense),
+                   cublas_device_ms=device_ms(dense))
+        del wd, xd
         # bytes: x (bf16, or int8 + f32 scales for w8a8), the weight, y f32.
         row["bound_ms"], row["bound_by"] = bound(
             2.0 * m * n * kdim, xbytes + wbytes + 4 * m * n, ops_flops)
@@ -718,6 +735,9 @@ def _log_rows(rows: dict) -> None:
             if "device_ms" in r:
                 timing += (f"; device ms {r['device_ms']:.4f} library "
                            f"{r['library_device_ms']:.4f}")
+            if "cublas_ms" in r:
+                timing += (f"; cuBLAS on bf16 ms {r['cublas_ms']:.4f} device "
+                           f"{r['cublas_device_ms']:.4f}")
             log(f"[kernels] {name} {r['shape']} max|err| "
                 f"{r['max_abs_err']:.3e}{timing}")
 
@@ -756,8 +776,8 @@ def phase_tiny() -> None:
                                      f"images disagree (corr {corr}, max {dmax})")
 
 
-OURS = ("flash_attention_kernel", "q8_matmul_kernel", "q8_gemv_kernel",
-        "q3k_matmul_kernel", "q3k_gemv_kernel", "attend_kernel", "write_bf16_kernel",
+OURS = ("flash_attention_kernel", "tile_kernel", "q8_gemv_kernel",
+        "q3k_gemv_kernel", "attend_kernel", "write_bf16_kernel",
         "write_q8_kernel", "decode_logits_kernel", "decode_pv_kernel",
         "decode_sum_kernel", "decode_cluster_kernel", "q4_matmul_kernel",
         "q4_gemv_kernel", "w8a8_kernel")
@@ -812,7 +832,7 @@ def _profile(label: str, fn) -> dict[str, list]:
         + "; ".join(f"{k} {ms:.2f} ms/{n}" for k, (ms, n) in
                     sorted(kinds.items(), key=lambda kv: -kv[1][0])))
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
-        log(f"[profile]   {ms:8.3f} ms {n:5d}x {name[:90]}")
+        log(f"[profile]   {ms:8.3f} ms {n:5d}x {name[:150]}")
     return by_name
 
 

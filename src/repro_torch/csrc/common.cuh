@@ -9,6 +9,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace repro {
@@ -93,8 +94,400 @@ __device__ __forceinline__ void gemv_store(const float (&acc)[NT][4],
     }
 }
 
+// 4- and 8-byte asynchronous copies (cp.async.ca), zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 8 : 0));
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // ---------------------------------------------------------------------
-// Dequant-GEMM skeleton shared by q8_matmul.cu and q3k_matmul.cu:
+// Tile path of the quantized matmuls q8_matmul.cu and q3k_matmul.cu
+// (M > M_GEMV):  y(M,N) f32 = x(M,K) bf16 @ W(N,K)^T, the weight
+// dequantized in shared memory and never written to device memory.
+//
+// What bounds it on the H100: the tensor cores.  A CTA tile of BM tokens
+// and BN weight rows does 2 * BM flops per weight it unpacks and 2 * BN
+// per x element it copies, so at 256 x 128 Granite-8B's (256, 14336,
+// 4096) is far above the card's 295 flops per byte; at the UNet's short
+// K the f32 y (4 bytes per output) is most of the bytes.  The unpack (3.75
+// integer and f32 instructions per Q8_0 weight, ~4.7 per Q3_K weight) is
+// the other cost, paid once per weight per CTA.
+// Design:
+// - Warp-specialised CTAs: two warpgroups (TILE_MMA_WARPS = 8 warps) only
+//   multiply, on wgmma (m64nNk16, bf16 in, f32 sums in registers), and NP
+//   = 256 producer threads (two more warpgroups) only copy and unpack, so
+//   that the integer unpack and the copies issue beside the tensor cores.
+//   The warpgroups split the tile's rows (BM >= 128) or, at 64 x 64, its
+//   columns.  Tokens are wgmma's A and weight rows its B, both K-major in
+//   shared memory, read through descriptors.
+// - K steps of TILE_BK = 64 weights (two Q8_0 blocks, a quarter of a
+//   Q3_K super-block): four k16 steps, WGM wgmma each per warpgroup.
+// - A ring of STAGES slots (TILE_STAGES, or 3 when four do not fit in
+//   shared memory), each the step's x tile (bf16, 16-byte cp.async), its
+//   raw weight bytes and scales (the format's load(): 16-, 8- and 4-byte
+//   cp.async, what device memory delivers) and its bf16 weight tile.  The
+//   producers copy step k + AHEAD while they unpack step k (the format's
+//   unpack(), 16 weights of a row per unit), each weight once per CTA,
+//   for BM tokens; the unpack runs STAGES - AHEAD = TILE_LEAD steps ahead
+//   of the mma.  The producers fence their writes to the async proxy
+//   that wgmma reads through.  A format may keep copies of its own past
+//   the ring (Q3_K's scales, once per super-block).
+// - Named barriers hand the slots over: FULL[s] (producers arrive when
+//   x and the bf16 weights of the slot are in place, mma warps wait),
+//   EMPTY[s] (mma warps arrive when their wgmma of the slot completed,
+//   producers wait before refilling it) and PROD (the producers' copies of
+//   a step have landed before any of them unpacks it).
+// - x and weight tiles are rows of 128 bytes (64 weights), 16-byte chunk c
+//   of row r at c ^ (r & 7), in slots 1024-byte aligned: the 128-byte
+//   swizzle that wgmma's descriptors read, and 8 distinct bank groups for
+//   the unpack's 16-byte stores and cp.async.
+// - Epilogue: the mma warps store their accumulators straight to y as
+//   float2 (4 lanes fill one 32-byte sector of a row), rows >= M and
+//   cols >= N masked (element stores when N is odd).
+// - The 256 x 128 tile's two m64n128 sums per thread (128 registers) need
+//   more than the 128 that 512 threads get: setmaxnreg moves registers
+//   from the producers (80) to the mma warps (176).  ptxas (sm_90a, q8 /
+//   q3k): 128 / 128 registers at 256 x 128 (before setmaxnreg), 95 / 90
+//   at 128 x 128, 64 / 64 at 128 x 64, 56 / 53 at 64 x 64; no spills.
+// - CTA rule (tile_launch): of 256 x 128 (M > 128), 128 x 128, 128 x 64
+//   (M > 64) and 64 x 64, the tile whose waves of one CTA per SM take the
+//   least time, a wave's time being BM * BN over the tile's measured rate
+//   (TILE_RATE_*): larger tiles unpack each weight for more tokens, smaller
+//   ones fill more SMs.  Granite-8B's chunk (M = 256) gives 112 CTAs of
+//   256 x 128 (N = 14336), 128 of 128 x 64 (N = 4096) and 64 of 64 x 64
+//   (N = 1024).
+// - Deterministic: each output is one thread's accumulator over the K
+//   steps in order; no split of K, no atomics.  Rows >= M and >= N and K
+//   past the end are zero-filled by cp.async (src-size 0).
+constexpr int TILE_BK = 64;            // weights per K step
+constexpr int TILE_MMA_WARPS = 8;
+constexpr int TILE_STAGES = 4;         // ring slots, at most
+constexpr int TILE_LEAD = 2;           // steps the unpack runs ahead of the mma
+// CTA rule: one CTA per SM; the time of a wave of CTAs of each tile is
+// taken as BM * BN over the tile's rate, in GFLOP/s per SM, as
+// tools/kernel_ab.py measured q8_matmul on an H100 80GB HBM3 at 700 W
+// (256 x 128 at (256, 14336, 4096), 128 x 128 and 128 x 64 at (256, 4096,
+// 14336), 64 x 64 at (256, 1024, 4096)).
+constexpr int TILE_RATE_256x128 = 3530;
+constexpr int TILE_RATE_128x128 = 2580;
+constexpr int TILE_RATE_128x64 = 1720;
+constexpr int TILE_RATE_64x64 = 970;
+constexpr int TILE_SMEM_MAX = 232448;  // shared memory a block may use (227 KB)
+constexpr int TILE_MAX_DEVICES = 64;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Element offset of chunk c (8 bf16) of row r in a swizzled 64-wide tile.
+__device__ __forceinline__ int tile_swz(int r, int c) { return r * TILE_BK + ((c ^ (r & 7)) << 3); }
+
+// A tile of BM x BN for format Fmt with NP producers.  The two mma
+// warpgroups split the tile's rows (BM >= 128: WGM m64 blocks each, all BN
+// columns) or, at BM = 64, its columns (BN / 2 each).
+// The format supplies raw_bytes(BN) (raw bytes of one slot), extra_bytes(BN)
+// (shared memory of its own past the ring) and Producer<BN, NP>(fmt, n0, N,
+// K, t, extra), producer t's addresses worked out once, with load(raw, k)
+// issuing its share of the cp.async copies of step k's weight bytes and
+// scales and unpack(raw, wt, k) writing its units of the bf16 tile (unit
+// i: row i / 4, weights 16 (i % 4) .. + 15, two swizzled chunks; units t +
+// NP * u).
+template <class Fmt, int BM_, int BN_, int NP_, int MMA_REGS_ = 0>
+struct Tile {
+    static constexpr int BM = BM_, BN = BN_, NP = NP_;
+    static constexpr int THREADS = TILE_MMA_WARPS * 32 + NP;
+    static constexpr bool SPLIT_M = BM >= 128;
+    static constexpr int WGM = SPLIT_M ? BM / 128 : 1;         // m64 blocks per warpgroup
+    static constexpr int WGN = SPLIT_M ? BN : BN / 2;          // n of each wgmma
+    // With MMA_REGS, setmaxnreg gives each mma thread MMA_REGS registers
+    // and each producer what is left of the SM's 65536 (multiples of 8).
+    static constexpr int MMA_REGS = MMA_REGS_;
+    static constexpr int PROD_REGS = (65536 - TILE_MMA_WARPS * 32 * MMA_REGS) / NP / 8 * 8;
+    static constexpr int XS = BM * TILE_BK * 2, WB = BN * TILE_BK * 2;
+    // Slots start on 1024 bytes, the period of the 128-byte swizzle.
+    static constexpr int SLOT = (XS + WB + Fmt::raw_bytes(BN) + 1023) / 1024 * 1024;
+    static constexpr int EXTRA = Fmt::extra_bytes(BN);
+    static constexpr int STAGES = TILE_STAGES * SLOT + EXTRA <= TILE_SMEM_MAX ? TILE_STAGES : 3;
+    static constexpr int AHEAD = STAGES - TILE_LEAD;   // steps the copies run ahead of the unpack
+    static constexpr int SMEM = STAGES * SLOT + EXTRA;
+    static_assert(TILE_MMA_WARPS == 8 && (SPLIT_M ? BM % 128 == 0 : BM == 64), "warpgroups");
+    static_assert(STAGES >= 3 && AHEAD >= 1 && SMEM <= TILE_SMEM_MAX && 2 + 2 * STAGES <= 16,
+                  "ring");
+    static_assert(BM * 8 % NP == 0 && BN * 4 % NP == 0 && NP % 128 == 0, "producer passes");
+    static_assert(MMA_REGS == 0 || (MMA_REGS % 8 == 0 && PROD_REGS >= 24 && MMA_REGS <= 256),
+                  "register split");
+};
+
+// wgmma.mma_async m64nNk16, bf16 in, f32 sums added to d; A and B from
+// shared memory through the descriptors a and b.
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<128> {
+    static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+            "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+            "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+            "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+            :
+              "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+              "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
+template <>
+struct Wgmma<64> {
+    static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+            "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+            :
+              "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
+template <>
+struct Wgmma<32> {
+    static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+            "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+            :
+              "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+              "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
+
+// Descriptor of a K-major bf16 tile in shared memory with the 128-byte
+// swizzle (tile_swz's layout): rows of 128 bytes, 8-row groups 1024 bytes
+// apart; the start moves by 32 bytes per k16 step.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+           (uint64_t)1 << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
+}
+
+template <class Fmt, class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+tile_kernel(const bf16* __restrict__ x, const Fmt fmt, float* __restrict__ y,
+            int M, int N, int K) {
+    constexpr int STAGES = T::STAGES, THREADS = T::THREADS;
+    constexpr int FULL = 1, EMPTY = 1 + STAGES, PROD = 1 + 2 * STAGES;
+    extern __shared__ __align__(1024) unsigned char smem[];
+    const int n0 = blockIdx.x * T::BN, m0 = blockIdx.y * T::BM;
+    const int nsteps = (K + TILE_BK - 1) / TILE_BK;
+    auto xs = [&](int k) { return reinterpret_cast<bf16*>(smem + (k % STAGES) * T::SLOT); };
+    auto wt = [&](int k) { return reinterpret_cast<bf16*>(smem + (k % STAGES) * T::SLOT + T::XS); };
+    auto raw = [&](int k) { return smem + (k % STAGES) * T::SLOT + T::XS + T::WB; };
+
+    if (threadIdx.x >= TILE_MMA_WARPS * 32) {              // producers
+        if constexpr (T::MMA_REGS > 0) setmaxnreg_dec<T::PROD_REGS>();
+        const int t = threadIdx.x - TILE_MMA_WARPS * 32;
+        const typename Fmt::template Producer<T::BN, T::NP> prod(fmt, n0, N, K, t,
+                                                                 smem + STAGES * T::SLOT);
+        // This thread's x chunks: chunk xc of rows xr + XROWS * it.
+        constexpr int XIT = T::BM * 8 / T::NP, XROWS = T::NP / 8;
+        const int xr = t >> 3, xc = t & 7;
+        const bf16* xsrc = x + (size_t)(m0 + xr) * K + 8 * xc;
+        const int xdst = tile_swz(xr, xc);                 // + XROWS * 64 per it
+        auto load = [&](int k) {
+            if (k < nsteps) {
+                if (k >= STAGES) bar_sync(EMPTY + k % STAGES, THREADS);
+                const int k0 = k * TILE_BK;
+                const bool kin = k0 + 8 * xc < K;
+                bf16* dst = xs(k) + xdst;
+#pragma unroll
+                for (int it = 0; it < XIT; ++it) {
+                    const bool in = kin && m0 + xr + XROWS * it < M;
+                    cp_async16(dst + XROWS * TILE_BK * it,
+                               in ? xsrc + (size_t)XROWS * K * it + k0 : x, in);
+                }
+                prod.load(raw(k), k);
+            }
+            cp_async_commit();
+        };
+#pragma unroll
+        for (int k = 0; k < T::AHEAD; ++k) load(k);
+        for (int k = 0; k < nsteps; ++k) {
+            load(k + T::AHEAD);
+            cp_async_wait_n<T::AHEAD>();                   // step k landed ...
+            bar_sync(PROD, T::NP);                         // ... for every producer
+            prod.unpack(raw(k), wt(k), k);
+            // wgmma reads the slot through the async proxy.
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            bar_arrive(FULL + k % STAGES, THREADS);
+        }
+        return;
+    }
+
+    if constexpr (T::MMA_REGS > 0) setmaxnreg_inc<T::MMA_REGS>();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int wg = warp >> 2;                              // warpgroup
+    const int row0 = T::SPLIT_M ? wg * T::WGM * 64 : 0;    // its rows and columns
+    const int col0 = T::SPLIT_M ? 0 : wg * T::WGN;
+    float acc[T::WGM][T::WGN / 2];
+#pragma unroll
+    for (int i = 0; i < T::WGM; ++i)
+#pragma unroll
+        for (int e = 0; e < T::WGN / 2; ++e) acc[i][e] = 0.0f;
+
+    const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    for (int k = 0; k < nsteps; ++k) {
+        bar_sync(FULL + k % STAGES, THREADS);
+        const uint32_t xa = smem0 + (k % STAGES) * T::SLOT + row0 * 128;
+        const uint32_t wa = smem0 + (k % STAGES) * T::SLOT + T::XS + col0 * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TILE_BK / 16; ++kk)
+#pragma unroll
+            for (int i = 0; i < T::WGM; ++i)
+                Wgmma<T::WGN>::mma(acc[i], wgmma_desc(xa + i * 64 * 128 + 32 * kk),
+                                   wgmma_desc(wa + 32 * kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        // Release the slot only when a producer will refill it.
+        if (k + STAGES < nsteps) bar_arrive(EMPTY + k % STAGES, THREADS);
+    }
+
+    // acc[i][4j + e]: row row0 + 64 i + 16 (warp % 4) + gid + 8 (e / 2),
+    // column col0 + 8 j + 2 tig + e % 2 (the mma.m16n8 layout per 8 columns).
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int i = 0; i < T::WGM; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = m0 + row0 + 64 * i + 16 * (warp & 3) + gid + 8 * h;
+            if (r >= M) continue;
+            float* yr = y + (size_t)r * N;
+#pragma unroll
+            for (int j = 0; j < T::WGN / 8; ++j) {
+                const int c = n0 + col0 + 8 * j + 2 * tig;
+                const float v0 = acc[i][4 * j + 2 * h], v1 = acc[i][4 * j + 2 * h + 1];
+                if ((N & 1) == 0) {
+                    if (c < N) *reinterpret_cast<float2*>(yr + c) = make_float2(v0, v1);
+                } else {
+                    if (c < N) yr[c] = v0;
+                    if (c + 1 < N) yr[c + 1] = v1;
+                }
+            }
+        }
+}
+
+template <class Fmt, class T>
+cudaError_t tile_setup() {
+    return cudaFuncSetAttribute(tile_kernel<Fmt, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                T::SMEM);
+}
+
+template <class Fmt, class T>
+void tile_run(const bf16* x, const Fmt& fmt, float* y, int M, int N, int K, cudaStream_t st) {
+    const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+    tile_kernel<Fmt, T><<<grid, T::THREADS, T::SMEM, st>>>(x, fmt, y, M, N, K);
+}
+
+// CTA rule (see above); the SM count and the shared-memory limits are set
+// up once per device.
+template <class Fmt>
+int tile_launch(const bf16* x, const Fmt& fmt, float* y, int M, int N, int K, cudaStream_t st) {
+    using T256 = Tile<Fmt, 256, 128, 256, 176>;   // 2 x 64 sums of m64n128: 176 registers
+    using T128 = Tile<Fmt, 128, 128, 256>;
+    using T128x64 = Tile<Fmt, 128, 64, 256>;
+    using T64 = Tile<Fmt, 64, 64, 256>;
+    static int sms_of[TILE_MAX_DEVICES];       // 0 until set up on that device
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= TILE_MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+    if (sms_of[dev] == 0) {
+        int sms = 0;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess) err = tile_setup<Fmt, T256>();
+        if (err == cudaSuccess) err = tile_setup<Fmt, T128>();
+        if (err == cudaSuccess) err = tile_setup<Fmt, T128x64>();
+        if (err == cudaSuccess) err = tile_setup<Fmt, T64>();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        sms_of[dev] = sms;
+    }
+    // The tile with the least time: waves of CTAs (one per SM) times a
+    // wave's time; ties go to the larger tile.
+    const int sms = sms_of[dev];
+    auto cost = [&](int bm, int bn, int rate) {
+        const long long ctas = (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+        return (ctas + sms - 1) / sms * (bm * bn * 100000LL / rate);
+    };
+    const long long c256 = M > 128 ? cost(256, 128, TILE_RATE_256x128) : LLONG_MAX;
+    const long long c128 = M > 64 ? cost(128, 128, TILE_RATE_128x128) : LLONG_MAX;
+    const long long c128x64 = M > 64 ? cost(128, 64, TILE_RATE_128x64) : LLONG_MAX;
+    const long long c64 = cost(64, 64, TILE_RATE_64x64);
+    if (c256 <= c128 && c256 <= c128x64 && c256 <= c64)
+        tile_run<Fmt, T256>(x, fmt, y, M, N, K, st);
+    else if (c128 <= c128x64 && c128 <= c64)
+        tile_run<Fmt, T128>(x, fmt, y, M, N, K, st);
+    else if (c128x64 <= c64)
+        tile_run<Fmt, T128x64>(x, fmt, y, M, N, K, st);
+    else
+        tile_run<Fmt, T64>(x, fmt, y, M, N, K, st);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// Dequant-GEMM skeleton of q4_matmul.cu's tile path:
 //   y(M,N) f32 = x(M,K) bf16 @ W(N,K)^T,  W dequantized tile by tile.
 // A block owns a GEMM_BM x GEMM_BN output tile; its 4 warps own 32x32
 // quarters (2x2 WMMA fragments each).  Each K step stages a GEMM_BM x BK

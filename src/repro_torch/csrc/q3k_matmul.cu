@@ -55,8 +55,8 @@
 // interleaved over the super-blocks.  Granite-8B's decode shapes give 896
 // CTAs (N = 14336), 256 (N = 4096) and 64 (N = 1024).
 // M_GEMV = 16, two token groups, as far as the decode path's registers
-// go: it was faster than the tile path at M = 1, 4, 8 and 16 on the H100
-// (PERF.md).
+// go: it was faster than the earlier WMMA tile path at M = 1, 4, 8 and 16
+// on the H100 (PERF.md); not yet measured against the wgmma tile path.
 // Determinism: each warp accumulates its K steps in order in the mma's
 // f32 registers; the warps' partial tiles are added in warp order through
 // shared memory.  No atomics, no split across CTAs.
@@ -64,87 +64,24 @@
 // K.  Rows past N read row N - 1 and tokens past M token M - 1, in bounds;
 // those sums are never stored.
 //
-// Tile path (M > M_GEMV, q3k_matmul_kernel): only the packed bytes (ql,
-// qh, 12 scale bytes and one fp16 scale per 256) are read; each 64x64
-// weight slice is unpacked and scaled in registers into shared memory and
-// fed to the tensor cores through WMMA (bf16, f32 accumulate).  BK = 64
-// keeps a thread's 32 weights inside one super-block.  No cp.async/TMA
-// pipelining and no wgmma yet.
+// Tile path (M > M_GEMV, the Pallas kernel's large-M calls): common.cuh's
+// tile_kernel with the Q3KTile format below.  At Granite-8B's 256-token
+// prefill chunk and the UNet's M = 154..8192 the product is bound by the
+// tensor cores.  Warp-specialised CTAs of 256 x 128 (or 128 x 128, 128 x
+// 64, 64 x 64 by the CTA rule) on wgmma, fed by producer warps through a
+// cp.async ring of x tiles and packed bytes; each 64-weight K step (a
+// quarter super-block) is unpacked once per CTA in bf16x2 (the decode
+// path's route, paired along K) into a swizzled bf16 tile.
 #include "common.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int BK = 64;           // tile path: a thread's 32 weights in one super-block
 constexpr int M_GEMV = 16;       // decode path for M <= M_GEMV
 constexpr int GEMV_ROWS = 16;    // weight rows per CTA: the m16 of the mma
 constexpr int GEMV_WARPS = 8;    // most warps per CTA
 constexpr int GEMV_UNROLL = 1;   // K steps of loads issued before their math
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-q3k_matmul_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ ql,
-                  const uint8_t* __restrict__ qh, const uint8_t* __restrict__ scales,
-                  const __half* __restrict__ d, float* __restrict__ y,
-                  int M, int N, int K) {
-    __shared__ __align__(128) bf16 xs[GEMM_BM * BK];
-    __shared__ __align__(128) bf16 ws[GEMM_BN * BK];
-    __shared__ __align__(128) float cs[GEMM_BM * GEMM_BN];
-
-    const int n0 = blockIdx.x * GEMM_BN;
-    const int m0 = blockIdx.y * GEMM_BM;
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1, wn = warp & 1;
-
-    FragC acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    // Weight loader: thread t unpacks 32 weights of row n = t/2.
-    const int wn_row = threadIdx.x >> 1;
-    const int wh = threadIdx.x & 1;
-    const int gn = n0 + wn_row;
-    const size_t row_ql = (size_t)gn * (K / 4);
-    const size_t row_qh = (size_t)gn * (K / 8);
-    const size_t row_d = (size_t)gn * (K / 256);
-
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        load_x_tile<BK>(x, xs, M, K, m0, k0);
-        bf16* dst = ws + wn_row * BK + wh * 32;
-        if (gn < N) {
-            const int kb = k0 + wh * 32;               // first weight of this thread
-            const int sb = kb / 256;                   // super-block
-            const int j = (kb % 256) / 16;              // first of two sub-blocks
-            const float dv = __half2float(d[row_d + sb]);
-            const uint8_t* g = scales + (row_d + sb) * 12 + (j / 4) * 3;
-            const unsigned word = g[0] | (g[1] << 8) | (g[2] << 16);
-            const int sh = 6 * (j % 4);                 // j even: j, j+1 share a group
-            const float eff0 = dv * ((float)((word >> sh) & 63u) - 32.0f);
-            const float eff1 = dv * ((float)((word >> (sh + 6)) & 63u) - 32.0f);
-            uint8_t lo[8], hi[4];
-#pragma unroll
-            for (int b = 0; b < 8; ++b) lo[b] = ql[row_ql + kb / 4 + b];
-#pragma unroll
-            for (int b = 0; b < 4; ++b) hi[b] = qh[row_qh + kb / 8 + b];
-#pragma unroll
-            for (int e = 0; e < 32; ++e) {
-                const int low = (lo[e >> 2] >> (2 * (e & 3))) & 3;
-                const int h = (hi[e >> 3] >> (e & 7)) & 1;
-                const int q = (low | (h << 2)) - 4;
-                dst[e] = __float2bfloat16((float)q * (e < 16 ? eff0 : eff1));
-            }
-        } else {
-#pragma unroll
-            for (int e = 0; e < 32; ++e) dst[e] = __float2bfloat16(0.0f);
-        }
-        __syncthreads();
-        mma_tile<BK>(xs, ws, acc, wm, wn);
-        __syncthreads();
-    }
-    store_tile(acc, cs, y, M, N, m0, n0, wm, wn);
-}
 
 // eh and el of sub-blocks 2p and 2p + 1 of a lane's quarter, in the low
 // and high half; sc holds the group's four 6-bit codes at bits 6i.
@@ -335,11 +272,163 @@ q3k_gemv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ ql,
     gemv_store(acc, red, y, M, N, n0);
 }
 
+// Tile path (M > M_GEMV): common.cuh's tile_kernel on this format.  A
+// K step is a quarter q = step % 4 of super-block sb = step / 4 (its
+// sub-blocks 4q..4q+3).  A ring slot holds per row the step's 16 ql bytes
+// (one 16-byte copy) and 8 qh bytes (one 8-byte copy).  The super-block's
+// 12 scale bytes (three 4-byte copies) and the aligned word holding its
+// fp16 d (the wrapper aligns d to 16 bytes) are copied once per
+// super-block, at its first step, into one of two buffers past the ring
+// (super-block parity): small copies every step cost more than the rest
+// of the ring.  A buffer is refilled two super-blocks on, after the PROD
+// barriers of the steps that read it.  A unit is sub-block j of a row, 16
+// weights, two 16-byte stores.  Rows past N load as zero bytes.
+// Unpack: the decode path's bf16x2 route with eff = eh + el and the 3-bit
+// field at mantissa bits P, paired for a row-major tile: a register holds
+// elements (4b + i, 4b + i + 1) of ql byte b, i = 0 or 2.  X = byte b in
+// both halves (one byte permute) gives element i at bits 2i of the low
+// half and i + 1 at 2i + 2 of the high half, so pair (0, 1) takes P = (0,
+// 2) from X and pair (2, 3) P = (2, 4) from X >> 2.  The h bits come from
+// Y = hb | hb << 17 (hb the chunk's qh byte), shifted by 2 - 4b, which puts
+// element e's h at bit P + 2 of its half for both pairs.  0x4300 | c << P
+// is the bf16 128 + c * 2^P; minus (128 + 4 * 2^P) per half gives q * 2^P
+// exactly, and fma.rn(q 2^P, eh 2^-P, q 2^P * el 2^-P) with per-half
+// scales rounds q * eff once, as the reference does
+// (tests/test_torch_matmul_tiling.py checks every scale, code and q).
+struct Q3KTile {
+    const uint8_t* ql;
+    const uint8_t* qh;
+    const uint8_t* sc;
+    const __half* d;
+    __host__ __device__ static constexpr int raw_bytes(int BN) { return BN * 24; }
+    __host__ __device__ static constexpr int extra_bytes(int BN) { return 2 * BN * 16; }
+
+    // One bf16x2 pair: bits = 0x4300 | c << P per half.
+    static __device__ __forceinline__ uint32_t pair(uint32_t bits, __nv_bfloat162 c,
+                                                    __nv_bfloat162 eh, __nv_bfloat162 el) {
+        const __nv_bfloat162 q = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&bits), c);
+        const __nv_bfloat162 v = __hfma2(q, eh, __hmul2(q, el));
+        return *reinterpret_cast<const uint32_t*>(&v);
+    }
+
+    // Copy i = t + NP * it (i < 2 BN) of each K step is the ql and qh bytes
+    // of row i (i < BN) or, at a super-block's first step, the scale bytes
+    // and d word of row i - BN (16 bytes a row in the buffer).
+    template <int BN, int NP>
+    struct Producer {
+        static constexpr int UNITS = BN * 4 / NP;
+        static constexpr int COPIES = (2 * BN + NP - 1) / NP;
+        const uint8_t* ql;      // the format's arrays (sources of zero-filled copies)
+        const uint8_t* qh;
+        const uint8_t* sc;
+        const __half* d;
+        const uint8_t* src[COPIES];    // i < BN: row i's ql; else row i - BN's scales
+        const uint8_t* src2[COPIES];   // i < BN: row i's qh; else row i - BN's d (as bytes)
+        unsigned char* scb;             // the two scale buffers
+        int t;
+        uint32_t in;            // bit it: copy it exists (its row < N)
+        uint32_t par;           // bit u: parity of unit u's row * nsb
+
+        __device__ __forceinline__ Producer(const Q3KTile& fmt, int n0, int N, int K, int t_,
+                                            unsigned char* extra)
+            : ql(fmt.ql), qh(fmt.qh), sc(fmt.sc), d(fmt.d), scb(extra), t(t_) {
+            const int nsb = K / 256;
+            in = 0;
+#pragma unroll
+            for (int it = 0; it < COPIES; ++it) {
+                const int i = t + NP * it, r = i < BN ? i : i - BN;
+                const bool ok = i < 2 * BN && n0 + r < N;
+                in |= (uint32_t)ok << it;
+                const size_t row = ok ? n0 + r : 0;
+                src[it] = i < BN ? ql + row * (K / 4) : sc + row * nsb * 12;
+                src2[it] = i < BN ? qh + row * (K / 8)
+                                  : reinterpret_cast<const uint8_t*>(d + row * nsb);
+            }
+            par = 0;
+#pragma unroll
+            for (int u = 0; u < UNITS; ++u)
+                par |= (uint32_t)((((size_t)(n0 + ((t + NP * u) >> 2)) * nsb) & 1) << u);
+        }
+
+        __device__ __forceinline__ void load(unsigned char* raw, int k) const {
+#pragma unroll
+            for (int it = 0; it < COPIES; ++it) {
+                const int i = t + NP * it;
+                const bool ok = (in >> it) & 1;
+                if (i < BN) {
+                    cp_async16(raw + 16 * i, ok ? src[it] + 16 * k : ql, ok);
+                    cp_async8(raw + BN * 16 + 8 * i, ok ? src2[it] + 8 * k : qh, ok);
+                } else if (i < 2 * BN && (k & 3) == 0) {
+                    const int r = i - BN, sb = k >> 2;
+                    unsigned char* dst = scb + (sb & 1) * BN * 16 + 16 * r;
+#pragma unroll
+                    for (int w = 0; w < 3; ++w)
+                        cp_async4(dst + 4 * w, ok ? src[it] + 12 * sb + 4 * w : sc, ok);
+                    // The aligned word holding d of super-block sb.
+                    const uintptr_t dsb = reinterpret_cast<uintptr_t>(src2[it]) + 2 * sb;
+                    cp_async4(dst + 12, ok ? reinterpret_cast<const void*>(dsb & ~(uintptr_t)3) : d,
+                              ok);
+                }
+            }
+        }
+
+        __device__ __forceinline__ void unpack(const unsigned char* raw, bf16* wt, int k) const {
+            const int q4 = k & 3;
+            const int sw = (3 * q4) >> 2, ssh = 8 * ((3 * q4) & 3);
+#pragma unroll
+            for (int u = 0; u < UNITS; ++u) {
+                const int i = t + NP * u, r = i >> 2, j = i & 3;
+                const uint32_t w = *reinterpret_cast<const uint32_t*>(raw + 16 * r + 4 * j);
+                const uint32_t h =
+                    *reinterpret_cast<const uint16_t*>(raw + BN * 16 + 8 * r + 2 * j);
+                // Scale group q4: bytes 3q4..3q4+2 of the row's 12; code j at bits 6j.
+                const unsigned char* sr = scb + ((k >> 2) & 1) * BN * 16 + 16 * r;
+                const uint32_t* scw = reinterpret_cast<const uint32_t*>(sr);
+                const uint32_t grp = __funnelshift_r(scw[sw], scw[sw < 2 ? sw + 1 : sw], ssh);
+                const uint32_t code = (grp >> (6 * j)) & 63u;
+                const uint32_t dw = scw[3];
+                const bool hi_half = ((par >> u) ^ (k >> 2)) & 1;
+                const float d32 = __half2float(__ushort_as_half(
+                    static_cast<unsigned short>(hi_half ? dw >> 16 : dw & 0xFFFFu)));
+                // eff = d * (sc - 32), exact in f32; eh = bf16(eff), el = bf16(eff - eh).
+                const float eff =
+                    __fmul_rn(__fsub_rn(__uint_as_float(0x4B000000u | code), 8388640.0f), d32);
+                const float eh = __bfloat162float(__float2bfloat16_rn(eff));
+                const float el = __bfloat162float(__float2bfloat16_rn(__fsub_rn(eff, eh)));
+                const __nv_bfloat162 eh02 = __floats2bfloat162_rn(eh, eh * 0.25f);
+                const __nv_bfloat162 el02 = __floats2bfloat162_rn(el, el * 0.25f);
+                const __nv_bfloat162 eh24 = __floats2bfloat162_rn(eh * 0.25f, eh * 0.0625f);
+                const __nv_bfloat162 el24 = __floats2bfloat162_rn(el * 0.25f, el * 0.0625f);
+                const __nv_bfloat162 c02 = __floats2bfloat162_rn(132.0f, 144.0f);
+                const __nv_bfloat162 c24 = __floats2bfloat162_rn(144.0f, 192.0f);
+#pragma unroll
+                for (int h2 = 0; h2 < 2; ++h2) {             // elements 8 h2 .. 8 h2 + 7
+                    const uint32_t y = ((h >> (8 * h2)) & 0xFFu) * 0x20001u;   // hb | hb << 17
+                    uint32_t v[4];
+#pragma unroll
+                    for (int b = 0; b < 2; ++b) {            // ql byte 2 h2 + b
+                        const uint32_t sel = (2 * h2 + b) | 4u << 4 | (2 * h2 + b) << 8 | 4u << 12;
+                        const uint32_t x = __byte_perm(w, 0u, sel);
+                        const uint32_t ys = b == 0 ? y << 2 : y >> 2;
+                        v[2 * b] = pair((x & 0x000C0003u) | (ys & 0x00100004u) | 0x43004300u,
+                                        c02, eh02, el02);
+                        v[2 * b + 1] =
+                            pair(((x >> 2) & 0x0030000Cu) | (ys & 0x00400010u) | 0x43004300u,
+                                 c24, eh24, el24);
+                    }
+                    *reinterpret_cast<uint4*>(wt + tile_swz(r, 2 * j + h2)) =
+                        make_uint4(v[0], v[1], v[2], v[3]);
+                }
+            }
+        }
+    };
+};
+
 }  // namespace
 
 // x: (M,K) bf16; ql: (N,K/4) u8; qh: (N,K/8) u8; scales: (N,K/256,12) u8
-// packed codes; d: (N,K/256) fp16; y: (M,N) f32.  K % 256 == 0; x, ql, qh
-// and scales 16-byte aligned (the wrapper checks them).
+// packed codes; d: (N,K/256) fp16; y: (M,N) f32.  K % 256 == 0; x, ql, qh,
+// scales and d 16-byte aligned (the wrapper makes them so).
 extern "C" int q3k_matmul_bf16(const void* x, const void* ql, const void* qh,
                                const void* scales, const void* d, void* y,
                                int M, int N, int K, void* stream) {
@@ -358,9 +447,7 @@ extern "C" int q3k_matmul_bf16(const void* x, const void* ql, const void* qh,
             q3k_gemv_kernel<1><<<grid, threads, 0, st>>>(xb, lo, hi, sc, dd, out, M, N, K);
         else
             q3k_gemv_kernel<2><<<grid, threads, 0, st>>>(xb, lo, hi, sc, dd, out, M, N, K);
-    } else {
-        dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-        q3k_matmul_kernel<<<grid, GEMM_THREADS, 0, st>>>(xb, lo, hi, sc, dd, out, M, N, K);
+        return static_cast<int>(cudaGetLastError());
     }
-    return static_cast<int>(cudaGetLastError());
+    return tile_launch(xb, Q3KTile{lo, hi, sc, dd}, out, M, N, K, st);
 }

@@ -40,77 +40,33 @@
 // 896 CTAs (N = 14336), 256 (N = 4096), 64 (N = 1024) and 3072 (the
 // 49152-row head).
 // M_GEMV = 16, two token groups, as far as the decode path's registers
-// go: it was faster than the tile path at M = 1, 4, 8 and 16 on the H100
-// (PERF.md).
+// go: it was faster than the earlier WMMA tile path at M = 1, 4, 8 and 16
+// on the H100 (PERF.md); not yet measured against the wgmma tile path.
 // Determinism: each warp accumulates its K steps in order in the mma's
 // f32 registers; the warps' partial tiles are added in warp order through
 // shared memory.  No atomics, no split across CTAs.
 // Edges: rows >= N, blocks past K/32 and tokens >= M are never read; their
 // codes and scales are zero, so their A and B values are 0.
 //
-// Tile path (M > M_GEMV, q8_matmul_kernel): only int8 quants and one fp16
-// scale per 32 weights are read from device memory; each 64x32 weight
-// slice is dequantized in registers into shared memory and fed to the
-// tensor cores through WMMA (bf16 16x16x16, f32 accumulate).  BK = 32 is
-// exactly one Q8_0 block, so one scale covers a thread's 16 weights.  No
-// cp.async/TMA pipelining and no wgmma yet.
+// Tile path (M > M_GEMV, the Pallas kernel's large-M calls): common.cuh's
+// tile_kernel with the Q8Tile format below.  At Granite-8B's 256-token
+// prefill chunk and the UNet's M = 154..8192 the product is bound by the
+// tensor cores (at the UNet's K = 320 the f32 y is most of the bytes).
+// Warp-specialised CTAs of 256 x 128 (or 128 x 128, 128 x 64, 64 x 64 by
+// the CTA rule) on wgmma, fed by producer warps through a cp.async ring of
+// x tiles, code bytes and scale words; each 64-weight K step (two Q8_0
+// blocks) is unpacked once per CTA by the exact f32 route of the decode
+// path into a swizzled bf16 tile.
 #include "common.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int BK = 32;           // one Q8_0 block per K step (tile path)
 constexpr int M_GEMV = 16;       // decode path for M <= M_GEMV
 constexpr int GEMV_ROWS = 16;    // weight rows per CTA: the m16 of the mma
 constexpr int GEMV_WARPS = 8;    // most warps per CTA
 constexpr int GEMV_UNROLL = 2;   // K steps of loads issued before their math
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-q8_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
-                 const __half* __restrict__ wd, float* __restrict__ y,
-                 int M, int N, int K) {
-    __shared__ __align__(128) bf16 xs[GEMM_BM * BK];
-    __shared__ __align__(128) bf16 ws[GEMM_BN * BK];
-    __shared__ __align__(128) float cs[GEMM_BM * GEMM_BN];
-
-    const int n0 = blockIdx.x * GEMM_BN;
-    const int m0 = blockIdx.y * GEMM_BM;
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1, wn = warp & 1;
-    const int nblk = K / BK;
-
-    FragC acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    // Weight loader: thread t dequantizes 16 weights of row n = t/2.
-    const int wn_row = threadIdx.x >> 1;
-    const int wh = threadIdx.x & 1;
-    const int gn = n0 + wn_row;
-
-    for (int kb = 0; kb < nblk; ++kb) {
-        const int k0 = kb * BK;
-        load_x_tile<BK>(x, xs, M, K, m0, k0);
-        bf16* dst = ws + wn_row * BK + wh * 16;
-        if (gn < N) {
-            const int4 raw = *reinterpret_cast<const int4*>(wq + (size_t)gn * K + k0 + wh * 16);
-            const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
-            const float s = __half2float(wd[(size_t)gn * nblk + kb]);
-#pragma unroll
-            for (int e = 0; e < 16; ++e) dst[e] = __float2bfloat16((float)q[e] * s);
-        } else {
-#pragma unroll
-            for (int e = 0; e < 16; ++e) dst[e] = __float2bfloat16(0.0f);
-        }
-        __syncthreads();
-        mma_tile<BK>(xs, ws, acc, wm, wn);
-        __syncthreads();
-    }
-    store_tile(acc, cs, y, M, N, m0, n0, wm, wn);
-}
 
 // Word w of a block's codes holds its elements 4i..4i+3 (int8, element e
 // in byte e).  r[0] gets elements (4i, 4i+1) as a bf16 pair, r[1] elements
@@ -217,10 +173,113 @@ q8_gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
     gemv_store(acc, red, y, M, N, n0);
 }
 
+// Tile path (M > M_GEMV): common.cuh's tile_kernel on this format.  A
+// ring slot holds the K step's 64 code bytes of each of the BN rows (four
+// 16-byte copies) and, per row and Q8_0 block, the aligned 4-byte word
+// that holds its fp16 scale (the wrapper aligns wd to 16 bytes; the
+// scale is the half that the element index's parity names).  When K / 32
+// is even, one word holds both of a step's scales of a row: one copy.  A unit is
+// 16 weights of one row (chunks 2j and 2j + 1, block j / 2), unpacked by
+// unpack_word's exact f32 route into two 16-byte stores.  Blocks past
+// K / 32 and rows past N load as zero bytes: scale 0, weight 0.
+struct Q8Tile {
+    const int8_t* wq;
+    const __half* wd;
+    __host__ __device__ static constexpr int raw_bytes(int BN) { return BN * (TILE_BK + 8); }
+    __host__ __device__ static constexpr int extra_bytes(int) { return 0; }
+
+    template <int BN, int NP>
+    struct Producer {
+        static constexpr int CODES = BN * 4 / NP;   // 16-byte code copies
+        static constexpr int UNITS = BN * 4 / NP;
+        static constexpr int ROWS = NP / 4;         // rows per pass
+        static constexpr int SCALES = (BN * 2 + NP - 1) / NP;   // scale-word copies
+        const int8_t* wq;       // the format's arrays (sources of zero-filled copies)
+        const __half* wd;
+        const int8_t* code;     // chunk t % 4 of row t / 4, K step 0
+        size_t e0;              // scale element of (row t / 2, block t % 2), K step 0;
+                                // + NP / 2 rows per further copy
+        size_t ev;              // even K / 32: scale element of (row t, block 0)
+        int n0, N, K, nblk, t;
+        uint32_t par;           // bit u: parity of unit u's scale element
+
+        __device__ __forceinline__ Producer(const Q8Tile& fmt, int n0_, int N_, int K_, int t_,
+                                            unsigned char*)
+            : wq(fmt.wq), wd(fmt.wd), n0(n0_), N(N_), K(K_), nblk(K_ / 32), t(t_) {
+            code = wq + (size_t)(n0 + (t >> 2)) * K + 16 * (t & 3);
+            e0 = (size_t)(n0 + (t >> 1)) * nblk + (t & 1);
+            ev = (size_t)(n0 + t) * nblk;
+            par = 0;
+#pragma unroll
+            for (int u = 0; u < UNITS; ++u) {
+                const int i = t + NP * u;
+                par |= (uint32_t)((((size_t)(n0 + (i >> 2)) * nblk + ((i & 3) >> 1)) & 1) << u);
+            }
+        }
+
+        __device__ __forceinline__ void load(unsigned char* raw, int k) const {
+            const int k0 = k * TILE_BK;
+            const bool kin = k0 + 16 * (t & 3) < K;
+#pragma unroll
+            for (int it = 0; it < CODES; ++it) {
+                const int r = (t >> 2) + ROWS * it;
+                const bool in = kin && n0 + r < N;
+                cp_async16(raw + TILE_BK * r + 16 * (t & 3),
+                           in ? code + (size_t)ROWS * K * it + k0 : wq, in);
+            }
+            if ((nblk & 1) == 0) {                  // one word holds a row's two scales
+#pragma unroll
+                for (int it = 0; it < (BN + NP - 1) / NP; ++it) {
+                    const int i = t + NP * it;
+                    const bool in = i < BN && n0 + i < N && 2 * k < nblk;
+                    if (i < BN)
+                        cp_async4(raw + BN * TILE_BK + 8 * i,
+                                  in ? wd + ev + (size_t)NP * nblk * it + 2 * k : wd, in);
+                }
+                return;
+            }
+#pragma unroll
+            for (int it = 0; it < SCALES; ++it) {
+                const int i = t + NP * it;           // row i / 2, block 2k + i % 2
+                if (i < BN * 2) {
+                    const bool in = n0 + (i >> 1) < N && 2 * k + (i & 1) < nblk;
+                    const size_t e = e0 + (size_t)(NP / 2) * nblk * it + 2 * k;
+                    cp_async4(raw + BN * TILE_BK + 4 * i, in ? wd + (e & ~(size_t)1) : wd, in);
+                }
+            }
+        }
+
+        __device__ __forceinline__ void unpack(const unsigned char* raw, bf16* wt, int) const {
+#pragma unroll
+            for (int u = 0; u < UNITS; ++u) {
+                const int i = t + NP * u, r = i >> 2, j = i & 3;
+                const uint4 q = *reinterpret_cast<const uint4*>(raw + TILE_BK * r + 16 * j);
+                const int wsel = nblk & 1 ? j >> 1 : 0;  // (even K / 32: one word, half j / 2)
+                const uint32_t dw =
+                    *reinterpret_cast<const uint32_t*>(raw + BN * TILE_BK + 8 * r + 4 * wsel);
+                const float d = __half2float(__ushort_as_half(
+                    static_cast<unsigned short>((par >> u) & 1 ? dw >> 16 : dw & 0xFFFFu)));
+                uint32_t v[8];
+#pragma unroll
+                for (int w = 0; w < 4; ++w) {
+                    uint32_t p[2];
+                    unpack_word(word(q, w), d, p);
+                    v[2 * w] = p[0];
+                    v[2 * w + 1] = p[1];
+                }
+                *reinterpret_cast<uint4*>(wt + tile_swz(r, 2 * j)) =
+                    make_uint4(v[0], v[1], v[2], v[3]);
+                *reinterpret_cast<uint4*>(wt + tile_swz(r, 2 * j + 1)) =
+                    make_uint4(v[4], v[5], v[6], v[7]);
+            }
+        }
+    };
+};
+
 }  // namespace
 
 // x: (M,K) bf16, wq: (N,K) int8, wd: (N,K/32) fp16, y: (M,N) f32.
-// K % 32 == 0; x and wq 16-byte aligned (the wrapper checks both).
+// K % 32 == 0; x, wq and wd 16-byte aligned (the wrapper makes them so).
 extern "C" int q8_matmul_bf16(const void* x, const void* wq, const void* wd, void* y,
                               int M, int N, int K, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -236,9 +295,7 @@ extern "C" int q8_matmul_bf16(const void* x, const void* wq, const void* wd, voi
             q8_gemv_kernel<1><<<grid, threads, 0, st>>>(xb, q, d, out, M, N, K);
         else
             q8_gemv_kernel<2><<<grid, threads, 0, st>>>(xb, q, d, out, M, N, K);
-    } else {
-        dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-        q8_matmul_kernel<<<grid, GEMM_THREADS, 0, st>>>(xb, q, d, out, M, N, K);
+        return static_cast<int>(cudaGetLastError());
     }
-    return static_cast<int>(cudaGetLastError());
+    return tile_launch(xb, Q8Tile{q, d}, out, M, N, K, st);
 }

@@ -42,8 +42,7 @@ def q3k_matmul(x: torch.Tensor, ql: torch.Tensor, qh: torch.Tensor,
         if t.dtype != dt:
             raise ValueError(f"q3k_matmul: {name} must be {dt}, got {t.dtype}")
     x = build.aligned16(x.to(torch.bfloat16))
-    ql, qh, scales = (build.aligned16(t) for t in (ql, qh, scales))
-    d = d.contiguous()
+    ql, qh, scales, d = (build.aligned16(t) for t in (ql, qh, scales, d))
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y

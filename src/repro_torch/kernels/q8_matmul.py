@@ -39,7 +39,7 @@ def q8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tens
                          f"expected float16{(n, kdim // QK8_0)}")
     x = build.aligned16(x.to(torch.bfloat16))
     wq = build.aligned16(wq)
-    ws = ws.contiguous()
+    ws = build.aligned16(ws)      # the tile path copies aligned scale words
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y

@@ -15,8 +15,8 @@ host time) and the profiler's device time (``device_ms``), and the card's
 name and power limit.  The cases are the decode shapes of
 ``flash_decode`` and ``flash_decode_paged``, and those of the quantized
 matmuls ``q4_matmul``, ``q8_matmul`` and ``q3k_matmul``: M = 1..16 on
-their decode paths, and the tile paths' shapes above (M = 32, a 256-token
-chunk, SD-Turbo's), where each case is also timed over copies of its
+their decode paths, and the tile paths' shapes above (M = 32, Granite-8B's
+256-token chunk linears, SD-Turbo's), where each case is also timed over copies of its
 weight, each call on the next, that together pass the L2 cache at the LM
 shapes (``cold device ms``).  It needs
 one card.
@@ -38,12 +38,15 @@ FLASH_DECODE = [(4, 8, 4, 128, 2048, 2000), (4, 8, 4, 128, 2048, 160),
 DECODE_MN = [(m, n, k) for m in (1, 4, 8, 16) for n, k in ((14336, 4096), (4096, 14336))]
 Q4 = DECODE_MN + [(32, 14336, 4096), (256, 14336, 4096), (4096, 320, 320),
                   (154, 768, 768), (4096, 2560, 320)]
+# Granite-8B's 256-token chunk linears (and a ragged last chunk) after
+# gate/up, on the tile paths of Q8_0 and Q3_K.
+CHUNK = [(256, 4096, 14336), (256, 4096, 4096), (256, 1024, 4096), (200, 4096, 4096)]
 Q8 = DECODE_MN + [(4, 4096, 4096), (4, 1024, 4096), (4, 49152, 4096), (32, 14336, 4096),
                   (32, 4096, 14336), (256, 14336, 4096), (4096, 320, 320),
-                  (154, 768, 768), (4096, 2560, 320)]
+                  (154, 768, 768), (4096, 2560, 320)] + CHUNK
 Q3K = DECODE_MN + [(4, 4096, 4096), (4, 1024, 4096), (32, 14336, 4096),
                    (32, 4096, 14336), (256, 14336, 4096), (4096, 320, 1280),
-                   (256, 1280, 1280), (154, 768, 768)]
+                   (256, 1280, 1280), (154, 768, 768), (64, 1280, 5120)] + CHUNK
 PAGED = [(2000, 1990, 2011, 1500)]      # positions; MB 132, Hkv 8, G 4, hd 128, bs 16
 
 
