@@ -28,7 +28,11 @@ caught and passed over):
              The paged prefill (bf16 and Q8_0 pools) and decode kernels at
              Granite-8B's widths: outputs within the attention limit, pools
              and Q8_0 bytes bit-identical to the plain version's, including
-             NaN-poisoned recycled blocks and NULL_BLOCK-padded tables.
+             NaN-poisoned recycled blocks and NULL_BLOCK-padded tables; each
+             prefill case called twice for the same bits, with the attend
+             launch's plan (clusters that fit, key splits) logged, and at
+             the timed shapes a second yardstick: SDPA on K/V already
+             gathered to contiguous bf16 (GQA, lower-right causal).
 4. tiny    — TINY_SD with the same seeded weights and noise on the CPU
              (plain versions) and on the card (kernels); images must agree.
              tiny_lm: reduced(granite-8b) served by ``ContinuousBatcher`` on
@@ -57,9 +61,8 @@ caught and passed over):
              invariants, a consistent runtime with every block returned,
              exact launch counts, ms per 256-token prefill chunk and per
              4-slot decode quantum, tokens/s, peak memory; the first run's
-             tokens against ``lm_forward`` on the card, and under each
-             weight preset on the bf16 pool a profile of one decode quantum
-             and one prefill chunk.
+             tokens against ``lm_forward`` on the card, and in every run a
+             profile of one decode quantum and one prefill chunk.
 7. full_gen — the same Granite-8B through the reference's generation loop
              ``greedy_generate(max_len=2048)`` on a contiguous bf16 cache:
              4 prompts of 128 tokens, 32 new tokens (159 decode steps),
@@ -198,6 +201,12 @@ PREFILL_EDGE = [
     (64, 37, 128, None, True),     # pos0 % bs != 0
     (64, 200, 128, 100, False),    # sliding window
     (5, 20, 8, None, True),        # short table padded with NULL_BLOCK
+    (208, 1792, 128, None, False), # a 2000-token prompt's ragged last chunk
+    (256, 1000, 128, None, True),  # key splits off the 64-key step
+    (256, 1792, 128, 700, False),  # a window across a key split
+    (256, 3840, 256, None, True),  # a long history
+    (8, 1792, 128, None, True),    # full_lm's 1800-token prompt's last chunk: 8-CTA clusters
+    (16, 2000, 128, None, False),  # a short chunk at depth: 8-CTA clusters
 ]
 # Decode: (positions, MB, window, poison).  In the last edge case row 3 is
 # an idle row (position 0, its table all NULL_BLOCK).
@@ -580,6 +589,50 @@ def _poison(pools, blocks, tail) -> None:
             p[tail[0], :, tail[1]:] = bad
 
 
+def prefill_split_rule(blocks: int, nt: int, fit) -> int:
+    """``csrc/flash_prefill.cu``'s ``split_rule``: the CTAs per cluster (key
+    splits of a row block), of 1, 2, 4, 8 the one whose waves of clusters,
+    at ceil(nt / S) tiles per CTA, take the fewest tile steps; ties go to
+    the smaller.  ``fit[i]``: clusters of 2^i CTAs that run at once."""
+    best, best_cost = 1, None
+    for i, f in enumerate(fit):
+        if f < 1:
+            continue
+        cost = -(-blocks // f) * -(-nt // (1 << i))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = 1 << i, cost
+    return best
+
+
+def prefill_plan(t: int, hkv: int, g: int, pos0: int, window, fit) -> tuple[int, int]:
+    """(row blocks, CTAs per cluster) of the attend launch, as its host
+    code works them out: 128 flattened query rows (t*G + g) per block, the
+    heaviest block's 64-key tiles, then ``prefill_split_rule``."""
+    nrows = t * g
+    nrb = -(-nrows // 128)
+    nt = 0
+    for rb in range(nrb):
+        kend = pos0 + (min((rb + 1) * 128, nrows) - 1) // g + 1
+        kstart = max(0, pos0 + rb * 128 // g - window + 1) if window else 0
+        nt = max(nt, -(-(kend - kstart) // 64))
+    return nrb, prefill_split_rule(nrb * hkv, nt, fit)
+
+
+def _prefill_plan(t: int, pos0: int, window, q8: bool) -> dict:
+    """The attend launch's plan on this card at Granite-8B's widths: the
+    clusters of 1, 2, 4 and 8 CTAs that run at once (the kernel's own
+    query, ``flash_prefill_fit``), and the CTAs per cluster they give."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    lib, fn = build.entry("flash_prefill", "flash_prefill_fit",
+                          [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fit = (ctypes.c_int * 4)()
+    build.check(lib, "flash_prefill_fit", fn(PAGED_HD, int(q8), ctypes.addressof(fit)))
+    split = prefill_plan(t, PAGED_HKV, PAGED_G, pos0, window, list(fit))[1]
+    return {"fit": list(fit), "split": split}
+
+
 def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
     from repro_torch.core import quant
     from repro_torch.kernels import flash_prefill as fp
@@ -603,22 +656,25 @@ def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
     plain_fn = fp.flash_prefill_paged_q8_ref if q8 else fp.flash_prefill_paged_ref
     kp = [p.clone() for p in pools]
     pp = [p.clone() for p in pools]
-    out = kern_fn(q, kn, vn, *kp, table, pos0, window=window)[0]
-    want = plain_fn(q, kn, vn, *pp, table, pos0, window=window)[0]
+
+    def kern():
+        return kern_fn(q, kn, vn, *kp, table, pos0, window=window)
+
+    def plain():
+        return plain_fn(q, kn, vn, *pp, table, pos0, window=window)
+    out, want = kern()[0], plain()[0]
+    again = kern()[0]
     torch.cuda.synchronize()
     name = "flash_prefill_paged" + ("_q8" if q8 else "")
     err = _check_attn(name, case, out, want)
+    if not torch.equal(_bits(out), _bits(again)):
+        raise AssertionError(f"{name} {case}: two calls gave different bits")
     for a, b in zip(kp, pp):               # every block, in and out of the table
         if not torch.equal(_bits(a), _bits(b)):
             raise AssertionError(f"{name} {case}: pools differ from the plain "
                                  "version's, bit for bit")
-    row = {"shape": case, "max_abs_err": err}
+    row = {"shape": case, "max_abs_err": err, "plan": _prefill_plan(t, pos0, window, q8)}
     if timed:
-        def kern():
-            return kern_fn(q, kn, vn, *kp, table, pos0, window=window)
-
-        def plain():
-            return plain_fn(q, kn, vn, *pp, table, pos0, window=window)
         tbl = table.long()
         qpos = torch.arange(pos0, pos0 + t, device="cuda")[:, None]
         kpos = torch.arange(mb * bs, device="cuda")[None, :]
@@ -628,7 +684,7 @@ def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
         mask_rows = mask.repeat_interleave(g, dim=0)          # (T*G, C)
         qh = q.permute(1, 0, 2, 3).reshape(hkv, t * g, hd)
 
-        def library():
+        def gathered():
             if q8:
                 keys = quant.dequantize_q8_0(quant.Q8_0Tensor(kp[0][tbl], kp[2][tbl]),
                                              torch.bfloat16)
@@ -636,10 +692,28 @@ def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
                                              torch.bfloat16)
             else:
                 keys, vals = kp[0][tbl], kp[1][tbl]
-            keys = keys.transpose(0, 1).reshape(hkv, mb * bs, hd)
-            vals = vals.transpose(0, 1).reshape(hkv, mb * bs, hd)
+            return (keys.transpose(0, 1).reshape(hkv, mb * bs, hd),
+                    vals.transpose(0, 1).reshape(hkv, mb * bs, hd))
+
+        def library():
             return torch.nn.functional.scaled_dot_product_attention(
-                qh, keys, vals, attn_mask=mask_rows)
+                qh, *gathered(), attn_mask=mask_rows)
+
+        # The second yardstick: SDPA on the valid keys, gathered to
+        # contiguous bf16 before the timed calls, with GQA and the diagonal
+        # aligned to the last key (no window: the timed shapes have none).
+        from torch.nn.attention.bias import causal_lower_right
+        assert window is None
+        sk = pos0 + t
+        kc, vc = (x[:, :sk].unsqueeze(0).contiguous() for x in gathered())
+        qc = q.permute(1, 2, 0, 3).reshape(1, hkv * g, t, hd)
+        bias = causal_lower_right(t, sk)
+
+        def contiguous():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qc, kc, vc, attn_mask=bias, enable_gqa=True)
+        yard = contiguous().reshape(hkv, g, t, hd).permute(2, 0, 1, 3)
+        row["sdpa_max_abs_diff"] = (yard.float() - want.float()).abs().max().item()
         pairs = int(mask.sum())
         row_bytes = hd * 2 if not q8 else hd + 2 * hd // 32
         nbytes = (2 * 2 * t * hkv * g * hd          # q in, out
@@ -647,7 +721,9 @@ def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
                   + 2 * t * hkv * row_bytes         # the chunk written to the pools
                   + 2 * pos0 * hkv * row_bytes)     # history read
         row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3),
-                   library_ms=cuda_ms(library, iters=5))
+                   library_ms=cuda_ms(library, iters=5), device_ms=device_ms(kern),
+                   library_device_ms=device_ms(library), sdpa_ms=cuda_ms(contiguous),
+                   sdpa_device_ms=device_ms(contiguous))
         row["bound_ms"], row["bound_by"] = bound(4.0 * hkv * g * hd * pairs, nbytes)
     return row
 
@@ -738,6 +814,12 @@ def _log_rows(rows: dict) -> None:
             if "cublas_ms" in r:
                 timing += (f"; cuBLAS on bf16 ms {r['cublas_ms']:.4f} device "
                            f"{r['cublas_device_ms']:.4f}")
+            if "plan" in r:
+                timing += f"; clusters that fit {r['plan']['fit']}, split {r['plan']['split']}"
+            if "sdpa_ms" in r:
+                timing += (f"; contiguous SDPA ms {r['sdpa_ms']:.4f} device "
+                           f"{r['sdpa_device_ms']:.4f} (max|diff| "
+                           f"{r['sdpa_max_abs_diff']:.3e})")
             log(f"[kernels] {name} {r['shape']} max|err| "
                 f"{r['max_abs_err']:.3e}{timing}")
 
@@ -1267,8 +1349,7 @@ def phase_full_lm(card: str) -> dict[str, int]:
             f"weights {param_bytes(cb.params) / 2**30:.2f} GiB; launches {counts}; {card}")
         if preset == "none" and not quantized:
             _check_against_forward(cb, base, cfg)
-        if not quantized:          # weights none, q8_0 and q3_k on the bf16 KV pool
-            _profile_lm(cb, label)
+        _profile_lm(cb, label)     # every run: bf16 and Q8_0 pools
         del cb
         torch.cuda.empty_cache()
     return totals

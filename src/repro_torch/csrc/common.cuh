@@ -10,6 +10,7 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace repro {
@@ -55,6 +56,251 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The two halves of a thread-block-cluster barrier (arrive has relaxed
+// order: the caller orders its own shared-memory traffic).
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// 2^x on the special-function unit (flushes subnormal results to 0).
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// Two floats rounded to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Two floats rounded to bf16 (hi) and what is left of each rounded to
+// bf16 (lo), as A-fragment words: 16 significant bits in two terms.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 f = __bfloat1622float2(h);
+    const __nv_bfloat162 r = __floats2bfloat162_rn(a - f.x, b - f.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Launch set-up done once per device.  Each launch keeps a static
+// PerDevice<N> of its own (one per instantiation); get() points `vals` at
+// the current device's N ints, first calling init(dev, vals) on a device
+// not seen yet, which sets the kernels' shared-memory limits and fills in
+// what the launch rule needs (the SM count, the clusters that fit).  A
+// non-zero return is a CUDA error, and the device then stays unseen.
+constexpr int MAX_DEVICES = 64;
+
+template <int N>
+struct PerDevice {
+    int vals[MAX_DEVICES][N];
+    bool ready[MAX_DEVICES];
+
+    template <class Init>
+    int get(int*& out, Init init) {
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+        if (!ready[dev]) {
+            err = init(dev, vals[dev]);
+            if (err != cudaSuccess) return static_cast<int>(err);
+            ready[dev] = true;
+        }
+        out = vals[dev];
+        return 0;
+    }
+};
+
+// ---------------------------------------------------------------------
+// One warp's part of FlashAttention-2 on mma.sync, shared by
+// flash_attention.cu and flash_prefill.cu: 16 query rows against 64-key
+// tiles of K and V in shared memory, bf16 rows DP + 8 elements apart (an
+// odd number of 16-byte units, so ldmatrix on K and ldmatrix.trans on V
+// are free of bank conflicts).  Lane (gid = lane / 4, tig = lane % 4)
+// holds rows gid and gid + 8.
+// - qf: Q as the A fragments of mma.m16n8k16 (bf16 in, f32 accumulate),
+//   loaded once by load_q and held for the whole key loop.
+// - tile(): S = Q K^T in registers (8 n8-tiles x 4 f32), masked only when
+//   the caller says the tile crosses an edge; the row max and sum reduce
+//   over the quad of lanes; p = 2^(s*c - m*c) with c = scale*log2(e), one
+//   FMA and one ex2 per logit; O and l are rescaled only when a row max
+//   of the warp moved.
+// - P enters P.V in registers, as one bf16 term (HILO false: the Pallas
+//   flash kernel's rounding point) or as two, hi = bf16(p) and lo =
+//   bf16(p - hi), two mma per k-step (HILO true: the plain version keeps
+//   P in f32).
+// - acc: O, DP/8 n8-tiles x 4 f32 (row gid in [0..1], gid + 8 in [2..3]);
+//   m, l per row, l summed over the quad by finish().
+constexpr int FLASH_BKV = 64;
+
+template <int DP>
+struct FlashWarp {
+    static constexpr int LD = DP + 8, KS = DP / 16, NS = FLASH_BKV / 8;
+    uint32_t qf[KS][4];
+    float acc[2 * KS][4];
+    float m[2], l[2];
+
+    __device__ __forceinline__ FlashWarp() {
+#pragma unroll
+        for (int n = 0; n < 2 * KS; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+        m[0] = m[1] = -INFINITY;
+        l[0] = l[1] = 0.0f;
+    }
+
+    // The warp's 16 rows of Q at `rows`; qsign flips their sign (a
+    // negative scale, so that the row max is taken on s*|scale|).
+    __device__ __forceinline__ void load_q(const bf16* rows, uint32_t qsign) {
+        const int lane = threadIdx.x & 31;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+            ldsm_x4(qf[kk], rows + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + kk * 16 +
+                                (lane >> 4) * 8);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qf[kk][e] ^= qsign;
+        }
+    }
+
+    // Keys k0 .. k0 + 63 from tiles kt and vt.  With edge, key kp is kept
+    // for the row at diagonal position qd[r] only if kp < klim, kp <= qd[r]
+    // (causal) and kp > qd[r] - window (window > 0).
+    template <bool HILO>
+    __device__ __forceinline__ void tile(const bf16* kt, const bf16* vt, float c, bool edge,
+                                         int k0, int klim, bool causal, int window,
+                                         const int (&qd)[2]) {
+        const int lane = threadIdx.x & 31, tig = lane & 3;
+
+        // S(16 x 64) = Q K^T.
+        float s[NS][4];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+            for (int jp = 0; jp < NS / 2; ++jp) {
+                uint32_t b[4];
+                ldsm_x4(b, kt + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+                               ((lane >> 3) & 1) * 8);
+                mma16816(s[2 * jp], qf[kk], b[0], b[1]);
+                mma16816(s[2 * jp + 1], qf[kk], b[2], b[3]);
+            }
+        if (edge) {
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int kp = k0 + 8 * j + 2 * tig + (e & 1);
+                    const int qp = qd[e >> 1];
+                    const bool ok = kp < klim && (!causal || kp <= qp) &&
+                                    (window <= 0 || kp > qp - window);
+                    if (!ok) s[j][e] = -INFINITY;
+                }
+        }
+
+        // Online softmax of rows gid (r = 0) and gid + 8 (r = 1).
+        float mx[2], mc[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = m[r];
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+                mx[r] = fmaxf(mx[r], fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            mc[r] = mx[r] == -INFINITY ? 0.0f : mx[r] * c;   // no unmasked key yet
+        }
+        if (__any_sync(0xffffffffu, mx[0] != m[0] || mx[1] != m[1])) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const float alpha = ex2(m[r] * c - mc[r]);
+                l[r] *= alpha;
+#pragma unroll
+                for (int n = 0; n < 2 * KS; ++n) {
+                    acc[n][2 * r] *= alpha;
+                    acc[n][2 * r + 1] *= alpha;
+                }
+            }
+        }
+        m[0] = mx[0];
+        m[1] = mx[1];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[j][e] = ex2(fmaf(s[j][e], c, -mc[e >> 1]));
+                l[e >> 1] += s[j][e];
+            }
+
+        // O(16 x DP) += P(16 x 64) V(64 x DP).
+#pragma unroll
+        for (int kk = 0; kk < FLASH_BKV / 16; ++kk) {
+            uint32_t hi[4];
+            [[maybe_unused]] uint32_t lo[4];
+            if constexpr (HILO) {
+                split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+                split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+                split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+                split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+            } else {
+                hi[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+                hi[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+                hi[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+                hi[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+            }
+#pragma unroll
+            for (int np = 0; np < KS; ++np) {
+                uint32_t b[4];
+                ldsm_x4_t(b, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                                 np * 16 + (lane >> 4) * 8);
+                mma16816(acc[2 * np], hi, b[0], b[1]);
+                mma16816(acc[2 * np + 1], hi, b[2], b[3]);
+                if constexpr (HILO) {
+                    mma16816(acc[2 * np], lo, b[0], b[1]);
+                    mma16816(acc[2 * np + 1], lo, b[2], b[3]);
+                }
+            }
+        }
+    }
+
+    // Each row's l summed over its quad of lanes.
+    __device__ __forceinline__ void finish() {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        }
+    }
+};
+
+// Q8_0 codes to bf16, exactly as the reference dequantizes them.  Word w
+// holds elements 4i..4i+3 (int8, element e in byte e).  r[0] gets elements
+// (4i, 4i+1) as a bf16 pair, r[1] elements (4i+2, 4i+3), each bf16(q * d)
+// rounded once from the exact f32 product.
+__device__ __forceinline__ void q8_unpack_word(uint32_t w, float d, uint32_t (&r)[2]) {
+    const uint32_t u = w ^ 0x80808080u;              // byte e: q + 128
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        // 0x4B0000(q + 128): the f32 2^23 + 128 + q.
+        const float v = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | e));
+        f[e] = __fmul_rn(__fsub_rn(v, 8388736.0f), d);   // q * d, exact
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * h], f[2 * h + 1]);
+        r[h] = *reinterpret_cast<const uint32_t*>(&p);
+    }
 }
 
 // ---------------------------------------------------------------------
@@ -104,6 +350,12 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
                  "r"(valid ? 8 : 0));
+}
+// A 4-byte copy that reads only the first n (0..4) bytes of src and
+// zero-fills the rest.
+__device__ __forceinline__ void cp_async4_n(void* dst, const void* src, int n) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait_n() {
@@ -183,7 +435,6 @@ constexpr int TILE_RATE_128x128 = 2580;
 constexpr int TILE_RATE_128x64 = 1720;
 constexpr int TILE_RATE_64x64 = 970;
 constexpr int TILE_SMEM_MAX = 232448;  // shared memory a block may use (227 KB)
-constexpr int TILE_MAX_DEVICES = 64;
 
 __device__ __forceinline__ void bar_sync(int id, int n) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
@@ -449,24 +700,20 @@ int tile_launch(const bf16* x, const Fmt& fmt, float* y, int M, int N, int K, cu
     using T128 = Tile<Fmt, 128, 128, 256>;
     using T128x64 = Tile<Fmt, 128, 64, 256>;
     using T64 = Tile<Fmt, 64, 64, 256>;
-    static int sms_of[TILE_MAX_DEVICES];       // 0 until set up on that device
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev >= TILE_MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
-    if (sms_of[dev] == 0) {
-        int sms = 0;
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (err == cudaSuccess) err = tile_setup<Fmt, T256>();
-        if (err == cudaSuccess) err = tile_setup<Fmt, T128>();
-        if (err == cudaSuccess) err = tile_setup<Fmt, T128x64>();
-        if (err == cudaSuccess) err = tile_setup<Fmt, T64>();
-        if (err != cudaSuccess) return static_cast<int>(err);
-        sms_of[dev] = sms;
-    }
+    static PerDevice<1> sms_of;
+    int* dev_sms = nullptr;
+    if (const int err = sms_of.get(dev_sms, [](int dev, int* v) {
+            cudaError_t e = cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, dev);
+            if (e == cudaSuccess) e = tile_setup<Fmt, T256>();
+            if (e == cudaSuccess) e = tile_setup<Fmt, T128>();
+            if (e == cudaSuccess) e = tile_setup<Fmt, T128x64>();
+            if (e == cudaSuccess) e = tile_setup<Fmt, T64>();
+            return e;
+        }))
+        return err;
     // The tile with the least time: waves of CTAs (one per SM) times a
     // wave's time; ties go to the larger tile.
-    const int sms = sms_of[dev];
+    const int sms = dev_sms[0];
     auto cost = [&](int bm, int bn, int rate) {
         const long long ctas = (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
         return (ctas + sms - 1) / sms * (bm * bn * 100000LL / rate);

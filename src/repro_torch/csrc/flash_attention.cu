@@ -45,6 +45,8 @@
 //   barrier per tile.  Rows are padded by 16 bytes, so ldmatrix on K (B
 //   operand of Q.K^T) and ldmatrix.trans on V (B operand of P.V) hit 8
 //   distinct bank groups.
+// - A warp's step over a tile (S, masks, online softmax, P.V) is
+//   common.cuh's FlashWarp, which flash_prefill.cu shares.
 // - S = Q K^T is 8 n8-tiles x 4 f32 per thread; nothing goes to shared
 //   memory.  The row max and sum reduce over the quad of lanes sharing a
 //   row (two shuffles); p = ex2(s * scale*log2(e) - m * scale*log2(e)),
@@ -69,7 +71,7 @@ using namespace repro;
 
 namespace {
 
-constexpr int BKV = 64;          // keys per tile
+constexpr int BKV = FLASH_BKV;   // keys per tile
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
@@ -79,23 +81,6 @@ struct Cfg {
     static constexpr int CPR = DP / 8;              // 16-byte chunks per row
     static size_t smem(int bq) { return (size_t)(bq + 2 * STAGES * BKV) * LD * 2; }
 };
-
-__device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// Two floats rounded to bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Rows [row0, row0+rows) of a (n, d) bf16 matrix into dst (row stride
 // LD, DP columns), zero past n and past d.  With vec (d % 8 == 0) the
@@ -179,8 +164,7 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
                        int sq, int sk, int d, float scale, int causal, int window) {
     constexpr int LD = Cfg<DP>::LD, STAGES = Cfg<DP>::STAGES, CPR = Cfg<DP>::CPR;
-    constexpr int KS = DP / 16;       // k-steps of Q.K^T; n16 pairs of P.V
-    constexpr int NS = BKV / 8;       // n8-tiles of S
+    constexpr int KS = DP / 16;       // n16 pairs of O
     constexpr int BQ = NT / 2;        // 16 rows per warp
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -236,132 +220,35 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float c = fmaxf(fabsf(scale) * LOG2E, 1e-30f);
     const uint32_t qsign = scale < 0.0f ? 0x80008000u : 0u;
 
-    uint32_t qf[KS][4];
-    float acc[2 * KS][4];
-#pragma unroll
-    for (int n = 0; n < 2 * KS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+    FlashWarp<DP> fw;
 
     for (int it = 0; it < ntiles; ++it) {
-        cp_async_wait<STAGES - 2>();       // tile it (and Q) landed
+        cp_async_wait_n<STAGES - 2>();     // tile it (and Q) landed
         __syncthreads();                   // ... for all; stage it-1 free
         if (it + STAGES - 1 < ntiles) load_tile(it + STAGES - 1);
         cp_async_commit();
-        if (it == 0) {
-#pragma unroll
-            for (int kk = 0; kk < KS; ++kk) {
-                ldsm_x4(qf[kk], qs + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD
-                                    + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) qf[kk][e] ^= qsign;
-            }
-        }
+        if (it == 0) fw.load_q(qs + warp * 16 * LD, qsign);
         const int k0 = kstart + it * BKV;
         if (!live || (causal && k0 > qhi) || (window > 0 && k0 + BKV - 1 <= qlo - window))
             continue;                      // no key of this tile for the warp
         const bool edge = k0 + BKV > sk || (causal && k0 + BKV - 1 > qlo) ||
                           (window > 0 && k0 <= qhi - window);
-        const bf16* kt = kring + (it % STAGES) * BKV * LD;
-        const bf16* vt = vring + (it % STAGES) * BKV * LD;
-
-        // S(16 x 64) = Q K^T.
-        float s[NS][4];
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-            for (int jp = 0; jp < NS / 2; ++jp) {
-                uint32_t b[4];
-                ldsm_x4(b, kt + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * LD
-                               + kk * 16 + ((lane >> 3) & 1) * 8);
-                mma16816(s[2 * jp], qf[kk], b[0], b[1]);
-                mma16816(s[2 * jp + 1], qf[kk], b[2], b[3]);
-            }
-        if (edge) {
-#pragma unroll
-            for (int j = 0; j < NS; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int kp = k0 + 8 * j + 2 * t + (e & 1);
-                    const int qp = qd[e >> 1];
-                    const bool ok = kp < sk && (!causal || kp <= qp) &&
-                                    (window <= 0 || kp > qp - window);
-                    if (!ok) s[j][e] = -INFINITY;
-                }
-        }
-
-        // Online softmax of rows g (r = 0) and g + 8 (r = 1).  O and l are
-        // rescaled only when a row max of the warp moved (else alpha = 1).
-        float mx[2], mc[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            mx[r] = m[r];
-#pragma unroll
-            for (int j = 0; j < NS; ++j)
-                mx[r] = fmaxf(mx[r], fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-            mc[r] = mx[r] == -INFINITY ? 0.0f : mx[r] * c;   // no unmasked key yet
-        }
-        if (__any_sync(0xffffffffu, mx[0] != m[0] || mx[1] != m[1])) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                const float alpha = ex2(m[r] * c - mc[r]);
-                l[r] *= alpha;
-#pragma unroll
-                for (int n = 0; n < 2 * KS; ++n) {
-                    acc[n][2 * r] *= alpha;
-                    acc[n][2 * r + 1] *= alpha;
-                }
-            }
-        }
-        m[0] = mx[0];
-        m[1] = mx[1];
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                s[j][e] = ex2(fmaf(s[j][e], c, -mc[e >> 1]));
-                l[e >> 1] += s[j][e];
-            }
-
-        // O(16 x DP) += P(16 x 64) V(64 x DP), P packed to bf16 in registers.
-#pragma unroll
-        for (int kk = 0; kk < BKV / 16; ++kk) {
-            const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                   pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                   pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                   pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-            for (int np = 0; np < KS; ++np) {
-                uint32_t b[4];
-                ldsm_x4_t(b, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD
-                                 + np * 16 + (lane >> 4) * 8);
-                mma16816(acc[2 * np], a, b[0], b[1]);
-                mma16816(acc[2 * np + 1], a, b[2], b[3]);
-            }
-        }
+        fw.template tile<false>(kring + (it % STAGES) * BKV * LD,
+                                vring + (it % STAGES) * BKV * LD, c, edge, k0, sk, causal,
+                                window, qd);
     }
 
     // out = acc / l in bf16 (0 where l = 0), staged in the warp's own Q
     // rows (read only by this warp, at tile 0), then 16-byte stores.
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
+    fw.finish();
     bf16* stage = qs + warp * 16 * LD;
 #pragma unroll
     for (int n = 0; n < 2 * KS; ++n)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-            const float lo = l[r] > 0.0f ? acc[n][2 * r] / l[r] : 0.0f;
-            const float hi = l[r] > 0.0f ? acc[n][2 * r + 1] / l[r] : 0.0f;
+            const float lr = fw.l[r];
+            const float lo = lr > 0.0f ? fw.acc[n][2 * r] / lr : 0.0f;
+            const float hi = lr > 0.0f ? fw.acc[n][2 * r + 1] / lr : 0.0f;
             *reinterpret_cast<uint32_t*>(stage + (g + 8 * r) * LD + 8 * n + 2 * t) =
                 pack_bf16(lo, hi);
         }
@@ -385,31 +272,25 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // BQ rule: 128 query rows (256 threads) per CTA when BH * ceil(Sq/128)
 // CTAs cover every SM, else 64 (128 threads).  The SM count and the
 // shared-memory limits are set up once per device.
-constexpr int MAX_DEVICES = 64;
-
 template <int DP>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int bh, int sq,
            int sk, int d, float scale, int causal, int window, cudaStream_t stream) {
-    static int sms_of[MAX_DEVICES];     // 0 until set up on that device
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
-    if (sms_of[dev] == 0) {
-        int sms = 0;
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(flash_attention_kernel<DP, 256>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(Cfg<DP>::smem(128)));
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(flash_attention_kernel<DP, 128>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(Cfg<DP>::smem(64)));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        sms_of[dev] = sms;
-    }
-    if ((long long)bh * ((sq + 127) / 128) >= sms_of[dev])
+    static PerDevice<1> sms_of;
+    int* sms = nullptr;
+    if (const int err = sms_of.get(sms, [](int dev, int* v) {
+            cudaError_t e = cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, dev);
+            if (e == cudaSuccess)
+                e = cudaFuncSetAttribute(flash_attention_kernel<DP, 256>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Cfg<DP>::smem(128)));
+            if (e == cudaSuccess)
+                e = cudaFuncSetAttribute(flash_attention_kernel<DP, 128>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Cfg<DP>::smem(64)));
+            return e;
+        }))
+        return err;
+    if ((long long)bh * ((sq + 127) / 128) >= sms[0])
         flash_attention_kernel<DP, 256><<<dim3((sq + 127) / 128, bh), 256, Cfg<DP>::smem(128),
                                           stream>>>(q, k, v, o, sq, sk, d, scale, causal, window);
     else

@@ -101,7 +101,6 @@ namespace {
 constexpr int KEYS = 128;        // keys per split of the paged kernels
 constexpr int NTHREAD = 128;
 constexpr int MAX_G = 16;
-constexpr int MAX_DEVICES = 64;
 
 // ------------------------------------------------- contiguous: one cluster
 
@@ -136,13 +135,6 @@ __host__ __device__ inline ClusterSmem cluster_smem(int hd, int g, int ldl) {
     m.part = m.stat + MAX_G * 2 * 4;                      // partial P.V, G x hd
     m.total = m.part + (size_t)g * hd * 4;
     return m;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 __global__ void __launch_bounds__(NTHREAD)
@@ -419,28 +411,30 @@ int launch_cluster(const bf16* q, const bf16* k, const bf16* v, const int* kv_le
 
     // Once per device: allow the largest shared memory (and a cluster
     // past the portable 8); once per device and larger shared memory than
-    // checked so far: make sure one cluster fits on the card.
-    static size_t checked[MAX_DEVICES];      // 0 until set up on that device
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
-    if (checked[dev] == 0) {
-        if (CLUSTER > 8)
-            err = cudaFuncSetAttribute(decode_cluster_kernel,
-                                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(
-                decode_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(cluster_smem(256, MAX_G, LOGITS_MAX_BYTES / 4 / MAX_G).total));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    if (smem > checked[dev]) {
+    // checked so far (checked[0]): make sure one cluster fits on the card.
+    static PerDevice<1> checked_of;
+    int* checked = nullptr;
+    if (const int err = checked_of.get(checked, [](int, int* v) {
+            cudaError_t e = cudaSuccess;
+            if (CLUSTER > 8)
+                e = cudaFuncSetAttribute(decode_cluster_kernel,
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            if (e == cudaSuccess)
+                e = cudaFuncSetAttribute(
+                    decode_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                    static_cast<int>(
+                        cluster_smem(256, MAX_G, LOGITS_MAX_BYTES / 4 / MAX_G).total));
+            v[0] = 0;
+            return e;
+        }))
+        return err;
+    cudaError_t err = cudaSuccess;
+    if (smem > static_cast<size_t>(checked[0])) {
         int clusters = 0;
         err = cudaOccupancyMaxActiveClusters(&clusters, decode_cluster_kernel, &cfg);
         if (err != cudaSuccess) return static_cast<int>(err);
         if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-        checked[dev] = smem;
+        checked[0] = static_cast<int>(smem);
     }
     err = cudaLaunchKernelEx(&cfg, decode_cluster_kernel, q, k, v, kv_len, out, g, hd, c,
                              ldl, recompute, scale);

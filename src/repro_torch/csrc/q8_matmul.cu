@@ -68,25 +68,6 @@ constexpr int GEMV_ROWS = 16;    // weight rows per CTA: the m16 of the mma
 constexpr int GEMV_WARPS = 8;    // most warps per CTA
 constexpr int GEMV_UNROLL = 2;   // K steps of loads issued before their math
 
-// Word w of a block's codes holds its elements 4i..4i+3 (int8, element e
-// in byte e).  r[0] gets elements (4i, 4i+1) as a bf16 pair, r[1] elements
-// (4i+2, 4i+3), each bf16(q * d) rounded once from the exact f32 product.
-__device__ __forceinline__ void unpack_word(uint32_t w, float d, uint32_t (&r)[2]) {
-    const uint32_t u = w ^ 0x80808080u;              // byte e: q + 128
-    float f[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-        // 0x4B0000(q + 128): the f32 2^23 + 128 + q.
-        const float v = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | e));
-        f[e] = __fmul_rn(__fsub_rn(v, 8388736.0f), d);   // q * d, exact
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * h], f[2 * h + 1]);
-        r[h] = *reinterpret_cast<const uint32_t*>(&p);
-    }
-}
-
 // One K step's codes and scales for a lane: block 4*step + tig of rows
 // gid and gid + 8, 32 bytes each.
 struct Codes {
@@ -158,8 +139,8 @@ q8_gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
 #pragma unroll
             for (int i = 0; i < 8; ++i) {       // code word i: one mma step
                 uint32_t r0[2], r1[2];
-                unpack_word(word(cur[u].q[0][i >> 2], i & 3), d0, r0);
-                unpack_word(word(cur[u].q[1][i >> 2], i & 3), d1, r1);
+                q8_unpack_word(word(cur[u].q[0][i >> 2], i & 3), d0, r0);
+                q8_unpack_word(word(cur[u].q[1][i >> 2], i & 3), d1, r1);
                 const uint32_t a[4] = {r0[0], r1[0], r0[1], r1[1]};
 #pragma unroll
                 for (int t = 0; t < NT; ++t)
@@ -180,7 +161,7 @@ q8_gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
 // scale is the half that the element index's parity names).  When K / 32
 // is even, one word holds both of a step's scales of a row: one copy.  A unit is
 // 16 weights of one row (chunks 2j and 2j + 1, block j / 2), unpacked by
-// unpack_word's exact f32 route into two 16-byte stores.  Blocks past
+// q8_unpack_word's exact f32 route into two 16-byte stores.  Blocks past
 // K / 32 and rows past N load as zero bytes: scale 0, weight 0.
 struct Q8Tile {
     const int8_t* wq;
@@ -263,7 +244,7 @@ struct Q8Tile {
 #pragma unroll
                 for (int w = 0; w < 4; ++w) {
                     uint32_t p[2];
-                    unpack_word(word(q, w), d, p);
+                    q8_unpack_word(word(q, w), d, p);
                     v[2 * w] = p[0];
                     v[2 * w + 1] = p[1];
                 }

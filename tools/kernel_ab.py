@@ -13,13 +13,15 @@ as a difference between the two A runs.  Per case it prints the CUDA-event
 time of 20 back-to-back calls (``ms``, which includes the Python wrapper's
 host time) and the profiler's device time (``device_ms``), and the card's
 name and power limit.  The cases are the decode shapes of
-``flash_decode`` and ``flash_decode_paged``, and those of the quantized
-matmuls ``q4_matmul``, ``q8_matmul`` and ``q3k_matmul``: M = 1..16 on
-their decode paths, and the tile paths' shapes above (M = 32, Granite-8B's
-256-token chunk linears, SD-Turbo's), where each case is also timed over copies of its
-weight, each call on the next, that together pass the L2 cache at the LM
-shapes (``cold device ms``).  It needs
-one card.
+``flash_decode`` and ``flash_decode_paged``; the paged prefill of one
+Granite-8B chunk (Hkv 8, G 4, hd 128, bs 16) through
+``flash_prefill_paged`` and ``flash_prefill_paged_q8`` at (T, pos0) =
+(256, 0), (256, 1792) and (208, 1792); and those of the quantized matmuls
+``q4_matmul``, ``q8_matmul`` and ``q3k_matmul``: M = 1..16 on their decode
+paths, and the tile paths' shapes above (M = 32, Granite-8B's 256-token
+chunk linears, SD-Turbo's), where each case is also timed over copies of
+its weight, each call on the next, that together pass the L2 cache at the
+LM shapes (``cold device ms``).  It needs one card.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ Q3K = DECODE_MN + [(4, 4096, 4096), (4, 1024, 4096), (32, 14336, 4096),
                    (32, 4096, 14336), (256, 14336, 4096), (4096, 320, 1280),
                    (256, 1280, 1280), (154, 768, 768), (64, 1280, 5120)] + CHUNK
 PAGED = [(2000, 1990, 2011, 1500)]      # positions; MB 132, Hkv 8, G 4, hd 128, bs 16
+PREFILL = [(256, 0), (256, 1792), (208, 1792)]   # (T, pos0); MB 128, Hkv 8, G 4, hd 128
 
 
 def _cuda_ms(fn, iters: int = 20) -> float:
@@ -106,12 +109,14 @@ def child(src_root: Path, sets: list[str]) -> None:
     from repro_torch.core import quant
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import q3k_matmul as q3k
     from repro_torch.kernels import q4_matmul as q4
     from repro_torch.kernels import q8_matmul as q8
     if sets:
         build.CSRC = _with_constants(src_root, sets)
-    build.build_all(("flash_decode", "q4_matmul", "q8_matmul", "q3k_matmul"))
+    build.build_all(("flash_decode", "flash_prefill", "q4_matmul", "q8_matmul",
+                     "q3k_matmul"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
 
@@ -138,6 +143,18 @@ def child(src_root: Path, sets: list[str]) -> None:
         kpool, vpool = bf16(b * mb + 1, 8, 16, 128), bf16(b * mb + 1, 8, 16, 128)
         record("flash_decode_paged", positions,
                lambda: fd.flash_decode_paged(q, kpool, vpool, tables, pos))
+    for on_q8 in (False, True):
+        for t, pos0 in PREFILL:
+            mb, nb = 128, 168
+            table = (torch.randperm(nb - 1, generator=gen, device="cuda")[:mb] + 1).to(
+                torch.int32)
+            q, kn, vn = bf16(t, 8, 4, 128), bf16(t, 8, 128), bf16(t, 8, 128)
+            pools = [bf16(nb, 8, 16, 128), bf16(nb, 8, 16, 128)]
+            if on_q8:
+                pq = [quant.quantize_q8_0(x.float()) for x in pools]
+                pools = [pq[0].qs, pq[1].qs, pq[0].d, pq[1].d]
+            fn = fp.flash_prefill_paged_q8 if on_q8 else fp.flash_prefill_paged
+            record(fn.__name__, (t, pos0), lambda: fn(q, kn, vn, *pools, table, pos0))
     # Each matmul case also runs over copies of its weight (up to 64, as far
     # as 100 MB: past the 50 MB L2 for the LM shapes), each call on the next
     # (``cold_device_ms``), as a serving step finds its weights.
@@ -175,7 +192,11 @@ def main() -> int:
     side_b = [sys.executable, __file__, "--child", str(ROOT)]
     runs = []
     for label, cmd in (("A", side_a), ("B", side_b), ("B", side_b), ("A", side_a)):
-        out = subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
+        run = subprocess.run(cmd, capture_output=True, text=True)
+        if run.returncode:
+            raise SystemExit(f"kernel_ab: side {label} failed ({run.returncode}):\n"
+                             f"{run.stderr[-4000:]}")
+        out = run.stdout
         runs.append((label, json.loads(out.strip().splitlines()[-1])))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
