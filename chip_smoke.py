@@ -11,8 +11,10 @@ caught and passed over):
              and the ptxas report (registers and spills) of each kernel
              function, each template instantiation under its own name.
 3. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes and at edge shapes (Sq < 8, ragged
-             tiles, tail-padded Q8_0 and Q4_0 weights through ``ops``, a K
+             the main path's shapes (the quantized matmuls' decode and tile
+             paths at Granite-8B's and SD-Turbo's linears) and at edge
+             shapes (Sq < 8, ragged tiles, tail-padded Q8_0 and Q4_0
+             weights through ``ops``, a K
              that ends inside the w8a8 kernel's K stage, the q8, q3k and q4
              decode paths with two token groups, kv_len = 1 and C, kv_len off the
              16-key range step, hd = 120 and 256, G = 1 and 16, logits
@@ -29,10 +31,11 @@ caught and passed over):
              Granite-8B's widths: outputs within the attention limit, pools
              and Q8_0 bytes bit-identical to the plain version's, including
              NaN-poisoned recycled blocks and NULL_BLOCK-padded tables; each
-             prefill case called twice for the same bits, with the attend
-             launch's plan (clusters that fit, key splits) logged, and at
-             the timed shapes a second yardstick: SDPA on K/V already
-             gathered to contiguous bf16 (GQA, lower-right causal).
+             prefill and decode case called twice for the same bits, with
+             the attend launch's plan (clusters that fit, key splits)
+             logged, and at the timed prefill shapes a second yardstick:
+             SDPA on K/V already gathered to contiguous bf16 (GQA,
+             lower-right causal); device times beside the event times.
 4. tiny    — TINY_SD with the same seeded weights and noise on the CPU
              (plain versions) and on the card (kernels); images must agree.
              tiny_lm: reduced(granite-8b) served by ``ContinuousBatcher`` on
@@ -161,10 +164,14 @@ LM_MATMUL_SHAPES = [(4, 14336, 4096), (4, 4096, 14336), (256, 14336, 4096)]
 LM_DECODE_SHAPES = [(4, 4096, 4096), (4, 1024, 4096), (8, 14336, 4096),
                     (16, 14336, 4096)]
 # Granite-8B's other linears in a 256-token chunk (down; q and o; k and
-# v) and a ragged last chunk, on the tile paths of Q8_0 and Q3_K only
-# (csrc/common.cuh's CTA rule takes another tile for each).
+# v) and a ragged last chunk, on the tile paths (csrc/common.cuh's CTA
+# rule takes another tile for each).
 LM_CHUNK_SHAPES = [(256, 4096, 14336), (256, 4096, 4096), (256, 1024, 4096),
                    (200, 4096, 4096)]
+# full_gen's make_prefill linears (4 prompts of 128 tokens: gate and up,
+# down, q and o, k and v), on q4_matmul's tile path under q4_0.
+GEN_PREFILL_SHAPES = [(512, 14336, 4096), (512, 4096, 14336), (512, 4096, 4096),
+                      (512, 1024, 4096)]
 Q8_SHAPES = [(4096, 320, 320), (154, 768, 768), (4096, 2560, 320),
              (1, 768, 3072)] + LM_MATMUL_SHAPES + LM_DECODE_SHAPES + [
              (4, 49152, 4096)] + LM_CHUNK_SHAPES  # the LM head, Q8_0 under q8_0 and q3_k
@@ -177,9 +184,12 @@ Q3K_SHAPES = [(4096, 320, 1280), (256, 1280, 1280), (154, 768, 768),
 Q3K_EDGE = [(5, 100, 512), (3, 70, 256),         # one super-block, one warp
             (9, 70, 256), (16, 70, 512),         # decode path, two token groups
             (17, 70, 256), (129, 100, 512)]      # tile path: ragged M and N
-Q4_SHAPES = LM_MATMUL_SHAPES + Q8_SHAPES[:4] + LM_DECODE_SHAPES[2:]
+Q4_SHAPES = (LM_MATMUL_SHAPES + Q8_SHAPES[:4] + LM_DECODE_SHAPES[2:]
+             + GEN_PREFILL_SHAPES + LM_CHUNK_SHAPES)
 Q4_EDGE = [(77, 320, 768), (1, 70, 96), (3, 70, 100),   # K = 100: tail-padded
-           (16, 70, 96), (9, 70, 100)]                  # decode path, two token groups
+           (16, 70, 96), (9, 70, 100),                  # decode path, two token groups
+           (17, 70, 96), (129, 100, 100),               # tile path: a half K step; tail-padded
+           (255, 70, 1152)]                             # ragged M and N, 18 K steps
 W8A8_SHAPES = LM_MATMUL_SHAPES
 W8A8_EDGE = [(4, 1000, 4128), (5, 70, 96)]   # K/32 = 129 and 3: a partial K stage
 # Contiguous decode at Granite-8B's widths: (B, Hkv, G, hd, C, kv_len).
@@ -762,6 +772,8 @@ def _decode_case(case, gen, timed: bool) -> dict:
     torch.cuda.synchronize()
     row = {"shape": case, "max_abs_err": _check_attn("flash_decode_paged", case,
                                                      out, want)}
+    if not torch.equal(_bits(kern()), _bits(out)):
+        raise AssertionError(f"flash_decode_paged {case}: a second call gave other bits")
     if timed:
         tbl = tables.long()
         idx = torch.arange(mb * bs, device="cuda")[None, :]
@@ -777,7 +789,8 @@ def _decode_case(case, gen, timed: bool) -> dict:
         keys_read = int(valid.sum())
         nbytes = 2 * 2 * b * hkv * g * hd + 2 * 2 * keys_read * hkv * hd
         row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
-                   library_ms=cuda_ms(library, iters=5))
+                   library_ms=cuda_ms(library, iters=5), device_ms=device_ms(kern),
+                   library_device_ms=device_ms(library))
         row["bound_ms"], row["bound_by"] = bound(4.0 * hkv * g * hd * keys_read,
                                                  nbytes)
     return row
@@ -860,9 +873,8 @@ def phase_tiny() -> None:
 
 OURS = ("flash_attention_kernel", "tile_kernel", "q8_gemv_kernel",
         "q3k_gemv_kernel", "attend_kernel", "write_bf16_kernel",
-        "write_q8_kernel", "decode_logits_kernel", "decode_pv_kernel",
-        "decode_sum_kernel", "decode_cluster_kernel", "q4_matmul_kernel",
-        "q4_gemv_kernel", "w8a8_kernel")
+        "write_q8_kernel", "decode_cluster_kernel", "q4_gemv_kernel",
+        "w8a8_kernel")
 
 
 def _kind(name: str) -> str:

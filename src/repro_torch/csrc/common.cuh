@@ -8,7 +8,6 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
@@ -16,12 +15,6 @@
 namespace repro {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // 16-byte asynchronous copy global -> shared; with !valid nothing is read
 // and 16 zero bytes are written.  Groups are committed and waited on with
@@ -363,17 +356,17 @@ __device__ __forceinline__ void cp_async_wait_n() {
 }
 
 // ---------------------------------------------------------------------
-// Tile path of the quantized matmuls q8_matmul.cu and q3k_matmul.cu
-// (M > M_GEMV):  y(M,N) f32 = x(M,K) bf16 @ W(N,K)^T, the weight
-// dequantized in shared memory and never written to device memory.
+// Tile path of the quantized matmuls q8_matmul.cu, q3k_matmul.cu and
+// q4_matmul.cu (M > M_GEMV):  y(M,N) f32 = x(M,K) bf16 @ W(N,K)^T, the
+// weight dequantized in shared memory and never written to device memory.
 //
 // What bounds it on the H100: the tensor cores.  A CTA tile of BM tokens
 // and BN weight rows does 2 * BM flops per weight it unpacks and 2 * BN
 // per x element it copies, so at 256 x 128 Granite-8B's (256, 14336,
 // 4096) is far above the card's 295 flops per byte; at the UNet's short
 // K the f32 y (4 bytes per output) is most of the bytes.  The unpack (3.75
-// integer and f32 instructions per Q8_0 weight, ~4.7 per Q3_K weight) is
-// the other cost, paid once per weight per CTA.
+// integer and f32 instructions per Q8_0 weight, ~4.7 per Q3_K weight,
+// ~2.7 per Q4_0 weight) is the other cost, paid once per weight per CTA.
 // Design:
 // - Warp-specialised CTAs: two warpgroups (TILE_MMA_WARPS = 8 warps) only
 //   multiply, on wgmma (m64nNk16, bf16 in, f32 sums in registers), and NP
@@ -445,6 +438,73 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 
 // Element offset of chunk c (8 bf16) of row r in a swizzled 64-wide tile.
 __device__ __forceinline__ int tile_swz(int r, int c) { return r * TILE_BK + ((c ^ (r & 7)) << 3); }
+
+// The block scales of a format that keeps them as Q8_0 and Q4_0 do: fp16
+// (N, K/32), one per 32 weights of a row, so two per K step.  A ring slot
+// holds BYTES of them: per row two aligned 4-byte words, the words that
+// hold the step's two scales (the wrapper aligns wd to 16 bytes; a scale
+// is the half of its word that its element index's parity names).  When
+// K / 32 is even one word holds both of a step's scales of a row: one
+// copy per row, into the first word.  Blocks past K / 32 and rows past N
+// copy as zero bytes: scale 0.  Producer t's units are those of the tile
+// (unit i = t + NP * u: row i / 4, weights 16 (i % 4) .. + 15, block
+// (i % 4) / 2 of the step).
+template <int BN, int NP>
+struct TileScales {
+    static constexpr int BYTES = BN * 8;
+    static constexpr int UNITS = BN * 4 / NP;
+    static constexpr int COPIES = (BN * 2 + NP - 1) / NP;   // odd K / 32: per (row, block)
+    const __half* wd;
+    size_t e0;              // odd K / 32: element of (row t / 2, block t % 2), step 0;
+                            // + NP / 2 rows per further copy
+    size_t ev;              // even K / 32: element of (row t, block 0)
+    int n0, N, nblk, t;
+    uint32_t par;           // bit u: parity of unit u's scale element
+
+    __device__ __forceinline__ TileScales(const __half* wd_, int n0_, int N_, int K, int t_)
+        : wd(wd_), n0(n0_), N(N_), nblk(K / 32), t(t_) {
+        e0 = (size_t)(n0 + (t >> 1)) * nblk + (t & 1);
+        ev = (size_t)(n0 + t) * nblk;
+        par = 0;
+#pragma unroll
+        for (int u = 0; u < UNITS; ++u) {
+            const int i = t + NP * u;
+            par |= (uint32_t)((((size_t)(n0 + (i >> 2)) * nblk + ((i & 3) >> 1)) & 1) << u);
+        }
+    }
+
+    // This producer's share of step k's scale copies into dst (BYTES).
+    __device__ __forceinline__ void load(unsigned char* dst, int k) const {
+        if ((nblk & 1) == 0) {
+#pragma unroll
+            for (int it = 0; it < (BN + NP - 1) / NP; ++it) {
+                const int i = t + NP * it;
+                const bool in = i < BN && n0 + i < N && 2 * k < nblk;
+                if (i < BN)
+                    cp_async4(dst + 8 * i, in ? wd + ev + (size_t)NP * nblk * it + 2 * k : wd, in);
+            }
+            return;
+        }
+#pragma unroll
+        for (int it = 0; it < COPIES; ++it) {
+            const int i = t + NP * it;               // row i / 2, block 2k + i % 2
+            if (i < BN * 2) {
+                const bool in = n0 + (i >> 1) < N && 2 * k + (i & 1) < nblk;
+                const size_t e = e0 + (size_t)(NP / 2) * nblk * it + 2 * k;
+                cp_async4(dst + 4 * i, in ? wd + (e & ~(size_t)1) : wd, in);
+            }
+        }
+    }
+
+    // Unit u's scale, from the slot's scale words at src.
+    __device__ __forceinline__ float get(const unsigned char* src, int u) const {
+        const int i = t + NP * u, r = i >> 2, j = i & 3;
+        const int wsel = nblk & 1 ? j >> 1 : 0;      // (even K / 32: one word, half j / 2)
+        const uint32_t dw = *reinterpret_cast<const uint32_t*>(src + 8 * r + 4 * wsel);
+        return __half2float(__ushort_as_half(
+            static_cast<unsigned short>((par >> u) & 1 ? dw >> 16 : dw & 0xFFFFu)));
+    }
+};
 
 // A tile of BM x BN for format Fmt with NP producers.  The two mma
 // warpgroups split the tile's rows (BM >= 128: WGM m64 blocks each, all BN
@@ -731,76 +791,6 @@ int tile_launch(const bf16* x, const Fmt& fmt, float* y, int M, int N, int K, cu
     else
         tile_run<Fmt, T64>(x, fmt, y, M, N, K, st);
     return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------
-// Dequant-GEMM skeleton of q4_matmul.cu's tile path:
-//   y(M,N) f32 = x(M,K) bf16 @ W(N,K)^T,  W dequantized tile by tile.
-// A block owns a GEMM_BM x GEMM_BN output tile; its 4 warps own 32x32
-// quarters (2x2 WMMA fragments each).  Each K step stages a GEMM_BM x BK
-// slice of x and a GEMM_BN x BK slice of W (dequantized to bf16 by the
-// format's loader) in shared memory; the dequantized weight never
-// reaches device memory.  K must be a multiple of BK (the block size of
-// the format divides BK), so there is no K tail; M and N edges are
-// zero-filled on load and masked on store.
-constexpr int GEMM_BM = 64;
-constexpr int GEMM_BN = 64;
-constexpr int GEMM_THREADS = 128;
-
-// Stage rows [m0, m0+GEMM_BM) x cols [k0, k0+BK) of x into xs (row-major,
-// leading dimension BK) with 16-byte loads; rows >= M read as zero.
-template <int BK>
-__device__ __forceinline__ void load_x_tile(const bf16* __restrict__ x, bf16* xs,
-                                            int M, int K, int m0, int k0) {
-    constexpr int VEC_PER_ROW = BK / 8;
-    for (int i = threadIdx.x; i < GEMM_BM * VEC_PER_ROW; i += GEMM_THREADS) {
-        const int r = i / VEC_PER_ROW, c8 = i % VEC_PER_ROW;
-        const int gr = m0 + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (gr < M)
-            val = *reinterpret_cast<const uint4*>(x + (size_t)gr * K + k0 + c8 * 8);
-        *reinterpret_cast<uint4*>(xs + r * BK + c8 * 8) = val;
-    }
-}
-
-// acc[i][j] += xs(warp rows) @ ws(warp cols)^T over one BK slice.
-template <int BK>
-__device__ __forceinline__ void mma_tile(const bf16* xs, const bf16* ws,
-                                         FragC (&acc)[2][2], int wm, int wn) {
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-        FragA a[2];
-        FragBCol b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(a[i], xs + (wm * 32 + i * 16) * BK + kk, BK);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(b[j], ws + (wn * 32 + j * 16) * BK + kk, BK);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-}
-
-// Write the block's accumulators to y through shared memory `cs`
-// (GEMM_BM x GEMM_BN floats), masking rows >= M and cols >= N.
-__device__ __forceinline__ void store_tile(FragC (&acc)[2][2], float* cs,
-                                           float* __restrict__ y, int M, int N,
-                                           int m0, int n0, int wm, int wn) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * GEMM_BN + wn * 32 + j * 16,
-                                    acc[i][j], GEMM_BN, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < GEMM_BM * GEMM_BN; i += GEMM_THREADS) {
-        const int r = i / GEMM_BN, c = i % GEMM_BN;
-        if (m0 + r < M && n0 + c < N) y[(size_t)(m0 + r) * N + n0 + c] = cs[i];
-    }
 }
 
 }  // namespace repro

@@ -1,6 +1,7 @@
 // Flash-decode (one new token per row, GQA) for Hopper (sm_90a): a
-// contiguous entry, one thread-block-cluster launch per call, and a
-// paged entry in three launches.
+// contiguous entry and a paged entry, each one thread-block-cluster
+// launch per call, one kernel templated on where the K and V rows come
+// from.
 //
 // Replaces: src/repro/kernels/flash_decode.py :: flash_decode
 // (_decode_kernel) and :: flash_decode_paged (_paged_decode_kernel).
@@ -10,9 +11,9 @@
 // sync): every row attends to the slots idx < kv_len[0].
 // Paged (flash_decode_paged_bf16): q (B,Hkv,G,hd) bf16; pools
 // (NB,Hkv,bs,hd) bf16; tables (B,MB) int32; positions (B,) int32, the
-// last valid logical index of each row (inclusive).  Row b's query group
-// attends to the keys at idx <= positions[b] (and idx > positions[b] -
-// window) of its table.
+// last valid logical index of each row (inclusive), read by the kernel.
+// Row b's query group attends to the keys at idx <= positions[b] (and
+// idx > positions[b] - window) of its table.
 //
 // Both compute what the reference's decode step computes when it reads a
 // bf16 cache (models/attention.py: _update_read_contiguous /
@@ -23,28 +24,42 @@
 // replaces.)  Every key's p needs its row's global max M and sum L, so the
 // keys of one (row, head) are seen twice: once for M and L, once for P.V.
 // Keys past the valid range (unwritten cache slots, a recycled block's
-// stale bytes, the null block of an idle row) are never loaded: their
-// rows are zero-filled and their logits are -inf before any max.
+// stale bytes, the null block of an idle row past its one key, keys
+// before a sliding window) are never loaded: their rows are zero-filled
+// and their logits are -inf before any max.
 //
 // What bounds it on the H100: each (row, head) reads its K and V
-// (2 * kv_len * hd * 2 bytes) for 4 * G * kv_len * hd flops, 4 flops per
-// byte at G = 4: device-memory bytes, 9.8 us at the headline shape.  At
-// 4 rows and 8 KV heads there are only 32 (row, head) pairs for 132 SMs,
-// so each pair is cut over its keys, and the pieces have to agree on M
-// and L.
+// (2 * keys * hd * 2 bytes) for 4 * G * keys * hd flops, 4 flops per
+// byte at G = 4: device-memory bytes, 9.8 us at the contiguous headline
+// shape, 9.2 us at the paged one.  At 4 rows and 8 KV heads there are
+// only 32 (row, head) pairs for 132 SMs, so each pair is cut over its
+// keys, and the pieces have to agree on M and L.
 //
-// Contiguous entry: one launch, grid (CLUSTER, Hkv, B) with cluster dims
-// (CLUSTER, 1, 1), one cluster of CLUSTER = 8 CTAs (the portable size)
-// per (row, KV head).  16 (non-portable) was measured too: a cluster has
-// to fit in one GPC, which bounds how many 16-CTA clusters run at once,
-// and 16 was slower with Granite-8B's 32 (row, head) pairs at 4 rows, at
-// the headline shape (4,8,4,128,2048,2000) and at the generation path's
-// 160 keys; it was faster only at one row (PERF.md).
-// CTA r reads kv_len and takes the keys [r*Kc, min((r+1)*Kc, kv_len)),
-// Kc = ceil(kv_len / CLUSTER) rounded up to 16: the split follows
-// kv_len, not C, so at position 159 of a 2048-slot cache five CTAs take
+// Design (both entries): one launch, grid (CLUSTER, Hkv, B) with cluster
+// dims (CLUSTER, 1, 1), one cluster of CLUSTER = 8 CTAs (the portable
+// size) per (row, KV head).  16 (non-portable) was measured too, on the
+// contiguous entry: a cluster has to fit in one GPC, which bounds how
+// many 16-CTA clusters run at once, and 16 was slower with Granite-8B's
+// 32 (row, head) pairs at 4 rows, at the headline shape
+// (4,8,4,128,2048,2000) and at the generation path's 160 keys; it was
+// faster only at one row (PERF.md).
+// Each CTA reads its row's key range [kbase, kend) on the card and takes
+// the keys [kbase + r*Kc, min(kbase + (r+1)*Kc, kend)), Kc = ceil((kend -
+// kbase) / CLUSTER) rounded up to 16: the split follows the range, not C
+// or the table, so at position 159 of a 2048-slot cache five CTAs take
 // 32 keys each and three find nothing.  An empty CTA keeps m = -inf,
-// l = 0 and has a zero partial.
+// l = 0 and has a zero partial.  Contiguous: [0, kv_len).  Paged: kend =
+// positions[b] + 1 and, under a window, the first key kmin = max(0, kend
+// - window) and kbase = kmin rounded down to 16; keys in [kbase, kmin)
+// are masked like keys past kend.  An idle row (position 0, its table all
+// NULL_BLOCK) attends its one key, as the plain version does.
+// Paged rows: the 64-key tiles start on multiples of 16 keys, and a pool
+// block holds bs rows of hd contiguous per head ((NB,Hkv,bs,hd)), so when
+// bs % 16 == 0 each 16 keys are one table entry and one run of rows
+// (other block sizes: one entry per key).  Each CTA first turns the
+// entries of its keys into pool rows in shared memory (one table read
+// each, all in flight at once): a lookup at each ring fill would put a
+// dependent table read and a division in front of every copy.
 //   1. K and V rows go through a 2-slot ring of 64-key tiles with
 //      cp.async (16-byte pieces), in the order K tiles, then V tiles: a
 //      CTA with one tile issues its K and V at once, and V loads hide
@@ -77,17 +92,13 @@
 // The tensor cores matter here for issue slots, not for flops: with
 // CUDA-core FMAs every 8 FMAs of the logits need two shared-memory loads
 // of q, where one mma.sync instruction does 16 x 8 x 16 products.
-// Nothing but q, K, V, kv_len and out touches device memory, and every
-// sum has a fixed order: the same inputs give the same bits.  Rows of a
-// tile are hdp + 8 elements apart (hdp = hd rounded up to 16), an odd
-// number of 16-byte units, so each ldmatrix's 8 rows hit distinct banks;
-// the pad columns of q and of the ring are zeroed once.
-//
-// Paged entry: three launches over 128-key splits of the table's key
-// range (one block per split, KV head and row): logits and each split's
-// (m, l) into f32 scratch; P.V, each block merging the splits' (m, l);
-// the sum of the partials.  Splits wholly outside the valid range exit at
-// once.
+// Nothing but q, K, V, kv_len (positions and tables) and out touches
+// device memory: no scratch.  Every sum has a fixed order: the same
+// inputs give the same bits.  Rows of a tile are hdp + 8 elements apart
+// (hdp = hd rounded up to 16), an odd number of 16-byte units, so each
+// ldmatrix's 8 rows hit distinct banks; the pad columns of q and of the
+// ring are zeroed once.
+
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -98,15 +109,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int KEYS = 128;        // keys per split of the paged kernels
 constexpr int NTHREAD = 128;
 constexpr int MAX_G = 16;
-
-// ------------------------------------------------- contiguous: one cluster
 
 constexpr int CLUSTER = 8;       // CTAs per (row, KV head)
 constexpr int KT = 64;           // keys per ring tile
 constexpr int LOGITS_MAX_BYTES = 32768;
+constexpr int SMEM_MAX = 232448;  // shared memory a block may use (227 KB)
 constexpr int NWARP = NTHREAD / 32;
 constexpr int MAX_PAIRS = 4;     // 16-column output pairs per warp: hd <= 256
 constexpr int MAX_QV = MAX_G * 256 / 8 / NTHREAD;   // q's 16-byte pieces per thread
@@ -118,10 +127,11 @@ static_assert(KT == 64, "the online (m, l) update reads two logits per lane");
 // units, so the 8 rows of an ldmatrix hit distinct banks.
 struct ClusterSmem {
     int hdp, ld, ldp;        // hd rounded up to 16; K/V/Q row stride; P row stride
-    size_t slots, q, p, logits, mlbox, stat, part, total;
+    size_t slots, q, p, logits, mlbox, stat, part, blocks, total;
 };
 
-__host__ __device__ inline ClusterSmem cluster_smem(int hd, int g, int ldl) {
+// ntab: the most table entries a CTA keeps (0 for a contiguous cache).
+__host__ __device__ inline ClusterSmem cluster_smem(int hd, int g, int ldl, int ntab) {
     ClusterSmem m;
     m.hdp = (hd + 15) / 16 * 16;
     m.ld = m.hdp + 8;
@@ -133,19 +143,77 @@ __host__ __device__ inline ClusterSmem cluster_smem(int hd, int g, int ldl) {
     m.mlbox = m.logits + (size_t)g * ldl * 4;             // (m, l) of each rank
     m.stat = m.mlbox + (size_t)CLUSTER * MAX_G * 2 * 4;   // merged (M, L)
     m.part = m.stat + MAX_G * 2 * 4;                      // partial P.V, G x hd
-    m.total = m.part + (size_t)g * hd * 4;
+    m.blocks = m.part + (size_t)g * hd * 4;               // the CTA's table entries
+    m.total = m.blocks + (size_t)ntab * 4;
     return m;
 }
 
+// Where the K and V rows of (row b, KV head h) come from.  range(b) gives
+// the keys [kbase, kend) that the cluster splits (kbase a multiple of 16)
+// and kmin, the first key read: keys in [kbase, kmin) are masked (PAGED
+// only: a contiguous range starts at its first key).  fetch(b, h, hkv,
+// k0, nk, tab) has the CTA's threads copy what it needs to find the rows
+// of its keys [k0, k0 + nk) into tab (PAGED: the caller then waits for
+// it).  The K (V when val) row of key k0 + i is at start(val, b, h, hkv,
+// hd, k0) + row(i, tab) * hd.
+struct ContiguousRows {
+    static constexpr bool PAGED = false;
+    const bf16* k;
+    const bf16* v;
+    const int* kv_len;
+    int c;
+    __device__ __forceinline__ void range(int, int& kbase, int& kmin, int& kend) const {
+        kbase = kmin = 0;
+        kend = min(max(kv_len[0], 0), c);
+    }
+    __device__ __forceinline__ void fetch(int, int, int, int, int, int*) const {}
+    __device__ __forceinline__ const bf16* start(bool val, int b, int h, int hkv, int hd,
+                                                 int k0) const {
+        return (val ? v : k) + (((size_t)b * hkv + h) * c + k0) * hd;
+    }
+    __device__ __forceinline__ size_t row(int i, const int*) const { return i; }
+};
+
+// The pool row of the first key of each of the CTA's groups of 1 <<
+// gshift keys (16 when bs % 16 == 0, so that a group lies in one block,
+// else 1) goes to shared memory once, its table entry read by one thread
+// each, all in flight together: the ring's copies then wait on no table
+// read and do no division.
+struct PagedRows {
+    static constexpr bool PAGED = true;
+    const bf16* k;
+    const bf16* v;
+    const int* tables;
+    const int* positions;
+    int bs, mb, window, gshift;
+    __device__ __forceinline__ void range(int b, int& kbase, int& kmin, int& kend) const {
+        const int pos = positions[b];
+        kend = max(0, min(pos + 1, mb * bs));
+        kmin = window > 0 ? max(0, pos - window + 1) : 0;
+        kbase = kmin & ~15;
+    }
+    __device__ __forceinline__ void fetch(int b, int h, int hkv, int k0, int nk, int* tab) const {
+        for (int i = threadIdx.x; i < (nk + (1 << gshift) - 1) >> gshift; i += blockDim.x) {
+            const int kg = k0 + (i << gshift);
+            tab[i] = (tables[(size_t)b * mb + kg / bs] * hkv + h) * bs + kg % bs;
+        }
+    }
+    __device__ __forceinline__ const bf16* start(bool val, int, int, int, int, int) const {
+        return val ? v : k;
+    }
+    __device__ __forceinline__ size_t row(int i, const int* tab) const {
+        return (size_t)tab[i >> gshift] + (i & ((1 << gshift) - 1));
+    }
+};
+
+template <class Rows>
 __global__ void __launch_bounds__(NTHREAD)
-decode_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const int* __restrict__ kv_len,
-                      bf16* __restrict__ out, int g, int hd, int c, int ldl,
-                      int recompute, float scale) {
+decode_cluster_kernel(const bf16* __restrict__ q, const Rows rows, bf16* __restrict__ out,
+                      int g, int hd, int ldl, int ntab, int recompute, float scale) {
     cg::cluster_group cluster = cg::this_cluster();
     cluster_arrive();                    // this CTA has started (waited on below)
     extern __shared__ __align__(128) unsigned char smem[];
-    const ClusterSmem S = cluster_smem(hd, g, ldl);
+    const ClusterSmem S = cluster_smem(hd, g, ldl, ntab);
     bf16* slots = reinterpret_cast<bf16*>(smem + S.slots);
     bf16* qs = reinterpret_cast<bf16*>(smem + S.q);
     bf16* ps = reinterpret_cast<bf16*>(smem + S.p);
@@ -153,21 +221,26 @@ decode_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float* mlbox = reinterpret_cast<float*>(smem + S.mlbox);
     float* stat = reinterpret_cast<float*>(smem + S.stat);
     float* part = reinterpret_cast<float*>(smem + S.part);
+    int* tab = reinterpret_cast<int*>(smem + S.blocks);
     const int rank = static_cast<int>(cluster.block_rank());
     const int h = blockIdx.y, b = blockIdx.z, hkv = gridDim.y;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int gid = lane >> 2, tig = lane & 3;
     const int nc = hd / 8, ld = S.ld, hdp = S.hdp;
 
-    const int n = min(max(kv_len[0], 0), c);
+    int kbase, kmin, kend;
+    rows.range(b, kbase, kmin, kend);
+    const int n = max(kend - kbase, 0);
     const int kc = ((n + CLUSTER - 1) / CLUSTER + 15) / 16 * 16;
     const int lo = min(rank * kc, n);
     const int nk = min(lo + kc, n) - lo;
     const int nt = (nk + KT - 1) / KT;
     const int items = nt * (recompute ? 3 : 2);
     const size_t bh = (size_t)b * hkv + h;
-    const bf16* kb = k + (bh * c + lo) * hd;
-    const bf16* vb = v + (bh * c + lo) * hd;
+    const int k0 = kbase + lo;                     // this CTA's first key
+    // Keys of tile t (from k0 + t * KT) read: [first(t), valid(t)).
+    auto first = [&](int t) { return max(kmin - k0 - t * KT, 0); };
+    auto valid = [&](int t) { return nk - t * KT; };
 
     // Ring item j: K tiles 0..nt-1, then V tiles (K0 V0 K1 V1 ... when
     // the logits are recomputed).  Every call commits one group, empty
@@ -177,24 +250,24 @@ decode_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     auto is_v = [&](int j) { return j >= nt && (!recompute || ((j - nt) & 1)); };
     auto tile = [&](int j) { return j < nt ? j : recompute ? (j - nt) >> 1 : j - nt; };
     auto slot = [&](int j) { return slots + (j & 1) * KT * ld; };
+    const int r0 = warp * (32 / lpr) + lane / lpr;   // this thread's first row of a tile
     auto issue = [&](int j) {
-        if (j < items) {
-            const bf16* src = (is_v(j) ? vb : kb) + (size_t)tile(j) * KT * hd;
-            const int valid = nk - tile(j) * KT;
-            bf16* dst = slot(j);
-            const int c8 = lane % lpr;
-            for (int r = warp * (32 / lpr) + lane / lpr; r < KT; r += NTHREAD / lpr) {
-                const bool in = r < valid;
-                if (c8 < nc)
-                    cp_async16(dst + r * ld + c8 * 8, in ? src + (size_t)r * hd + c8 * 8 : src, in);
+        const int c8 = lane % lpr;
+        if (j < items && c8 < nc) {
+            const int t = tile(j), lo_in = first(t), hi_in = valid(t);
+            const bf16* src = rows.start(is_v(j), b, h, hkv, hd, k0) + c8 * 8;
+            bf16* dst = slot(j) + c8 * 8;
+            for (int r = r0; r < KT; r += NTHREAD / lpr) {
+                const bool in = r < hi_in && (!Rows::PAGED || r >= lo_in);
+                cp_async16(dst + r * ld, in ? src + rows.row(t * KT + r, tab) * hd : src, in);
             }
         }
         cp_async_commit();
     };
-    // s = q.k * scale for the tile's keys (-inf past `valid`) into dst
-    // (row stride ldl): warp w takes keys 16w..16w+15, two m16n8k16 per
-    // 16 columns of hd, the query rows as A.
-    auto logits = [&](const bf16* ks, float* dst, int valid) {
+    // s = q.k * scale for the tile's keys (-inf outside [lo_in, hi_in))
+    // into dst (row stride ldl): warp w takes keys 16w..16w+15, two
+    // m16n8k16 per 16 columns of hd, the query rows as A.
+    auto logits = [&](const bf16* ks, float* dst, int lo_in, int hi_in) {
         float s[2][4] = {};
         for (int kk = 0; kk < hdp / 16; ++kk) {
             uint32_t a[4], bk[4];
@@ -209,7 +282,8 @@ decode_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int row = gid + 8 * (e >> 1), key = warp * 16 + 8 * j + 2 * tig + (e & 1);
-                if (row < g) dst[row * ldl + key] = key < valid ? s[j][e] * scale : -INFINITY;
+                const bool in = key < hi_in && (!Rows::PAGED || key >= lo_in);
+                if (row < g) dst[row * ldl + key] = in ? s[j][e] * scale : -INFINITY;
             }
     };
     // The CTA's (m, l) per query row, updated online by one tile's logits.
@@ -243,11 +317,11 @@ decode_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             ps[gi * S.ldp + r] = __float2bfloat16(p);
         }
     };
-    // acc += P (16 x valid keys) . V: warp w takes the 16-column pairs w,
+    // acc += P (16 x nv keys) . V: warp w takes the 16-column pairs w,
     // w + NWARP, ... of hd.
     float acc[MAX_PAIRS][2][4] = {};
-    auto pv = [&](const bf16* vs, int valid) {
-        for (int kk = 0; kk < (valid + 15) / 16; ++kk) {
+    auto pv = [&](const bf16* vs, int nv) {
+        for (int kk = 0; kk < (nv + 15) / 16; ++kk) {
             uint32_t a[4];
             ldsm_x4(a, ps + (lane & 15) * S.ldp + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
@@ -273,6 +347,8 @@ decode_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < MAX_QV; ++i)
         if (tid + i * NTHREAD < g * nc) qv[i] = qb[tid + i * NTHREAD];
+    rows.fetch(b, h, hkv, k0, nk, tab);
+    if constexpr (Rows::PAGED) __syncthreads();
     issue(0);
     issue(1);
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
@@ -303,7 +379,7 @@ decode_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         cp_async_wait_prev();
         __syncthreads();
         float* dst = lg + (recompute ? 0 : j * KT);
-        logits(slot(j), dst, nk - j * KT);
+        logits(slot(j), dst, first(j), valid(j));
         __syncthreads();
         issue(j + 2);
         update(dst);
@@ -342,11 +418,11 @@ decode_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         cp_async_wait_prev();
         __syncthreads();
         if (is_v(j)) {
-            pv(slot(j), min(KT, nk - t * KT));
+            pv(slot(j), min(KT, valid(t)));
             __syncthreads();
             issue(j + 2);
         } else {
-            logits(slot(j), lg, nk - t * KT);
+            logits(slot(j), lg, first(t), valid(t));
             __syncthreads();
             issue(j + 2);
             probs(lg, 0);
@@ -385,16 +461,20 @@ decode_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cluster_wait();
 }
 
-int launch_cluster(const bf16* q, const bf16* k, const bf16* v, const int* kv_len,
-                   bf16* out, int b, int hkv, int g, int hd, int c, float scale,
-                   cudaStream_t stream) {
+// One cluster launch; c is the longest key range a row can have.
+template <class Rows>
+int launch_cluster(const bf16* q, const Rows& rows, bf16* out, int b, int hkv, int g, int hd,
+                   int c, float scale, cudaStream_t stream) {
     if (g > MAX_G || hd > MAX_PAIRS * NWARP * 16) return static_cast<int>(cudaErrorInvalidValue);
-    // The logits are kept when they fit for the longest range C allows.
+    // The logits are kept when they fit for the longest range c allows.
     const int kc_max = ((c + CLUSTER - 1) / CLUSTER + 15) / 16 * 16;
     const int tiles_max = (kc_max + KT - 1) / KT;
     const int recompute = (size_t)g * tiles_max * KT * 4 > LOGITS_MAX_BYTES;
     const int ldl = recompute ? KT : tiles_max * KT;
-    const size_t smem = cluster_smem(hd, g, ldl).total;
+    // A paged CTA's table: an entry for every group its tiles span.
+    int ntab = 0;
+    if constexpr (Rows::PAGED) ntab = tiles_max * KT >> rows.gshift;
+    const size_t smem = cluster_smem(hd, g, ldl, ntab).total;
 
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(CLUSTER, hkv, b);
@@ -409,280 +489,55 @@ int launch_cluster(const bf16* q, const bf16* k, const bf16* v, const int* kv_le
     cfg.attrs = attr;
     cfg.numAttrs = 1;
 
-    // Once per device: allow the largest shared memory (and a cluster
-    // past the portable 8); once per device and larger shared memory than
-    // checked so far (checked[0]): make sure one cluster fits on the card.
+    // Once per device: allow the most shared memory a block may have (and
+    // a cluster past the portable 8); once per device and larger shared
+    // memory than checked so far (checked[0]): make sure one cluster fits
+    // on the card.
     static PerDevice<1> checked_of;
     int* checked = nullptr;
     if (const int err = checked_of.get(checked, [](int, int* v) {
             cudaError_t e = cudaSuccess;
             if (CLUSTER > 8)
-                e = cudaFuncSetAttribute(decode_cluster_kernel,
+                e = cudaFuncSetAttribute(decode_cluster_kernel<Rows>,
                                          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
             if (e == cudaSuccess)
-                e = cudaFuncSetAttribute(
-                    decode_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                    static_cast<int>(
-                        cluster_smem(256, MAX_G, LOGITS_MAX_BYTES / 4 / MAX_G).total));
+                e = cudaFuncSetAttribute(decode_cluster_kernel<Rows>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_MAX);
             v[0] = 0;
             return e;
         }))
         return err;
+    if (smem > static_cast<size_t>(SMEM_MAX)) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSuccess;
     if (smem > static_cast<size_t>(checked[0])) {
         int clusters = 0;
-        err = cudaOccupancyMaxActiveClusters(&clusters, decode_cluster_kernel, &cfg);
+        err = cudaOccupancyMaxActiveClusters(&clusters, decode_cluster_kernel<Rows>, &cfg);
         if (err != cudaSuccess) return static_cast<int>(err);
         if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
         checked[0] = static_cast<int>(smem);
     }
-    err = cudaLaunchKernelEx(&cfg, decode_cluster_kernel, q, k, v, kv_len, out, g, hd, c,
-                             ldl, recompute, scale);
+    err = cudaLaunchKernelEx(&cfg, decode_cluster_kernel<Rows>, q, rows, out, g, hd, ldl, ntab,
+                             recompute, scale);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------------ paged: three passes
-
-// Shared memory of passes 1 and 2: one bf16 K or V tile (row stride hd + 8,
-// a 16-byte multiple that spreads the banks) and G x KEYS f32 scores.
-struct Smem {
-    int ld;
-    size_t kv, s, q, total;
-};
-
-__host__ __device__ inline Smem smem_layout(int hd, int g) {
-    Smem m;
-    m.ld = hd + 8;
-    m.kv = 0;
-    m.s = m.kv + (size_t)KEYS * m.ld * 2;
-    m.q = m.s + (size_t)g * KEYS * 4;
-    m.total = m.q + (size_t)g * hd * 4;
-    return m;
-}
-
-struct Split {
-    int k0, pos, kmin;
-    __device__ bool empty() const { return k0 > pos || k0 + KEYS <= kmin; }
-    __device__ bool valid(int kp, int limit) const {
-        return kp <= pos && kp >= kmin && kp < limit;
-    }
-};
-
-// positions[b] is row b's last valid index.
-__device__ __forceinline__ Split split_of(const int* __restrict__ positions, int b,
-                                          int split, int window) {
-    Split s;
-    s.k0 = split * KEYS;
-    s.pos = positions[b];
-    s.kmin = window > 0 ? max(0, s.pos - window + 1) : 0;
-    return s;
-}
-
-// Rows [k0, k0 + KEYS) of head h through row b's table into dst, zero
-// where invalid.
-__device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ pool,
-                                      const int* __restrict__ table, const Split& sp,
-                                      int h, int hkv, int hd, int bs, int mb, int ld) {
-    const int vec = hd / 8;
-    for (int i = threadIdx.x; i < KEYS * vec; i += NTHREAD) {
-        const int r = i / vec, c8 = i - r * vec;
-        const int kp = sp.k0 + r;
-        const bool in = sp.valid(kp, mb * bs);
-        size_t off = 0;
-        if (in) {
-            const size_t blk = (size_t)table[kp / bs];
-            off = ((blk * hkv + h) * bs + kp % bs) * hd + c8 * 8;
-        }
-        cp_async16(dst + r * ld + c8 * 8, pool + off, in);
-    }
-    cp_async_commit();
-}
-
-__global__ void __launch_bounds__(NTHREAD)
-decode_logits_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
-                     const int* __restrict__ tables, const int* __restrict__ positions,
-                     float* __restrict__ logits, float* __restrict__ part_ml, int hkv,
-                     int g, int hd, int bs, int mb, int nsplit, float scale, int window) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const Smem L = smem_layout(hd, g);
-    bf16* ks = reinterpret_cast<bf16*>(smem + L.kv);
-    float* qs = reinterpret_cast<float*>(smem + L.q);
-    float* sc = reinterpret_cast<float*>(smem + L.s);
-    const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const Split sp = split_of(positions, b, split, window);
-    const size_t bh = (size_t)b * hkv + h;
-    float* ml = part_ml + (bh * nsplit + split) * g * 2;
-    if (sp.empty()) {
-        for (int gi = tid; gi < g; gi += NTHREAD) {
-            ml[2 * gi] = -INFINITY;
-            ml[2 * gi + 1] = 0.0f;
-        }
-        return;
-    }
-    stage(ks, kpool, tables + (size_t)b * mb, sp, h, hkv, hd, bs, mb, L.ld);
-    const bf16* qb = q + bh * g * hd;
-    for (int i = tid; i < g * hd; i += NTHREAD) qs[i] = __bfloat162float(qb[i]);
-    cp_async_wait_all();
-    __syncthreads();
-
-    {   // thread r owns key r for every query row of the group
-        const int r = tid;
-        const bool in = sp.valid(sp.k0 + r, mb * bs);
-        float* out = logits + bh * g * nsplit * KEYS + (size_t)split * KEYS + r;
-        for (int gi = 0; gi < g; ++gi) {
-            const float* qrow = qs + gi * hd;
-            float dot = 0.0f;
-            for (int c8 = 0; c8 < hd / 8; ++c8) {
-                const uint4 raw = *reinterpret_cast<const uint4*>(ks + r * L.ld + c8 * 8);
-                const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-                for (int j = 0; j < 8; ++j)
-                    dot = fmaf(qrow[c8 * 8 + j], __bfloat162float(e[j]), dot);
-            }
-            const float s = in ? dot * scale : -INFINITY;
-            sc[gi * KEYS + r] = s;
-            out[(size_t)gi * nsplit * KEYS] = s;
-        }
-    }
-    __syncthreads();
-    for (int gi = warp; gi < g; gi += NTHREAD / 32) {    // one warp per row
-        const float* srow = sc + gi * KEYS;
-        float mx = -INFINITY;
-        for (int r = lane; r < KEYS; r += 32) mx = fmaxf(mx, srow[r]);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        float sum = 0.0f;
-        for (int r = lane; r < KEYS; r += 32)
-            sum += srow[r] == -INFINITY ? 0.0f : expf(srow[r] - mx);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        if (lane == 0) {
-            ml[2 * gi] = mx;
-            ml[2 * gi + 1] = sum;
-        }
-    }
-}
-
-__global__ void __launch_bounds__(NTHREAD)
-decode_pv_kernel(const bf16* __restrict__ vpool, const int* __restrict__ tables,
-                 const int* __restrict__ positions, const float* __restrict__ logits,
-                 const float* __restrict__ part_ml, float* __restrict__ part_acc, int hkv,
-                 int g, int hd, int bs, int mb, int nsplit, int window) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const Smem L = smem_layout(hd, g);
-    bf16* vs = reinterpret_cast<bf16*>(smem + L.kv);
-    float* ps = reinterpret_cast<float*>(smem + L.s);
-    float* stat = reinterpret_cast<float*>(smem + L.q);   // (M, L) per query row
-    const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int tid = threadIdx.x;
-    const Split sp = split_of(positions, b, split, window);
-    if (sp.empty()) return;
-    const size_t bh = (size_t)b * hkv + h;
-    stage(vs, vpool, tables + (size_t)b * mb, sp, h, hkv, hd, bs, mb, L.ld);
-
-    // The row's softmax max M and sum L from the splits' (m_s, l_s).
-    const float* ml = part_ml + bh * nsplit * g * 2;
-    for (int gi = tid; gi < g; gi += NTHREAD) {
-        float m = -INFINITY;
-        for (int s = 0; s < nsplit; ++s)
-            if (ml[(s * g + gi) * 2 + 1] > 0.0f) m = fmaxf(m, ml[(s * g + gi) * 2]);
-        float l = 0.0f;
-        for (int s = 0; s < nsplit; ++s) {
-            const float ls = ml[(s * g + gi) * 2 + 1];
-            if (ls > 0.0f) l += ls * expf(ml[(s * g + gi) * 2] - m);
-        }
-        stat[2 * gi] = m;
-        stat[2 * gi + 1] = l;
-    }
-    __syncthreads();
-    const float* lrow = logits + bh * g * nsplit * KEYS + (size_t)split * KEYS;
-    for (int i = tid; i < g * KEYS; i += NTHREAD) {
-        const int gi = i / KEYS, r = i - gi * KEYS;
-        const float s = lrow[(size_t)gi * nsplit * KEYS + r];
-        const float p = s == -INFINITY ? 0.0f
-                                       : __fdiv_rn(expf(s - stat[2 * gi]), stat[2 * gi + 1]);
-        ps[i] = __bfloat162float(__float2bfloat16(p));
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    float* acc = part_acc + (bh * nsplit + split) * g * hd;
-    for (int o = tid; o < g * hd; o += NTHREAD) {       // output element (gi, d)
-        const int gi = o / hd, d = o - gi * hd;
-        const float* prow = ps + gi * KEYS;
-        float a = 0.0f;
-#pragma unroll 8
-        for (int r = 0; r < KEYS; ++r) a = fmaf(prow[r], __bfloat162float(vs[r * L.ld + d]), a);
-        acc[o] = a;
-    }
-}
-
-__global__ void __launch_bounds__(NTHREAD)
-decode_sum_kernel(const float* __restrict__ part_acc, const int* __restrict__ positions,
-                  bf16* __restrict__ out, int hkv, int g, int hd, int nsplit, int window) {
-    const int bh = blockIdx.x, b = bh / hkv;
-    const float* acc = part_acc + (size_t)bh * nsplit * g * hd;
-    for (int o = threadIdx.x; o < g * hd; o += NTHREAD) {
-        float a = 0.0f;
-        for (int s = 0; s < nsplit; ++s)
-            if (!split_of(positions, b, s, window).empty()) a += acc[(size_t)s * g * hd + o];
-        out[(size_t)bh * g * hd + o] = __float2bfloat16(a);
-    }
-}
-
-// The three launches on one stream.
-int launch_paged(const void* q, const void* k, const void* v, const void* tables,
-                 const void* positions, void* logits, void* part_ml, void* part_acc,
-                 void* out, int b, int hkv, int g, int hd, int bs, int mb, float scale,
-                 int window, void* stream) {
-    if (g > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int nsplit = (mb * bs + KEYS - 1) / KEYS;
-    const size_t smem = smem_layout(hd, g).total;
-    const void* staged[] = {reinterpret_cast<const void*>(decode_logits_kernel),
-                            reinterpret_cast<const void*>(decode_pv_kernel)};
-    for (const void* fn : staged) {
-        cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const dim3 grid(nsplit, hkv, b);
-    decode_logits_kernel<<<grid, NTHREAD, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const int*>(tables), static_cast<const int*>(positions),
-        static_cast<float*>(logits), static_cast<float*>(part_ml), hkv, g, hd, bs, mb,
-        nsplit, scale, window);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    decode_pv_kernel<<<grid, NTHREAD, smem, st>>>(
-        static_cast<const bf16*>(v), static_cast<const int*>(tables),
-        static_cast<const int*>(positions), static_cast<const float*>(logits),
-        static_cast<const float*>(part_ml), static_cast<float*>(part_acc), hkv, g, hd, bs,
-        mb, nsplit, window);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    decode_sum_kernel<<<b * hkv, NTHREAD, 0, st>>>(
-        static_cast<const float*>(part_acc), static_cast<const int*>(positions),
-        static_cast<bf16*>(out), hkv, g, hd, nsplit, window);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B,Hkv,G,hd), pools (NB,Hkv,bs,hd), out (B,Hkv,G,hd): bf16,
-// contiguous, 16-byte aligned; tables (B,MB) and positions (B,) int32.
-// f32 scratch with nsplit = ceil(MB*bs / 128): logits (B,Hkv,G,nsplit*128),
-// part_ml (B,Hkv,nsplit,G,2), part_acc (B,Hkv,nsplit,G,hd).
-// hd % 8 == 0, hd <= 256, G <= 16.  window <= 0 means no window.
+// contiguous, 16-byte aligned; tables (B,MB) and positions (B,) int32 on
+// the card.  hd % 8 == 0, hd <= 256, G <= 16.  window <= 0 means no
+// window.  No scratch: one cluster launch.
 extern "C" int flash_decode_paged_bf16(const void* q, const void* k_pool, const void* v_pool,
-                                       const void* tables, const void* positions,
-                                       void* logits, void* part_ml, void* part_acc, void* out,
+                                       const void* tables, const void* positions, void* out,
                                        int b, int hkv, int g, int hd, int bs, int mb,
                                        float scale, int window, void* stream) {
-    return launch_paged(q, k_pool, v_pool, tables, positions, logits, part_ml, part_acc, out,
-                        b, hkv, g, hd, bs, mb, scale, window, stream);
+    const PagedRows rows{static_cast<const bf16*>(k_pool), static_cast<const bf16*>(v_pool),
+                         static_cast<const int*>(tables), static_cast<const int*>(positions),
+                         bs, mb, window, bs % 16 == 0 ? 4 : 0};
+    return launch_cluster(static_cast<const bf16*>(q), rows, static_cast<bf16*>(out), b, hkv, g,
+                          hd, mb * bs, scale, static_cast<cudaStream_t>(stream));
 }
 
 // q (B,Hkv,G,hd), k/v (B,Hkv,C,hd), out (B,Hkv,G,hd): bf16, contiguous,
@@ -691,8 +546,8 @@ extern "C" int flash_decode_paged_bf16(const void* q, const void* k_pool, const 
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* kv_len, void* out, int b, int hkv, int g,
                                  int hd, int c, float scale, void* stream) {
-    return launch_cluster(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                          static_cast<const bf16*>(v), static_cast<const int*>(kv_len),
-                          static_cast<bf16*>(out), b, hkv, g, hd, c, scale,
-                          static_cast<cudaStream_t>(stream));
+    const ContiguousRows rows{static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                              static_cast<const int*>(kv_len), c};
+    return launch_cluster(static_cast<const bf16*>(q), rows, static_cast<bf16*>(out), b, hkv, g,
+                          hd, c, scale, static_cast<cudaStream_t>(stream));
 }

@@ -57,74 +57,23 @@
 // Edges: rows >= N, blocks past K/32 and tokens >= M are never read; their
 // codes and scales are zero, so their A and B values are 0.
 //
-// Tile path (M > M_GEMV, q4_matmul_kernel): the q8_matmul skeleton of
-// common.cuh with a nibble unpack in the weight loader: each 64x32 weight
-// slice is unpacked in registers into shared memory and fed to the tensor
-// cores through WMMA (bf16 16x16x16, f32 accumulate).  BK = 32 is one
-// Q4_0 block, so one scale covers a thread's 16 weights (8 bytes).
+// Tile path (M > M_GEMV, the Pallas kernel's large-M calls: the UNet's
+// linears under q4_0, make_prefill's): common.cuh's tile_kernel, the
+// warp-specialised wgmma kernel of q8_matmul.cu and q3k_matmul.cu, with
+// the Q4Tile format below.  Q4_0 keeps its scales as Q8_0 does (fp16, one
+// per 32 weights), so the ring slot's scale words and the CTA rule are
+// Q8_0's; a row's K step is 32 code bytes where Q8_0 has 64, so four ring
+// slots fit at 256 x 128 (three under Q8_0).
 #include "common.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int BK = 32;           // one Q4_0 block per K step (tile path)
 constexpr int M_GEMV = 16;       // decode path for M <= M_GEMV
 constexpr int GEMV_ROWS = 16;    // weight rows per CTA: the m16 of the mma
 constexpr int GEMV_WARPS = 8;    // most warps per CTA
 constexpr int GEMV_UNROLL = 2;   // K steps of loads issued before their math
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-q4_matmul_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
-                 const __half* __restrict__ wd, float* __restrict__ y,
-                 int M, int N, int K) {
-    __shared__ __align__(128) bf16 xs[GEMM_BM * BK];
-    __shared__ __align__(128) bf16 ws[GEMM_BN * BK];
-    __shared__ __align__(128) float cs[GEMM_BM * GEMM_BN];
-
-    const int n0 = blockIdx.x * GEMM_BN;
-    const int m0 = blockIdx.y * GEMM_BM;
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1, wn = warp & 1;
-    const int nblk = K / BK;
-    const size_t row_bytes = (size_t)K / 2;
-
-    FragC acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    // Weight loader: thread t unpacks the 16 weights [wh*16, wh*16+16) of
-    // the block in row n = t/2, i.e. the 8 bytes [wh*8, wh*8+8).
-    const int wn_row = threadIdx.x >> 1;
-    const int wh = threadIdx.x & 1;
-    const int gn = n0 + wn_row;
-
-    for (int kb = 0; kb < nblk; ++kb) {
-        const int k0 = kb * BK;
-        load_x_tile<BK>(x, xs, M, K, m0, k0);
-        bf16* dst = ws + wn_row * BK + wh * 16;
-        if (gn < N) {
-            const uint2 raw = *reinterpret_cast<const uint2*>(
-                qs + (size_t)gn * row_bytes + kb * (BK / 2) + wh * 8);
-            const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
-            const float s = __half2float(wd[(size_t)gn * nblk + kb]);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-                dst[2 * e] = __float2bfloat16((float)((int)(b[e] & 0x0F) - 8) * s);
-                dst[2 * e + 1] = __float2bfloat16((float)((int)(b[e] >> 4) - 8) * s);
-            }
-        } else {
-#pragma unroll
-            for (int e = 0; e < 16; ++e) dst[e] = __float2bfloat16(0.0f);
-        }
-        __syncthreads();
-        mma_tile<BK>(xs, ws, acc, wm, wn);
-        __syncthreads();
-    }
-    store_tile(acc, cs, y, M, N, m0, n0, wm, wn);
-}
 
 // Word w of a block's codes holds its elements 8i..8i+7, element e in
 // bits 4e..4e+3.  r[j] gets elements j and j + 4 as a bf16 pair, each
@@ -245,10 +194,98 @@ q4_gemv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
     gemv_store(acc, red, y, M, N, n0);
 }
 
+// Tile path (M > M_GEMV): common.cuh's tile_kernel on this format.  A
+// ring slot holds the K step's 32 code bytes of each of the BN rows (two
+// 16-byte copies) and the step's scale words (common.cuh's TileScales).
+// A unit is 16 weights of one row (8 code bytes, block j / 2 of the
+// step), written as two swizzled 16-byte chunks in natural K order, as
+// wgmma pairs them with x.  Byte p of a code word holds elements 2p (low
+// nibble) and 2p + 1 (high nibble): one byte permute of the word and the
+// word shifted by 4 puts them at bits 0 and 16, and the decode path's
+// bf16x2 route makes the pair: 0x4300 | q is the bf16 128 + q, minus 136
+// gives q - 8 exactly, and fma.rn(q - 8, dh, (q - 8) * dl) with d = dh +
+// dl rounds the exact (q - 8) * d once.  Here dh is d cut to bf16 toward
+// zero and dl = d - dh carries d's sign (at most 3 significant bits,
+// exact in bf16, so (q - 8) * dl is exact): for q = 8 both terms are
+// zeros of d's sign, so even a zero weight has the reference's bits
+// (bf16((q - 8) * d) = -0 for d < 0).  About 2.6 instructions per weight.
+// Blocks past K / 32 and rows past N load as zero bytes: scale 0, weight
+// -8 * 0 = 0.
+struct Q4Tile {
+    const uint8_t* qs;
+    const __half* wd;
+    __host__ __device__ static constexpr int raw_bytes(int BN) { return BN * (TILE_BK / 2 + 8); }
+    __host__ __device__ static constexpr int extra_bytes(int) { return 0; }
+
+    template <int BN, int NP>
+    struct Producer {
+        static constexpr int RB = TILE_BK / 2;              // code bytes of a row per step
+        static constexpr int CODES = (BN * 2 + NP - 1) / NP;  // 16-byte code copies
+        static constexpr int UNITS = BN * 4 / NP;
+        const uint8_t* qs;      // source of zero-filled copies
+        const uint8_t* code;    // half t % 2 of row t / 2, K step 0
+        TileScales<BN, NP> sc;
+        int n0, N, K, t;
+
+        __device__ __forceinline__ Producer(const Q4Tile& fmt, int n0_, int N_, int K_, int t_,
+                                            unsigned char*)
+            : qs(fmt.qs), sc(fmt.wd, n0_, N_, K_, t_), n0(n0_), N(N_), K(K_), t(t_) {
+            code = qs + (size_t)(n0 + (t >> 1)) * (K / 2) + 16 * (t & 1);
+        }
+
+        __device__ __forceinline__ void load(unsigned char* raw, int k) const {
+            const int b0 = k * RB;
+            const bool kin = b0 + 16 * (t & 1) < K / 2;
+#pragma unroll
+            for (int it = 0; it < CODES; ++it) {
+                const int i = t + NP * it;                   // row i / 2, half i % 2
+                if (i < BN * 2) {
+                    const bool in = kin && n0 + (i >> 1) < N;
+                    cp_async16(raw + RB * (i >> 1) + 16 * (t & 1),
+                               in ? code + (size_t)(NP / 2) * (K / 2) * it + b0 : qs, in);
+                }
+            }
+            sc.load(raw + BN * RB, k);
+        }
+
+        __device__ __forceinline__ void unpack(const unsigned char* raw, bf16* wt, int) const {
+            const __nv_bfloat162 bias = __float2bfloat162_rn(136.0f);
+#pragma unroll
+            for (int u = 0; u < UNITS; ++u) {
+                const int i = t + NP * u, r = i >> 2, j = i & 3;
+                const uint2 q = *reinterpret_cast<const uint2*>(raw + RB * r + 8 * j);
+                const float d = sc.get(raw + BN * RB, u);
+                const float dhf = __uint_as_float(__float_as_uint(d) & 0xFFFF0000u);
+                const float dlf = copysignf(__fsub_rn(d, dhf), d);
+                const __nv_bfloat162 dh = __bfloat162bfloat162(__float2bfloat16_rn(dhf));
+                const __nv_bfloat162 dl = __bfloat162bfloat162(__float2bfloat16_rn(dlf));
+                uint32_t v[8];
+#pragma unroll
+                for (int w = 0; w < 2; ++w) {               // elements 8w .. 8w + 7
+                    const uint32_t lo = w ? q.y : q.x, hi = lo >> 4;
+#pragma unroll
+                    for (int p = 0; p < 4; ++p) {           // elements 8w + 2p, + 1
+                        const uint32_t bits =
+                            (__byte_perm(lo, hi, p | (4 + p) << 8) & 0x000F000Fu) | 0x43004300u;
+                        const __nv_bfloat162 qm =
+                            __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&bits), bias);
+                        const __nv_bfloat162 e = __hfma2(qm, dh, __hmul2(qm, dl));
+                        v[4 * w + p] = *reinterpret_cast<const uint32_t*>(&e);
+                    }
+                }
+                *reinterpret_cast<uint4*>(wt + tile_swz(r, 2 * j)) =
+                    make_uint4(v[0], v[1], v[2], v[3]);
+                *reinterpret_cast<uint4*>(wt + tile_swz(r, 2 * j + 1)) =
+                    make_uint4(v[4], v[5], v[6], v[7]);
+            }
+        }
+    };
+};
+
 }  // namespace
 
 // x: (M,K) bf16, qs: (N,K/2) uint8, wd: (N,K/32) fp16, y: (M,N) f32.
-// K % 32 == 0; x and qs 16-byte aligned (the wrapper checks both).
+// K % 32 == 0; x, qs and wd 16-byte aligned (the wrapper makes them so).
 extern "C" int q4_matmul_bf16(const void* x, const void* qs, const void* wd, void* y,
                               int M, int N, int K, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -264,9 +301,7 @@ extern "C" int q4_matmul_bf16(const void* x, const void* qs, const void* wd, voi
             q4_gemv_kernel<1><<<grid, threads, 0, st>>>(xb, q, d, out, M, N, K);
         else
             q4_gemv_kernel<2><<<grid, threads, 0, st>>>(xb, q, d, out, M, N, K);
-    } else {
-        dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-        q4_matmul_kernel<<<grid, GEMM_THREADS, 0, st>>>(xb, q, d, out, M, N, K);
+        return static_cast<int>(cudaGetLastError());
     }
-    return static_cast<int>(cudaGetLastError());
+    return tile_launch(xb, Q4Tile{q, d}, out, M, N, K, st);
 }

@@ -156,13 +156,11 @@ q8_gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
 
 // Tile path (M > M_GEMV): common.cuh's tile_kernel on this format.  A
 // ring slot holds the K step's 64 code bytes of each of the BN rows (four
-// 16-byte copies) and, per row and Q8_0 block, the aligned 4-byte word
-// that holds its fp16 scale (the wrapper aligns wd to 16 bytes; the
-// scale is the half that the element index's parity names).  When K / 32
-// is even, one word holds both of a step's scales of a row: one copy.  A unit is
-// 16 weights of one row (chunks 2j and 2j + 1, block j / 2), unpacked by
-// q8_unpack_word's exact f32 route into two 16-byte stores.  Blocks past
-// K / 32 and rows past N load as zero bytes: scale 0, weight 0.
+// 16-byte copies) and the step's scale words (common.cuh's TileScales).
+// A unit is 16 weights of one row (chunks 2j and 2j + 1, block j / 2),
+// unpacked by q8_unpack_word's exact f32 route into two 16-byte stores.
+// Blocks past K / 32 and rows past N load as zero bytes: scale 0, weight
+// 0.
 struct Q8Tile {
     const int8_t* wq;
     const __half* wd;
@@ -174,28 +172,15 @@ struct Q8Tile {
         static constexpr int CODES = BN * 4 / NP;   // 16-byte code copies
         static constexpr int UNITS = BN * 4 / NP;
         static constexpr int ROWS = NP / 4;         // rows per pass
-        static constexpr int SCALES = (BN * 2 + NP - 1) / NP;   // scale-word copies
-        const int8_t* wq;       // the format's arrays (sources of zero-filled copies)
-        const __half* wd;
+        const int8_t* wq;       // source of zero-filled copies
         const int8_t* code;     // chunk t % 4 of row t / 4, K step 0
-        size_t e0;              // scale element of (row t / 2, block t % 2), K step 0;
-                                // + NP / 2 rows per further copy
-        size_t ev;              // even K / 32: scale element of (row t, block 0)
-        int n0, N, K, nblk, t;
-        uint32_t par;           // bit u: parity of unit u's scale element
+        TileScales<BN, NP> sc;
+        int n0, N, K, t;
 
         __device__ __forceinline__ Producer(const Q8Tile& fmt, int n0_, int N_, int K_, int t_,
                                             unsigned char*)
-            : wq(fmt.wq), wd(fmt.wd), n0(n0_), N(N_), K(K_), nblk(K_ / 32), t(t_) {
+            : wq(fmt.wq), sc(fmt.wd, n0_, N_, K_, t_), n0(n0_), N(N_), K(K_), t(t_) {
             code = wq + (size_t)(n0 + (t >> 2)) * K + 16 * (t & 3);
-            e0 = (size_t)(n0 + (t >> 1)) * nblk + (t & 1);
-            ev = (size_t)(n0 + t) * nblk;
-            par = 0;
-#pragma unroll
-            for (int u = 0; u < UNITS; ++u) {
-                const int i = t + NP * u;
-                par |= (uint32_t)((((size_t)(n0 + (i >> 2)) * nblk + ((i & 3) >> 1)) & 1) << u);
-            }
         }
 
         __device__ __forceinline__ void load(unsigned char* raw, int k) const {
@@ -208,26 +193,7 @@ struct Q8Tile {
                 cp_async16(raw + TILE_BK * r + 16 * (t & 3),
                            in ? code + (size_t)ROWS * K * it + k0 : wq, in);
             }
-            if ((nblk & 1) == 0) {                  // one word holds a row's two scales
-#pragma unroll
-                for (int it = 0; it < (BN + NP - 1) / NP; ++it) {
-                    const int i = t + NP * it;
-                    const bool in = i < BN && n0 + i < N && 2 * k < nblk;
-                    if (i < BN)
-                        cp_async4(raw + BN * TILE_BK + 8 * i,
-                                  in ? wd + ev + (size_t)NP * nblk * it + 2 * k : wd, in);
-                }
-                return;
-            }
-#pragma unroll
-            for (int it = 0; it < SCALES; ++it) {
-                const int i = t + NP * it;           // row i / 2, block 2k + i % 2
-                if (i < BN * 2) {
-                    const bool in = n0 + (i >> 1) < N && 2 * k + (i & 1) < nblk;
-                    const size_t e = e0 + (size_t)(NP / 2) * nblk * it + 2 * k;
-                    cp_async4(raw + BN * TILE_BK + 4 * i, in ? wd + (e & ~(size_t)1) : wd, in);
-                }
-            }
+            sc.load(raw + BN * TILE_BK, k);
         }
 
         __device__ __forceinline__ void unpack(const unsigned char* raw, bf16* wt, int) const {
@@ -235,11 +201,7 @@ struct Q8Tile {
             for (int u = 0; u < UNITS; ++u) {
                 const int i = t + NP * u, r = i >> 2, j = i & 3;
                 const uint4 q = *reinterpret_cast<const uint4*>(raw + TILE_BK * r + 16 * j);
-                const int wsel = nblk & 1 ? j >> 1 : 0;  // (even K / 32: one word, half j / 2)
-                const uint32_t dw =
-                    *reinterpret_cast<const uint32_t*>(raw + BN * TILE_BK + 8 * r + 4 * wsel);
-                const float d = __half2float(__ushort_as_half(
-                    static_cast<unsigned short>((par >> u) & 1 ? dw >> 16 : dw & 0xFFFFu)));
+                const float d = sc.get(raw + BN * TILE_BK, u);
                 uint32_t v[8];
 #pragma unroll
                 for (int w = 0; w < 4; ++w) {

@@ -32,11 +32,10 @@ from repro_torch.kernels import build
 
 launches = 0              # flash_decode_paged launches since the last reset
 launches_contiguous = 0   # flash_decode launches since the last reset
-KEYS_PER_SPLIT = 128  # keys per block of the paged split pass (csrc KEYS)
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16
 
-_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _ARGS_CONTIGUOUS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_void_p]
@@ -70,17 +69,6 @@ def _check_operands(name, q, k, v):
     if d % 8 or d > MAX_HEAD_DIM or g > MAX_GROUP:
         raise ValueError(f"{name}: head dim {d} must be a multiple of 8 and "
                          f"<= {MAX_HEAD_DIM}; group {g} <= {MAX_GROUP}")
-
-
-def _scratch(q, nkeys):
-    """The paged kernels' f32 logits, split (max, sum) and partial P.V
-    for ``nkeys`` keys."""
-    b, h, g, d = q.shape
-    nsplit = -(-nkeys // KEYS_PER_SPLIT)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    return (torch.empty((b, h, g, nsplit * KEYS_PER_SPLIT), **f32),
-            torch.empty((b, h, nsplit, g, 2), **f32),
-            torch.empty((b, h, nsplit, g, d), **f32))
 
 
 def flash_decode_ref(q, k, v, kv_len, *, scale=None):
@@ -139,7 +127,9 @@ def flash_decode_paged_ref(q, k_pool, v_pool, block_tables, positions, *,
 
 def flash_decode_paged(q, k_pool, v_pool, block_tables, positions, *,
                        scale=None, window=None) -> torch.Tensor:
-    """Kernel of :func:`flash_decode_paged_ref` for bf16 pools."""
+    """Kernel of :func:`flash_decode_paged_ref` for bf16 pools; the
+    tables and positions stay on the card.  One cluster launch that
+    allocates nothing but ``out``."""
     global launches
     _check_operands("flash_decode_paged", q, k_pool, v_pool)
     b, h, g, d = q.shape
@@ -154,13 +144,11 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, positions, *,
     q, k_pool, v_pool = (build.aligned16(x) for x in (q, k_pool, v_pool))
     tables = block_tables.contiguous()
     positions = positions.contiguous()
-    logits, part_ml, part_acc = _scratch(q, mb * bs)
     out = torch.empty_like(q)
     scale = d ** -0.5 if scale is None else scale
     build.launch("flash_decode", "flash_decode_paged_bf16", _ARGS, q.device,
                  q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 tables.data_ptr(), positions.data_ptr(), logits.data_ptr(),
-                 part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, h,
+                 tables.data_ptr(), positions.data_ptr(), out.data_ptr(), b, h,
                  g, d, bs, mb, float(scale),
                  -1 if window is None else int(window))
     launches += 1

@@ -34,7 +34,7 @@ def q4_matmul(x: torch.Tensor, qs: torch.Tensor, d: torch.Tensor) -> torch.Tenso
                          f"expected float16{(n, kdim // QK8_0)}")
     x = build.aligned16(x.to(torch.bfloat16))
     qs = build.aligned16(qs)
-    d = d.contiguous()
+    d = build.aligned16(d)        # the tile path copies aligned scale words
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y

@@ -1,15 +1,15 @@
-"""CPU emulation of the Q8_0 and Q3_K matmuls' tile paths (M > 16).
+"""CPU emulation of the quantized matmuls' tile paths (M > 16).
 
 ``csrc/common.cuh``'s ``tile_kernel`` with ``csrc/q8_matmul.cu``'s
-``Q8Tile`` and ``csrc/q3k_matmul.cu``'s ``Q3KTile`` runs only on the card.
-Its arithmetic is pinned here:
+``Q8Tile``, ``csrc/q3k_matmul.cu``'s ``Q3KTile`` and ``csrc/q4_matmul.cu``'s
+``Q4Tile`` runs only on the card.  Its arithmetic is pinned here:
 
 * the weight unpacks, emulated bit by bit in numpy from the bytes the
-  kernel copies (Q8_0's codes and aligned scale words; Q3_K's ql and qh
-  with its super-block's scale group and aligned d word, in bf16x2 pairs
-  of neighbouring elements), over every finite fp16 scale, every 6-bit
-  code and every code value, against the port's and the reference's
-  dequantized bf16;
+  kernel copies (Q8_0's and Q4_0's codes and aligned scale words; Q3_K's
+  ql and qh with its super-block's scale group and aligned d word, in
+  bf16x2 pairs of neighbouring elements), over every finite fp16 scale,
+  every 6-bit code and every code value, against the port's and the
+  reference's dequantized bf16;
 * the sums: the host's CTA rule, each CTA's 64-weight K steps and their
   four k16 products in order, rows past M and N and K past the end
   zero-filled as cp.async fills them, stores masked; held to the port's
@@ -141,6 +141,33 @@ def q8_tile_route(qs: np.ndarray, d: np.ndarray) -> np.ndarray:
     return out.reshape(n, k)
 
 
+def q4_tile_route(qs: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """bf16 bits (N, K) that Q4Tile::unpack writes: per code word lo and hi
+    = lo >> 4, pair p (elements 2p, 2p + 1 of the word) the byte permute of
+    lo's byte p and hi's byte p to bits 0 and 16, masked 0x000F000F, under
+    0x4300 and minus 136 in bf16; d from its aligned word, dh = d cut to
+    bf16 toward zero, dl = d - dh with d's sign; fma.rn(q, dh, q * dl)."""
+    n, kh = qs.shape
+    nblk = kh // 16
+    e = np.arange(n)[:, None] * nblk + np.arange(nblk)[None, :]
+    d32 = np.repeat(_half(_scale_words(d), e), 4, axis=1)             # per word
+    dh = (d32.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    dl = np.copysign(d32 - dh, d32)                                    # exact in f32
+    dhb, dlb = _f(_bf16(dh)), _f(_bf16(dl))
+    assert np.array_equal(dhb, dh) and np.array_equal(dlb, dl)         # exact in bf16
+    lo = np.ascontiguousarray(qs).view(np.uint32)
+    hi = lo >> np.uint32(4)
+    out = np.empty((n, kh // 4, 8), np.uint16)
+    for p in range(4):
+        sh = np.uint32(8 * p)
+        perm = ((lo >> sh) & np.uint32(0xFF)) | (((hi >> sh) & np.uint32(0xFF)) << np.uint32(16))
+        bits = (perm & np.uint32(0x000F000F)) | np.uint32(0x43004300)
+        for h in range(2):
+            q = _f(_bf16(_f((bits >> np.uint32(16 * h)) & np.uint32(0xFFFF)) - 136.0))
+            out[:, :, 2 * p + h] = _bf16(q * dhb + _f(_bf16(q * dlb)))
+    return out.reshape(n, 2 * kh)
+
+
 def _pair(bits, c, eh, el) -> list[np.ndarray]:
     """Q3KTile::pair per half: q = bits - c, bf16(q * eh + bf16(q * el))."""
     out = []
@@ -233,6 +260,28 @@ def test_q8_tile_unpack_is_exact_for_every_scale():
     assert checked == len(D16) * 288
 
 
+def test_q4_tile_unpack_is_exact_for_every_scale():
+    """Every finite fp16 d x every code 0..15 at both nibbles of a byte,
+    with the scale taken from the aligned word by parity (an odd block
+    count, 9, puts a row's scales in both halves and words across rows)
+    and d's sign flipped on odd blocks: bf16((q - 8) * d) bit for bit,
+    signed zeros included."""
+    checked = 0
+    codes = torch.arange(16, dtype=torch.uint8)
+    row = torch.cat([codes, codes.flip(0)]).repeat(9)                  # 9 blocks, each code twice
+    for d in np.split(D16, 4):
+        qs = tq.pack_q4(row.repeat(len(d), 1)).numpy()
+        ds = np.repeat(d[:, None], 9, axis=1)
+        ds[:, 1::2] = -ds[:, 1::2]
+        got = q4_tile_route(qs, ds)
+        want = tq.dequantize_q4_0(tq.Q4_0Tensor(torch.from_numpy(qs), torch.from_numpy(ds)),
+                                  torch.bfloat16)
+        jwant = jq.dequantize_q4_0(jq.Q4_0Tensor(jnp.asarray(qs), jnp.asarray(ds)), jnp.bfloat16)
+        _assert_same(got, _bits(want), exact=True)
+        checked += _assert_same(got, _bits(jwant), exact=True)
+    assert checked == len(D16) * 288
+
+
 def test_q3k_tile_unpack_is_exact_for_every_scale():
     """Every finite fp16 d x every 6-bit code x every q in [-4, 3] at every
     position of a ql byte and a chunk: bf16(q * d * (sc - 32)) bit for bit
@@ -298,6 +347,22 @@ def emulate_q8(x: torch.Tensor, w: tq.Q8_0Tensor, sms: int = NUM_SMS) -> torch.T
     return _tile_sums(x, _f(bits), m, n, sms)
 
 
+def emulate_q4(x: torch.Tensor, w: tq.Q4_0Tensor, sms: int = NUM_SMS) -> torch.Tensor:
+    """What the Q4_0 tile path computes for x (M, K stored) bf16: codes
+    past K / 32 are zero bytes with scale 0 (weight -8 * 0)."""
+    m, kdim = x.shape
+    n = w.qs.shape[0]
+    nsteps = -(-kdim // BK)
+    qs = np.zeros((n, nsteps * BK // 2), np.uint8)
+    qs[:, :kdim // 2] = w.qs.numpy()
+    d = np.zeros((n, nsteps * 2), np.float16)
+    d[:, :kdim // 32] = w.d.numpy()
+    bits = q4_tile_route(qs, d)
+    assert np.array_equal(bits[:, :kdim], q4_tile_route(w.qs.numpy(), w.d.numpy()))
+    assert not (_f(bits[:, kdim:]) != 0).any()
+    return _tile_sums(x, _f(bits), m, n, sms)
+
+
 def emulate_q3k(x: torch.Tensor, w: tq.Q3KTensor, sms: int = NUM_SMS) -> torch.Tensor:
     """What the Q3_K tile path computes for x (M, K) bf16."""
     m = x.shape[0]
@@ -357,6 +422,20 @@ def test_q8_tile_path_matches_references(m, n, k, sms):
     got = emulate_q8(F.pad(x, (0, tw.qs.shape[1] - k)), tw, sms)
     _check(got, [tref.q8_matmul_ref(x, tw),
                  jref.q8_matmul_ref(jnp.asarray(x.float().numpy(), jnp.bfloat16), jw)])
+
+
+@pytest.mark.parametrize("m,n,k,sms", Q8_CASES)
+def test_q4_tile_path_matches_references(m, n, k, sms):
+    """Q8_0's cases: each tile of the CTA rule, ragged M and N, K = 96 (a
+    half last step), K = 100 (a tail-padded weight, x zero-padded to the
+    stored K as ``ops`` does), K = 1152 (18 steps)."""
+    w = _weights(n, k, m * 1000 + n + k + 1)
+    x = _x(m, k)
+    tw = tq.quantize_q4_0(torch.from_numpy(w))
+    jw = jq.quantize_q4_0(jnp.asarray(w))
+    got = emulate_q4(F.pad(x, (0, tw.qs.shape[1] * 2 - k)), tw, sms)
+    _check(got, [tref.q4_matmul_ref(x, tw),
+                 jref.q4_matmul_ref(jnp.asarray(x.float().numpy(), jnp.bfloat16), jw)])
 
 
 @pytest.mark.parametrize("m,n,k,sms", Q3K_CASES)
@@ -518,8 +597,8 @@ def test_cta_rule_at_the_chunk_and_sd_shapes():
     for (m, n), (tile, ctas) in {**CHUNK_CTAS, **SD_CTAS}.items():
         bm, bn = cta_tile(m, n)[:2]
         assert ((bm, bn), math.ceil(m / bm) * math.ceil(n / bn)) == (tile, ctas), (m, n)
-    for shapes in (chip_smoke.Q8_SHAPES, chip_smoke.Q3K_SHAPES):    # held on the card
-        assert {(m, n) for m, n, _ in shapes if m in (200, 256)} >= set(CHUNK_CTAS)
+    for shapes in (chip_smoke.Q8_SHAPES, chip_smoke.Q3K_SHAPES, chip_smoke.Q4_SHAPES):
+        assert {(m, n) for m, n, _ in shapes if m in (200, 256)} >= set(CHUNK_CTAS)   # on the card
 
 
 def test_sources_match_the_emulation():
@@ -541,9 +620,12 @@ def test_sources_match_the_emulation():
         [(least, t[:2], r) for least, t, r in zip(MIN_M, TILES, RATES)]
     runs = re.findall(r"tile_run<Fmt, (T\w+)>\(x", text)
     assert [tuple(map(int, tiles[r].split(", "))) for r in runs] == TILES
-    for src in ("q8_matmul.cu", "q3k_matmul.cu"):
+    for src in ("q8_matmul.cu", "q3k_matmul.cu", "q4_matmul.cu"):
         assert "return tile_launch(" in (CSRC / src).read_text()
         assert _constants(CSRC / src)["M_GEMV"] == 16
+    # Q8_0 and Q4_0 take their scale words through one loader.
+    for src in ("q8_matmul.cu", "q4_matmul.cu"):
+        assert "TileScales<BN, NP> sc;" in (CSRC / src).read_text()
 
 
 def _bytes(src: str, fn: str, bn: int) -> int:
@@ -554,11 +636,13 @@ def _bytes(src: str, fn: str, bn: int) -> int:
 
 
 @pytest.mark.parametrize("src,raw128,extra128", [("q8_matmul.cu", 128 * 72, 0),
-                                                 ("q3k_matmul.cu", 128 * 24, 2 * 128 * 16)])
+                                                 ("q3k_matmul.cu", 128 * 24, 2 * 128 * 16),
+                                                 ("q4_matmul.cu", 128 * 40, 0)])
 def test_shared_memory_fits_every_instantiation(src, raw128, extra128):
     """Per slot: x (BM x 64 bf16), the bf16 weight tile and the format's raw
-    bytes (Q8_0: 64 code bytes and two scale words per row; Q3_K: 16 ql and
-    8 qh bytes per row), rounded up to 1024 bytes; past the ring Q3_K's two
+    bytes (Q8_0: 64 code bytes and two scale words per row; Q4_0: 32 code
+    bytes and two scale words; Q3_K: 16 ql and 8 qh bytes per row), rounded
+    up to 1024 bytes; past the ring Q3_K's two
     scale buffers (12 scale bytes and the d word per row); four slots where
     they fit in 227 KB, else three, and the named barriers FULL, EMPTY and
     PROD in 16."""
@@ -568,7 +652,7 @@ def test_shared_memory_fits_every_instantiation(src, raw128, extra128):
         slot, stages, ahead = ring(bm, bn, _bytes(src, "raw_bytes", bn), extra)
         assert stages * slot + extra <= SMEM_MAX and ahead >= 1 and 2 + 2 * stages <= 16
         assert np_ % 128 == 0 and bm * 8 % np_ == 0 and bn * 4 % np_ == 0
-    # The 256 x 128 tile takes three slots under Q8_0, four under Q3_K.
+    # The 256 x 128 tile takes three slots under Q8_0, four under Q3_K and Q4_0.
     assert ring(256, 128, raw128, extra128)[1] == (3 if src == "q8_matmul.cu" else 4)
 
 
@@ -578,5 +662,13 @@ def test_tile_kernel_is_filed_as_ported():
     assert names == ["tile_kernel"]
     assert chip_smoke._kind("void repro::tile_kernel<Q8Tile, repro::Tile<Q8Tile, 256, 128, 256, "
                             "176> >") == "ported kernels"
-    for src in ("q8_matmul.cu", "q3k_matmul.cu"):
+    for src in ("q8_matmul.cu", "q3k_matmul.cu", "q4_matmul.cu"):
         assert "wmma::" not in (CSRC / src).read_text()
+
+
+def test_no_wmma_left_in_csrc():
+    """Every tile path is on tile_kernel: no WMMA code or header remains
+    (the name may stay in comments that tell the history)."""
+    for src in sorted(CSRC.iterdir()):
+        text = src.read_text()
+        assert "wmma" not in text and "<mma.h>" not in text, src.name

@@ -21,7 +21,8 @@ Granite-8B chunk (Hkv 8, G 4, hd 128, bs 16) through
 paths, and the tile paths' shapes above (M = 32, Granite-8B's 256-token
 chunk linears, SD-Turbo's), where each case is also timed over copies of
 its weight, each call on the next, that together pass the L2 cache at the
-LM shapes (``cold device ms``).  It needs one card.
+LM shapes (``cold device ms``).  ``--kinds`` limits a run to some of
+these kernels (``q4_matmul,flash_decode_paged``).  It needs one card.
 """
 from __future__ import annotations
 
@@ -38,11 +39,14 @@ ROOT = Path(__file__).resolve().parents[1]
 FLASH_DECODE = [(4, 8, 4, 128, 2048, 2000), (4, 8, 4, 128, 2048, 160),
                 (1, 8, 4, 128, 2048, 2000), (4, 8, 4, 128, 4096, 4000)]
 DECODE_MN = [(m, n, k) for m in (1, 4, 8, 16) for n, k in ((14336, 4096), (4096, 14336))]
-Q4 = DECODE_MN + [(32, 14336, 4096), (256, 14336, 4096), (4096, 320, 320),
-                  (154, 768, 768), (4096, 2560, 320)]
 # Granite-8B's 256-token chunk linears (and a ragged last chunk) after
-# gate/up, on the tile paths of Q8_0 and Q3_K.
+# gate/up, on the tile paths.
 CHUNK = [(256, 4096, 14336), (256, 4096, 4096), (256, 1024, 4096), (200, 4096, 4096)]
+# Granite-8B's generation prefill (make_prefill of 4 prompts of 128
+# tokens), on q4_matmul's tile path under q4_0.
+GEN_PREFILL = [(512, 14336, 4096), (512, 4096, 14336), (512, 4096, 4096), (512, 1024, 4096)]
+Q4 = DECODE_MN + [(32, 14336, 4096), (256, 14336, 4096), (4096, 320, 320),
+                  (154, 768, 768), (4096, 2560, 320)] + GEN_PREFILL + CHUNK
 Q8 = DECODE_MN + [(4, 4096, 4096), (4, 1024, 4096), (4, 49152, 4096), (32, 14336, 4096),
                   (32, 4096, 14336), (256, 14336, 4096), (4096, 320, 320),
                   (154, 768, 768), (4096, 2560, 320)] + CHUNK
@@ -102,7 +106,7 @@ def _with_constants(src_root: Path, sets: list[str]) -> Path:
     return dst
 
 
-def child(src_root: Path, sets: list[str]) -> None:
+def child(src_root: Path, sets: list[str], kinds: set[str] | None) -> None:
     sys.path.insert(0, str(src_root / "src"))
     import torch
 
@@ -115,8 +119,13 @@ def child(src_root: Path, sets: list[str]) -> None:
     from repro_torch.kernels import q8_matmul as q8
     if sets:
         build.CSRC = _with_constants(src_root, sets)
-    build.build_all(("flash_decode", "flash_prefill", "q4_matmul", "q8_matmul",
-                     "q3k_matmul"))
+
+    def wanted(kind):
+        return kinds is None or kind in kinds
+    libs = {"flash_decode": "flash_decode", "flash_decode_paged": "flash_decode",
+            "flash_prefill_paged": "flash_prefill", "flash_prefill_paged_q8": "flash_prefill",
+            "q4_matmul": "q4_matmul", "q8_matmul": "q8_matmul", "q3k_matmul": "q3k_matmul"}
+    build.build_all(tuple({lib for kind, lib in libs.items() if wanted(kind)}))
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
 
@@ -129,12 +138,12 @@ def child(src_root: Path, sets: list[str]) -> None:
         rows.append({"kind": kind, "case": list(case), "ms": _cuda_ms(fn),
                      "device_ms": _device_ms(fn)})
 
-    for case in FLASH_DECODE:
+    for case in FLASH_DECODE if wanted("flash_decode") else []:
         b, hkv, g, hd, c, n = case
         q, k, v = bf16(b, hkv, g, hd), bf16(b, hkv, c, hd), bf16(b, hkv, c, hd)
         kv = torch.tensor([n], dtype=torch.int32, device="cuda")
         record("flash_decode", case, lambda: fd.flash_decode(q, k, v, kv))
-    for positions in PAGED:
+    for positions in PAGED if wanted("flash_decode_paged") else []:
         b, mb = len(positions), 132
         tables = (torch.randperm(b * mb, generator=gen, device="cuda") + 1).to(
             torch.int32).reshape(b, mb)
@@ -144,7 +153,8 @@ def child(src_root: Path, sets: list[str]) -> None:
         record("flash_decode_paged", positions,
                lambda: fd.flash_decode_paged(q, kpool, vpool, tables, pos))
     for on_q8 in (False, True):
-        for t, pos0 in PREFILL:
+        fn = fp.flash_prefill_paged_q8 if on_q8 else fp.flash_prefill_paged
+        for t, pos0 in PREFILL if wanted(fn.__name__) else []:
             mb, nb = 128, 168
             table = (torch.randperm(nb - 1, generator=gen, device="cuda")[:mb] + 1).to(
                 torch.int32)
@@ -153,7 +163,6 @@ def child(src_root: Path, sets: list[str]) -> None:
             if on_q8:
                 pq = [quant.quantize_q8_0(x.float()) for x in pools]
                 pools = [pq[0].qs, pq[1].qs, pq[0].d, pq[1].d]
-            fn = fp.flash_prefill_paged_q8 if on_q8 else fp.flash_prefill_paged
             record(fn.__name__, (t, pos0), lambda: fn(q, kn, vn, *pools, table, pos0))
     # Each matmul case also runs over copies of its weight (up to 64, as far
     # as 100 MB: past the 50 MB L2 for the LM shapes), each call on the next
@@ -163,7 +172,7 @@ def child(src_root: Path, sets: list[str]) -> None:
             ("q8_matmul", Q8, quant.quantize_q8_0, lambda x, w: q8.q8_matmul(x, w.qs, w.d)),
             ("q3k_matmul", Q3K, quant.quantize_q3_k,
              lambda x, w: q3k.q3k_matmul(x, w.ql, w.qh, w.scales, w.d))):
-        for m, n, kdim in cases:
+        for m, n, kdim in cases if wanted(kind) else []:
             x = bf16(m, kdim)
             ws = [quantize(torch.randn((n, kdim), generator=gen, device="cuda"))]
             while len(ws) * ws[0].nbytes() < 100e6 and len(ws) < 64:
@@ -180,16 +189,21 @@ def main() -> int:
     ap.add_argument("--base", type=Path, help="checkout of side A")
     ap.add_argument("--set", dest="sets", action="append", default=[],
                     metavar="FILE:NAME=VALUE", help="side A: this checkout, constant set")
+    ap.add_argument("--kinds", help="comma-separated kernels to time (default: all)")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    kinds = set(args.kinds.split(",")) if args.kinds else None
     if args.child:
-        child(args.child, args.sets)
+        child(args.child, args.sets, kinds)
         return 0
     if (args.base is None) == (not args.sets):
         ap.error("give --base DIR or --set FILE:NAME=VALUE")
     side_a = [sys.executable, __file__, "--child", str((args.base or ROOT).resolve())]
     side_a += [arg for s in args.sets for arg in ("--set", s)]
     side_b = [sys.executable, __file__, "--child", str(ROOT)]
+    if args.kinds:
+        side_a += ["--kinds", args.kinds]
+        side_b += ["--kinds", args.kinds]
     runs = []
     for label, cmd in (("A", side_a), ("B", side_b), ("B", side_b), ("A", side_a)):
         run = subprocess.run(cmd, capture_output=True, text=True)
