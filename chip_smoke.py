@@ -36,11 +36,17 @@ caught and passed over):
              logged, and at the timed prefill shapes a second yardstick:
              SDPA on K/V already gathered to contiguous bf16 (GQA,
              lower-right causal); device times beside the event times.
+             The verify cases (5 rows at depth 1029 and 2011, both pools)
+             first write a chunk 3 rows longer at the same position, whose
+             stale tail the verify must mask.
 4. tiny    — TINY_SD with the same seeded weights and noise on the CPU
-             (plain versions) and on the card (kernels); images must agree.
+             (plain versions) and on the card (kernels); images must agree,
+             on the fused path and on the segmented preview path (euler,
+             3 steps), whose images have the fused path's bits on each device.
              tiny_lm: reduced(granite-8b) served by ``ContinuousBatcher`` on
-             the CPU and on the card (bf16 and Q8_0 KV, prefix sharing):
-             identical tokens, exact launch counts.
+             the CPU and on the card (bf16 and Q8_0 KV, prefix sharing), and
+             with speculation (draft = target, k = 4): identical tokens,
+             exact launch counts.
              tiny_gen: ``greedy_generate`` of reduced(granite-8b) (bf16 KV,
              Q8_0 KV, q4_0 weights) and of reduced(h2o-danube-3-4b) past its
              ring buffer's wrap, on the CPU and on the card: identical
@@ -53,7 +59,12 @@ caught and passed over):
              torch.profiler breakdown of one UNet step and one VAE pass;
              the UNet's attention per eval (each UNet shape's kernel time
              times its launches per eval) beside the profiler's
-             ``flash_attention_kernel`` total in that step.
+             ``flash_attention_kernel`` total in that step.  Then the
+             segmented preview path: euler 4 steps, batch 2, decoded
+             previews every 2 steps, one request cancelled after step 1;
+             the survivor's image has the fused run's bits, exact events
+             and launches, each step's synchronised time, one denoise
+             step's device time and a decoded preview's VAE time.
 6. full_lm — Granite-8B at full width (36 layers, d 4096, GQA 32/8, hd
              128) with seeded synthetic weights made on the card, served by
              ``ContinuousBatcher(slots=4, block_size=16, prefill_chunk=256)``:
@@ -65,7 +76,15 @@ caught and passed over):
              exact launch counts, ms per 256-token prefill chunk and per
              4-slot decode quantum, tokens/s, peak memory; the first run's
              tokens against ``lm_forward`` on the card, and in every run a
-             profile of one decode quantum and one prefill chunk.
+             profile of one decode quantum and one prefill chunk.  Then two
+             runs with speculation (k = 4, the same 6 requests): draft =
+             target on a bf16 pool, and a draft of the target's first 4
+             layers with both under q8_0 weights, the target on a Q8_0
+             pool.  Per run: tokens against ``lm_forward`` above
+             GEN_TIE_MARGIN, events, both runtimes consistent, exact
+             target and draft launches, acceptance, a synchronised spec
+             quantum, and a profile of one verify launch (5 rows at depth)
+             and one draft step.
 7. full_gen — the same Granite-8B through the reference's generation loop
              ``greedy_generate(max_len=2048)`` on a contiguous bf16 cache:
              4 prompts of 128 tokens, 32 new tokens (159 decode steps),
@@ -90,6 +109,7 @@ shape's times and bound), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -172,9 +192,17 @@ LM_CHUNK_SHAPES = [(256, 4096, 14336), (256, 4096, 4096), (256, 1024, 4096),
 # down, q and o, k and v), on q4_matmul's tile path under q4_0.
 GEN_PREFILL_SHAPES = [(512, 14336, 4096), (512, 4096, 14336), (512, 4096, 4096),
                       (512, 1024, 4096)]
+SPEC_K = 4                     # draft tokens proposed per slot and round
+# A speculative verify runs the q8_0 target's linears and its Q8_0 head
+# at M = SPEC_K + 1 rows (the decode path): gate and up, down, q and o,
+# k and v, the head.
+VERIFY_MATMUL = [(SPEC_K + 1, n, k) for n, k in
+                 ((14336, 4096), (4096, 14336), (4096, 4096), (1024, 4096),
+                  (49152, 4096))]
 Q8_SHAPES = [(4096, 320, 320), (154, 768, 768), (4096, 2560, 320),
              (1, 768, 3072)] + LM_MATMUL_SHAPES + LM_DECODE_SHAPES + [
-             (4, 49152, 4096)] + LM_CHUNK_SHAPES  # the LM head, Q8_0 under q8_0 and q3_k
+             (4, 49152, 4096)  # the LM head, Q8_0 under q8_0 and q3_k
+             ] + LM_CHUNK_SHAPES + VERIFY_MATMUL
 Q8_EDGE = [(3, 70, 96), (3, 70, 100),            # K = 100: tail-padded weight
            (9, 70, 96), (16, 70, 100),           # decode path, two token groups
            (17, 70, 96), (129, 100, 100),        # tile path: a half K step; tail-padded
@@ -218,6 +246,13 @@ PREFILL_EDGE = [
     (8, 1792, 128, None, True),    # full_lm's 1800-token prompt's last chunk: 8-CTA clusters
     (16, 2000, 128, None, False),  # a short chunk at depth: 8-CTA clusters
 ]
+# Verification chunks of speculative decoding (k + 1 = 5 rows at depth).
+# An earlier chunk, VERIFY_STALE rows longer, is written at the same pos0
+# first: its tail past pos0 + T stays in the pool, stale, and the attend
+# launch must mask it by position.
+VERIFY_EDGE = [(5, 1029, 128, None, True), (5, 2011, 128, None, False)]
+VERIFY_STALE = 3
+PREFILL_EDGE += VERIFY_EDGE
 # Decode: (positions, MB, window, poison).  In the last edge case row 3 is
 # an idle row (position 0, its table all NULL_BLOCK).
 DECODE_SHAPES = [((2000, 1990, 2011, 1500), 132, None, False)]
@@ -649,7 +684,8 @@ def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
     t, pos0, mb, window, poison = case
     hkv, g, hd, bs = PAGED_HKV, PAGED_G, PAGED_HD, PAGED_BS
     nb = mb + 40
-    used = -(-(pos0 + t) // bs)
+    stale = VERIFY_STALE if case in VERIFY_EDGE else 0
+    used = -(-(pos0 + t + stale) // bs)
     table = (torch.randperm(nb - 1, generator=gen, device="cuda")[:mb] + 1).to(torch.int32)
     table[used:] = 0                                   # NULL_BLOCK padding
     q = torch.randn((t, hkv, g, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -666,6 +702,18 @@ def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
     plain_fn = fp.flash_prefill_paged_q8_ref if q8 else fp.flash_prefill_paged_ref
     kp = [p.clone() for p in pools]
     pp = [p.clone() for p in pools]
+    name = "flash_prefill_paged" + ("_q8" if q8 else "")
+    if stale:
+        # The earlier, longer chunk: the verify below rewrites its first T
+        # rows and leaves the last VERIFY_STALE in the pool.
+        qs, ks, vs = (torch.randn((t + stale, hkv) + x.shape[2:], generator=gen,
+                                  device="cuda").to(torch.bfloat16) for x in (q, kn, vn))
+        kern_fn(qs, ks, vs, *kp, table, pos0, window=window)
+        plain_fn(qs, ks, vs, *pp, table, pos0, window=window)
+        torch.cuda.synchronize()
+        if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(kp, pp)):
+            raise AssertionError(f"{name} {case}: the stale chunk's pools differ "
+                                 "from the plain version's")
 
     def kern():
         return kern_fn(q, kn, vn, *kp, table, pos0, window=window)
@@ -675,7 +723,6 @@ def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
     out, want = kern()[0], plain()[0]
     again = kern()[0]
     torch.cuda.synchronize()
-    name = "flash_prefill_paged" + ("_q8" if q8 else "")
     err = _check_attn(name, case, out, want)
     if not torch.equal(_bits(out), _bits(again)):
         raise AssertionError(f"{name} {case}: two calls gave different bits")
@@ -805,8 +852,8 @@ def phase_paged_kernels() -> dict[str, list[dict]]:
     for q8 in (False, True):
         name = "flash_prefill_paged" + ("_q8" if q8 else "")
         for case in PREFILL_SHAPES + PREFILL_EDGE:
-            rows[name].append(_prefill_case(q8, case, gen,
-                                            timed=case in PREFILL_SHAPES))
+            rows[name].append(_prefill_case(q8, case, gen, timed=case in PREFILL_SHAPES
+                                            or case == VERIFY_EDGE[1]))
     for case in DECODE_SHAPES + DECODE_EDGE:
         rows["flash_decode_paged"].append(
             _decode_case(case, gen, timed=case in DECODE_SHAPES))
@@ -869,6 +916,41 @@ def phase_tiny() -> None:
             if not (corr > TINY_CORR and dmax <= TINY_MAXABS):
                 raise AssertionError(f"tiny {preset} rid {rid}: CPU and CUDA "
                                      f"images disagree (corr {corr}, max {dmax})")
+    _tiny_segmented(params, tokens)
+
+
+def _tiny_segmented(params, tokens) -> None:
+    """The segmented preview path (euler, 3 steps, previews every 2) on the
+    CPU and on the card: images within TINY_CORR / TINY_MAXABS of each
+    other, and on each device the same bits as the fused path's."""
+    from repro_torch.configs import TINY_SD
+    from repro_torch.core.tree import to_device
+    from repro_torch.engine import DiffusionEngine, GenerateRequest
+    seg = {}
+    for dev in ("cpu", "cuda"):
+        imgs = {}
+        for every in (0, 2):
+            eng = DiffusionEngine(to_device(params, dev), TINY_SD, device=dev,
+                                  max_batch=2)
+            reqs = [GenerateRequest(rid=i, tokens=tokens[i], seed=10 + i,
+                                    sampler="euler", steps=3, preview_every=every)
+                    for i in range(2)]
+            imgs[every] = _images(eng, reqs)
+        for rid in imgs[0]:
+            if not torch.equal(imgs[0][rid], imgs[2][rid]):
+                raise AssertionError(f"tiny segmented {dev} rid {rid}: not the "
+                                     "fused path's bits")
+        seg[dev] = imgs[2]
+    for rid in seg["cpu"]:
+        a = seg["cpu"][rid].float().flatten()
+        b = seg["cuda"][rid].float().cpu().flatten()
+        corr = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+        dmax = (a - b).abs().max().item()
+        log(f"[tiny] segmented rid {rid}: corr {corr:.6f} max|d| {dmax:.3e}; "
+            "the fused path's bits on both devices")
+        if not (corr > TINY_CORR and dmax <= TINY_MAXABS):
+            raise AssertionError(f"tiny segmented rid {rid}: CPU and CUDA images "
+                                 f"disagree (corr {corr}, max {dmax})")
 
 
 OURS = ("flash_attention_kernel", "tile_kernel", "q8_gemv_kernel",
@@ -1034,9 +1116,93 @@ def phase_full(attn_rows: list[dict]) -> dict[str, int]:
             + " (batch 2)")
         del eng, imgs
         torch.cuda.empty_cache()
+        if preset == "none":
+            for name, c in _full_preview(base, vocab, gen, times).items():
+                totals[name] += c
     return totals
 
-# ----------------------------------------------------------- LM serving
+
+PREVIEW_STEPS, PREVIEW_EVERY = 4, 2      # euler; one request cancelled after step 1
+
+
+def _full_preview(base, vocab: int, gen, fused_times: dict) -> dict:
+    """SD-Turbo 512x512 on the segmented path: euler, 4 steps, batch 2,
+    decoded previews every 2 steps, rid 1 cancelled after its first step.
+    The survivor's image has the bits of a fused run of the same two
+    requests; the events and the launches are exactly as worked out; each
+    step is timed (synchronised) and one denoise step profiled, beside the
+    fused path's ``unet_step_ms``."""
+    from repro_torch.configs import SD_TURBO
+    from repro_torch.engine import DiffusionEngine, GenerateRequest
+    from repro_torch.kernels import ops
+    tokens = [torch.randint(0, vocab, (SD_TURBO.text_len,), generator=gen,
+                            device="cuda").tolist() for _ in range(2)]
+
+    def reqs(every):
+        return [GenerateRequest(rid=i, tokens=tokens[i], seed=200 + i, sampler="euler",
+                                steps=PREVIEW_STEPS, preview_every=every,
+                                preview_decode=bool(every)) for i in range(2)]
+    fused = DiffusionEngine(base, SD_TURBO, device="cuda", max_batch=2)
+    want = _images(fused, reqs(0))
+    eng = DiffusionEngine(base, SD_TURBO, device="cuda", max_batch=2)
+    for r in reqs(PREVIEW_EVERY):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    walls = []
+    while eng.has_work():
+        s0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - s0))
+        if len(walls) == 1:
+            if not eng.cancel(1):
+                raise AssertionError("preview: rid 1 could not be cancelled")
+            st = eng._inflight
+            probe = (st["ctx"], st["ctx_u"], st["g"], st["x"],
+                     {k: v[1] for k, v in st["plan"].items()}, st["step_fn"],
+                     st["decode_fn"])
+    counts = ops.launch_counts()
+    expect = {name: 0 for name in ops.KERNEL_MODULES}
+    # One CLIP pass (12 attention launches) and 4 UNet evals (32 each).
+    expect["flash_attention"] = 12 + PREVIEW_STEPS * 32
+    if counts != expect:
+        raise AssertionError(f"preview: launches {counts}, expected {expect}")
+    got = [(type(e).__name__, e.rid, getattr(e, "step", None), getattr(e, "decoded", None))
+           for e in eng.bus.log]
+    steps = range(1, PREVIEW_STEPS + 1)
+    events = ([("Admitted", 0, None, None), ("Admitted", 1, None, None),
+               ("Progress", 0, 1, None), ("Progress", 1, 1, None), ("Cancelled", 1, None, None)]
+              + [e for i in steps[1:] for e in [("Progress", 0, i, None)]
+                 + ([("PreviewLatent", 0, i, True)] if i % PREVIEW_EVERY == 0 else [])]
+              + [("Finished", 0, None, None)])
+    if got != events:
+        raise AssertionError(f"preview: events {got}, expected {events}")
+    for e in eng.bus.log:
+        if type(e).__name__ == "PreviewLatent" and (
+                tuple(e.latent.shape) != (512, 512, 3) or not torch.isfinite(e.latent.float()).all()):
+            raise AssertionError(f"preview step {e.step}: a bad decoded preview")
+    (res,) = eng.finished
+    if not torch.equal(res.image, want[0]):
+        raise AssertionError("preview: the survivor's image is not the fused run's bits")
+    ctx, ctx_u, g, x, step, step_fn, decode_fn = probe
+    with torch.no_grad():
+        prof = _profile("preview denoise step", lambda: step_fn(eng.params, ctx, ctx_u, g, x, step))
+        vae_ms = cuda_ms(lambda: decode_fn(eng.params, x), iters=3, warmup=1)
+        vae_dev = device_ms(lambda: decode_fn(eng.params, x), iters=2)
+    step_dev = sum(ms for ms, _ in prof.values()) if prof else float("nan")
+    log(f"[full] preview: euler {PREVIEW_STEPS} steps, batch 2, decoded previews every "
+        f"{PREVIEW_EVERY}, rid 1 cancelled after step 1; synchronised ms per step "
+        + ", ".join(f"{w:.2f}" for w in walls)
+        + f" (step 1: CLIP + UNet; 2: UNet + preview VAE; 3: UNet; 4: UNet + one VAE "
+        f"pass for the last preview and the image); one denoise step {step_dev:.2f} ms of device time, the "
+        f"fused path's unet_step_ms {fused_times['unet_step_ms']:.2f}; a decoded "
+        f"preview's VAE {vae_ms:.2f} ms ({vae_dev:.2f} ms of device time); launches "
+        f"{counts}; the survivor has the fused run's bits")
+    del eng, fused, want, probe
+    torch.cuda.empty_cache()
+    return counts
+
 
 LM_LAYERS = 36                 # Granite-8B
 LM_PROMPTS = (2000, 1536, 1024, 1800, 1700, 1280)
@@ -1086,23 +1252,46 @@ def _check_events(label: str, cb, n: int) -> None:
         raise AssertionError(f"{label}: {left} blocks still allocated")
 
 
-def _lm_want(cb, preset: str, layers: int) -> dict:
-    """Launches worked out from the code: per fused prefill chunk and per
-    decode quantum one paged-attention kernel per layer; per forward 7
-    linears per layer plus the head through the weight format's kernel."""
+def _lm_want(cb, preset: str, layers: int, draft_steps: int = 0,
+             draft_preset: str = "none") -> dict:
+    """Launches worked out from the code: per fused prefill chunk, per
+    fused verify and per decode quantum one paged-attention kernel per
+    layer (a verify is a prefill chunk of k + 1 tokens); per forward 7
+    linears per layer plus the head through the weight format's kernel.
+    With speculation the draft (its own bf16 pool) adds one fused prefill
+    per draft chunk and ``draft_steps`` batched decode steps."""
     from repro_torch.kernels import ops
-    fwd = cb.prefill_launches + cb.decode_quanta
+    fwd = cb.prefill_launches + cb.decode_launches
     want = {name: 0 for name in ops.KERNEL_MODULES}
     want["flash_prefill_paged_q8" if cb.quantized_kv else
-         "flash_prefill_paged"] = layers * cb.prefill_launches
+         "flash_prefill_paged"] = layers * (cb.prefill_launches + cb.spec_verifies)
     if not cb.quantized_kv:
-        want["flash_decode_paged"] = layers * cb.decode_quanta
+        want["flash_decode_paged"] = layers * (cb.decode_launches - cb.spec_verifies)
     if preset == "q8_0":
         want["q8_matmul"] = (7 * layers + 1) * fwd
     elif preset == "q3_k":
         want["q3k_matmul"] = 7 * layers * fwd
         want["q8_matmul"] = fwd                          # the q8_0 head
+    if cb.spec is not None:
+        dl = cb.spec.draft_cfg.num_layers
+        want["flash_prefill_paged"] += dl * (cb.draft_launches - draft_steps)
+        want["flash_decode_paged"] += dl * draft_steps
+        if draft_preset == "q8_0":
+            want["q8_matmul"] += (7 * dl + 1) * cb.draft_launches
     return want
+
+
+def _count_draft_steps(cb) -> list:
+    """Wrap the batcher's draft decode step; the list gets one entry per
+    batched draft step (launch accounting splits draft prefill chunks from
+    draft steps)."""
+    calls, inner = [], cb._draft_step
+
+    def step(*args):
+        calls.append(1)
+        return inner(*args)
+    cb._draft_step = step
+    return calls
 
 
 def phase_tiny_lm() -> None:
@@ -1145,6 +1334,45 @@ def phase_tiny_lm() -> None:
         if outs["cpu"] != outs["cuda"]:
             raise AssertionError(f"tiny_lm quantized_kv={quantized}: tokens "
                                  "differ between the CPU and the card")
+    _tiny_lm_spec(params, cfg)
+
+
+def _tiny_lm_spec(params, cfg) -> None:
+    """Speculation with draft = target (k = 4) on the CPU and on the card:
+    the same tokens as each other and as the plain batcher, exact launches."""
+    from repro_torch.core.tree import to_device
+    from repro_torch.engine import EngineConfig, LMEngineConfig, SpecDecodeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ContinuousBatcher, Request
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = to_device(params, dev)
+        for spec in (None, SpecDecodeConfig(draft_params=p, draft_cfg=cfg, k=SPEC_K)):
+            cb = ContinuousBatcher(p, cfg, device=dev, config=EngineConfig(
+                lm=LMEngineConfig(slots=2, max_len=48, block_size=16, prefill_chunk=16,
+                                  spec_decode=spec)))
+            reqs = _lm_requests(Request, (40, 23, 33, 37), cfg.vocab_size, 4, 16,
+                                torch.Generator().manual_seed(TINY_LM_SEED))
+            steps = _count_draft_steps(cb) if spec else []
+            ops.reset_launch_counts()
+            for r in reqs:
+                cb.submit(r)
+            cb.run()
+            counts = ops.launch_counts()
+            _check_events(f"tiny_lm spec {dev}", cb, len(reqs))
+            want = (_lm_want(cb, "none", cfg.num_layers, len(steps)) if dev == "cuda"
+                    else {k: 0 for k in counts})
+            if counts != want:
+                raise AssertionError(f"tiny_lm spec={spec is not None} {dev}: launches "
+                                     f"{counts}, expected {want}")
+            outs[dev, spec is not None] = {r.rid: r.out for r in cb.finished}
+        if not cb.spec_rounds or cb.spec_accepted != cb.spec_proposed:
+            raise AssertionError(f"tiny_lm spec {dev}: {cb.spec_rounds} rounds, "
+                                 f"{cb.spec_accepted} of {cb.spec_proposed} accepted")
+    log(f"[tiny_lm] spec (draft = target, k = {SPEC_K}): cpu {outs['cpu', True]} "
+        f"cuda {outs['cuda', True]}")
+    if len(set(map(str, outs.values()))) != 1:
+        raise AssertionError(f"tiny_lm spec: tokens differ {outs}")
 
 
 # Prompt draws of phase tiny_gen (prompt 24, 16 steps, batch 2) whose every
@@ -1228,9 +1456,47 @@ def phase_tiny_gen() -> None:
                                  "CPU and the card")
 
 
-def _timed_run(cb, reqs) -> dict:
-    """Serve ``reqs``, timing each quantum (synchronised)."""
-    t_pre, t_dec, n_pre, n_dec, sizes = [], [], 0, 0, []
+def _trace_step(cb) -> tuple[float, list]:
+    """One ``cb.step()`` under torch.profiler (device activity only): its
+    synchronised wall ms and its device events as (start us, end us,
+    name), in start order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        cb.step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - s0)
+    return wall, sorted((e.time_range.start, e.time_range.end, e.name)
+                        for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def _device_gaps(wall: float, evs: list, reads: int) -> dict:
+    """Device busy ms (the union of the events) and idle ms (wall less
+    busy) of one traced quantum, and the device's idle ms right after
+    each device-to-host copy: from the copy's end to the next event's
+    start, the host's turn-around that a synchronising read forces."""
+    busy, end = 0.0, float("-inf")
+    for s, e, _ in evs:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    copies = [j for j, (_, _, name) in enumerate(evs) if "DtoH" in name]
+    after = [evs[j + 1][0] - evs[j][1] for j in copies if j + 1 < len(evs)]
+    return {"wall_ms": wall, "busy_ms": busy / 1e3, "idle_ms": wall - busy / 1e3,
+            "host_reads": reads, "dtoh_copies": len(copies),
+            "after_reads_ms": sum(max(g, 0.0) for g in after) / 1e3,
+            "after_read_max_ms": max(after, default=float("nan")) / 1e3}
+
+
+def _timed_run(cb, reqs, trace_spec: bool = False) -> dict:
+    """Serve ``reqs``, timing each quantum (synchronised): full prefill
+    chunks, and decode and speculative quanta at the full slot batch.
+    With ``trace_spec`` the first full-batch speculative quantum after
+    two timed ones runs under the profiler instead (``_device_gaps``,
+    left out of the timings)."""
+    t_pre, t_dec, t_spec, n_pre, sizes = [], [], [], 0, []
+    trace = None
     raw = cb._prefill_raw
 
     def prefill(params, tokens, *args):
@@ -1242,32 +1508,44 @@ def _timed_run(cb, reqs) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while cb.has_work():
-        s0 = time.perf_counter()
-        cb.step()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - s0
+        # All slots busy and fed: the next quantum decodes (speculates).
+        traced = (trace_spec and trace is None and len(t_spec) >= 2
+                  and None not in cb.slots and not any(cb._pending)
+                  and not any(cb._draft_pending))
+        if traced:
+            reads = cb.host_reads
+            wall, evs = _trace_step(cb)
+        else:
+            s0 = time.perf_counter()
+            cb.step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - s0
         kind, batch = cb.last_quantum
         if kind == "prefill":
             chunk = sizes[-1]
             n_pre += chunk
-            if chunk == cb.prefill_chunk:
+            if chunk == cb.prefill_chunk and not traced:
                 t_pre.append(dt)
-        else:
-            n_dec += batch
-            if batch == len(cb.slots):
-                t_dec.append(dt)
+        elif batch == len(cb.slots) and not traced:
+            {"decode": t_dec, "decode-spec": t_spec}[kind].append(dt)
+        elif traced and kind == "decode-spec":
+            trace = _device_gaps(wall, evs, cb.host_reads - reads)
     wall = time.perf_counter() - t0
     cb._prefill_raw = raw
     gen_tokens = sum(len(r.out) for r in cb.finished)
-    return {"wall_s": wall, "prefill_chunk_ms": 1e3 * sum(t_pre) / max(len(t_pre), 1),
-            "decode_quantum_ms": 1e3 * sum(t_dec) / max(len(t_dec), 1),
+
+    def mean_ms(ts):
+        return 1e3 * sum(ts) / len(ts) if ts else float("nan")
+    return {"wall_s": wall, "prefill_chunk_ms": mean_ms(t_pre),
+            "decode_quantum_ms": mean_ms(t_dec), "spec_quantum_ms": mean_ms(t_spec),
+            "spec_quanta_timed": len(t_spec), "spec_trace": trace,
             "prompt_tokens": n_pre, "generated_tokens": gen_tokens,
             "tokens_per_s": (n_pre + gen_tokens) / wall}
 
 
-def _check_against_forward(cb, params, cfg) -> None:
+def _check_against_forward(cb, params, cfg, margin_limit: float = TIE_MARGIN) -> None:
     """Every generated token whose top-2 margin in ``lm_forward``'s logits
-    (over prompt + generated tokens) exceeds TIE_MARGIN is its argmax."""
+    (over prompt + generated tokens) exceeds ``margin_limit`` is its argmax."""
     from repro_torch.models.transformer import lm_forward
     checked = ties = 0
     with torch.no_grad():
@@ -1278,7 +1556,7 @@ def _check_against_forward(cb, params, cfg) -> None:
             margin = (top.values[:, 0] - top.values[:, 1]).tolist()
             best = top.indices[:, 0].tolist()
             for i, tok in enumerate(r.out):
-                if margin[i] <= TIE_MARGIN:
+                if margin[i] <= margin_limit:
                     ties += 1
                     continue
                 checked += 1
@@ -1288,7 +1566,7 @@ def _check_against_forward(cb, params, cfg) -> None:
                         f"argmax {best[i]} with margin {margin[i]:.4f}")
             del logits
     log(f"[full_lm] lm_forward agrees on {checked} generated tokens; "
-        f"{ties} near-ties (margin <= {TIE_MARGIN}) not compared")
+        f"{ties} near-ties (margin <= {margin_limit}) not compared")
 
 
 def _profile_lm(cb, label: str) -> None:
@@ -1362,9 +1640,128 @@ def phase_full_lm(card: str) -> dict[str, int]:
         if preset == "none" and not quantized:
             _check_against_forward(cb, base, cfg)
         _profile_lm(cb, label)     # every run: bf16 and Q8_0 pools
+        if preset == "none" and not quantized:
+            plain_quantum_ms = stats["decode_quantum_ms"]
         del cb
         torch.cuda.empty_cache()
+    for name, c in _full_lm_spec(base, cfg, max_len, plain_quantum_ms, card).items():
+        totals[name] += c
     return totals
+
+
+# Speculation on Granite-8B: (label, draft layers (None: draft = target),
+# weights of target and draft, quantized target KV).
+SPEC_RUNS = (("draft=target", None, "none", False),
+             ("draft=4 layers", 4, "q8_0", True))
+
+
+def _full_lm_spec(base, cfg, max_len: int, plain_quantum_ms: float, card: str) -> dict:
+    """Granite-8B at full width with speculation (slots 4, k 4, the six
+    requests of the plain runs): the draft = target on a bf16 pool, then a
+    4-layer draft made of the target's first four layers, both under q8_0
+    weights, the target on a Q8_0 pool.  Per run: tokens against
+    ``lm_forward`` above GEN_TIE_MARGIN, events, both runtimes consistent
+    and empty, exact target and draft launches, acceptance, and a verify
+    launch's and a draft step's device time beside a synchronised spec
+    quantum and the plain quantum; one traced spec quantum gives the
+    device's busy and idle time and its idle right after the host reads."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qlinear import quantize_params
+    from repro_torch.engine import EngineConfig, LMEngineConfig, SpecDecodeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ContinuousBatcher, Request
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+    for label, draft_layers, preset, quantized in SPEC_RUNS:
+        target = base if preset == "none" else quantize_params(base, get_policy(preset))
+        if draft_layers is None:
+            dparams, dcfg = target, cfg
+        else:
+            dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-draft{draft_layers}",
+                                       num_layers=draft_layers)
+            dparams = dict(target, layers=target["layers"][:draft_layers])
+        spec = SpecDecodeConfig(draft_params=dparams, draft_cfg=dcfg, k=SPEC_K)
+        cb = ContinuousBatcher(target, cfg, device="cuda", config=EngineConfig(
+            lm=LMEngineConfig(slots=4, max_len=max_len, block_size=16, prefill_chunk=256,
+                              quantized_kv=quantized, spec_decode=spec)))
+        reqs = _lm_requests(Request, LM_PROMPTS, cfg.vocab_size, LM_MAX_NEW,
+                            LM_SHARED, torch.Generator(device="cuda").manual_seed(SEED + 5))
+        steps = _count_draft_steps(cb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        stats = _timed_run(cb, reqs, trace_spec=True)
+        counts = ops.launch_counts()
+        n_steps = len(steps)          # before the profile below adds its calls
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _check_events(f"full_lm spec {label}", cb, len(reqs))
+        cb.draft_runtime.check_consistency()
+        if cb.draft_runtime.allocated_blocks:
+            raise AssertionError(f"full_lm spec {label}: draft blocks still allocated")
+        want = _lm_want(cb, preset, cfg.num_layers, n_steps, preset)
+        if counts != want:
+            raise AssertionError(f"full_lm spec {label}: launches {counts}, expected {want}")
+        if not cb.spec_rounds:
+            raise AssertionError(f"full_lm spec {label}: no speculative round")
+        for name, c in counts.items():
+            totals[name] += c
+        _check_against_forward(cb, target, cfg, GEN_TIE_MARGIN)
+        emitted = stats["generated_tokens"] - len(reqs)   # the first tokens come from prefill
+        acc = cb.spec_accepted / max(cb.spec_proposed, 1)
+        verify_ms, draft_ms = _profile_spec(cb, label)
+        log(f"[full_lm] spec {label} (k = {SPEC_K}, weights={preset}, "
+            f"kv={'q8_0' if quantized else 'bf16'}): {stats['generated_tokens']} tokens "
+            f"in {stats['wall_s']:.2f} s; acceptance {cb.spec_accepted}/{cb.spec_proposed} "
+            f"= {acc:.4f}; {cb.spec_tokens_per_round():.4f} tokens per verify; "
+            f"{cb.spec_rounds} spec rounds, {cb.spec_verifies} verifies, "
+            f"{cb.decode_quanta - cb.spec_rounds} plain quanta; target launches per "
+            f"emitted token {cb.decode_launches / emitted:.4f} ({cb.decode_launches} / "
+            f"{emitted}); draft launches {cb.draft_launches} ({n_steps} batched steps); "
+            f"host reads {cb.host_reads}; synchronised spec quantum (4 slots) "
+            f"{stats['spec_quantum_ms']:.2f} ms over {stats['spec_quanta_timed']} quanta, "
+            f"beside the plain decode quantum {plain_quantum_ms:.2f} ms (weights none, "
+            f"bf16 pool); one verify launch (T = {SPEC_K + 1} at depth) {verify_ms:.2f} ms "
+            f"of device time, one draft step {draft_ms:.2f} ms; prefill chunk "
+            f"{stats['prefill_chunk_ms']:.2f} ms; peak {peak:.2f} GiB; launches {counts}; {card}")
+        tr = stats["spec_trace"]
+        if tr is None:
+            log(f"[full_lm] spec {label}: no full-batch spec quantum was traced "
+                "(host-read cost not measured)")
+        else:
+            log(f"[full_lm] spec {label}: one traced spec quantum (4 slots): wall "
+                f"{tr['wall_ms']:.2f} ms, device busy {tr['busy_ms']:.2f} ms, idle "
+                f"{tr['idle_ms']:.2f} ms ({100 * tr['idle_ms'] / tr['wall_ms']:.1f}%); "
+                f"{tr['host_reads']} host reads, {tr['dtoh_copies']} device-to-host "
+                f"copies; device idle right after them {tr['after_reads_ms']:.3f} ms in "
+                f"all (largest {tr['after_read_max_ms']:.3f} ms); the untraced spec "
+                f"quantum's wall less this busy time {stats['spec_quantum_ms'] - tr['busy_ms']:.2f} "
+                f"ms; {card}")
+        del cb, target, dparams, spec
+        torch.cuda.empty_cache()
+    return totals
+
+
+def _profile_spec(cb, label: str) -> tuple[float, float]:
+    """torch.profiler over one verify launch of k + 1 tokens ending 32
+    positions short of the table's end (depth about 2000 at full size)
+    and one batched draft step at 4 slots, on scratch blocks; returns
+    their device ms (nan when the profiler saw no device kernels)."""
+    mb, bs = cb.runtime.blocks_per_slot, cb.runtime.block_size
+    tables = (torch.arange(mb, device="cuda", dtype=torch.int32)
+              % (cb.runtime.num_blocks - 1) + 1)[None]
+    chunk = torch.ones((1, SPEC_K + 1), dtype=torch.int64, device="cuda")
+    pos = torch.full((1,), mb * bs - 32, dtype=torch.int32)
+    slots, dmb = len(cb.slots), cb.draft_runtime.blocks_per_slot
+    dtables = (torch.arange(slots * dmb, device="cuda", dtype=torch.int32)
+               % (cb.draft_runtime.num_blocks - 1) + 1).reshape(slots, dmb)
+    dtoks = torch.ones((slots, 1), dtype=torch.int64, device="cuda")
+    dpos = torch.full((slots,), dmb * bs - 32, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        verify = _profile(f"spec {label} verify launch", lambda: cb._verify_raw(
+            cb.params, chunk, pos, 0, tables, cb.cache))
+        draft = _profile(f"spec {label} draft step", lambda: cb._draft_step(
+            cb.draft_params, dtoks, dpos, dtables, cb.draft_cache))
+    return tuple(sum(ms for ms, _ in p.values()) if p else float("nan")
+                 for p in (verify, draft))
 
 
 # ------------------------------------------- generation on the contiguous cache

@@ -26,8 +26,9 @@ class GenerateRequest:
     (``eps_u + scale * (eps_c - eps_u)``; 1.0 with no negative prompt
     disables the unconditional branch); ``seed`` alone determines the
     initial noise.  ``deadline_ms``/``priority`` feed EDF admission.
-    ``preview_every`` > 0 asks for the segmented preview path, which is
-    not ported yet."""
+    ``preview_every`` > 0 streams a ``PreviewLatent`` every N steps (and at
+    the last) through the segmented path; ``preview_decode`` makes those
+    previews VAE-decoded pixels."""
     rid: int
     tokens: Sequence[int] | torch.Tensor
     neg_tokens: Sequence[int] | torch.Tensor | None = None

@@ -1,26 +1,32 @@
 """Request-based text-to-image engine (CLIP -> UNet loop -> VAE).
 
-The counterpart of ``repro.engine.diffusion_engine``'s fused path:
+The counterpart of ``repro.engine.diffusion_engine``:
 
 * ``build_denoise`` returns ``fn(params, tokens, neg_tokens, gscale,
   noise, plan)``; its denoise loop is a Python loop over the sampler's
-  step plan where the reference has one ``lax.scan``.  Padding steps
+  step plan where the reference has one ``lax.scan``.  Each iteration is
+  ``build_denoise_step``, the segmented path's one solver step, so the
+  two paths run the same ops in the same order.  Padding steps
   (``valid`` False) are skipped: the reference masks them with
   ``jnp.where``, so the result is the same and no UNet runs for them.
+* **Segmented preview path** — requests with ``preview_every > 0`` run
+  ``build_encode`` once, ``build_denoise_step`` once per ``step()`` and
+  ``build_finalize_decode`` at the end, so the host sees
+  ``Progress(phase="denoise")`` after every step, a ``PreviewLatent``
+  every ``preview_every`` steps and at the last (x0 latent, or pixels
+  with ``preview_decode``), and can ``cancel()`` between steps.
 * ``DiffusionEngine`` keeps the reference's host plumbing: ``submit`` /
-  ``step`` / ``run`` / ``cancel`` of queued requests, earliest-deadline-
-  first pop, batch buckets padded with row 0, ``weight_quant=``, and
-  ``Admitted``/``Finished``/``Cancelled`` events on its ``EventBus``.
+  ``step`` / ``run`` / ``cancel``, earliest-deadline-first pop, batch
+  buckets padded with row 0, ``weight_quant=``, ``config=``
+  (``EngineConfig``) and the reference's events on its ``EventBus``.
 * Initial noise comes from ``noise_fn(request, hw)``; the default draws
   ``torch.randn`` from a generator seeded with the request's seed.  It
   cannot reproduce ``jax.random``, so tests inject the reference's noise.
 
-Not ported yet: the segmented preview path (``preview_every``), the cost
-model and telemetry, ``evacuate``/``adopt`` and ``EngineConfig``.
+Not ported yet: the cost model and telemetry, and ``evacuate``/``adopt``.
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 from typing import Callable
 
@@ -34,6 +40,8 @@ from repro_torch.core.tree import to_device
 from repro_torch.diffusion import schedule as sched_mod
 from repro_torch.engine import events as ev
 from repro_torch.engine import samplers as samplers_mod
+from repro_torch.engine.config import (UNSET, EngineConfig, require_unported,
+                                       resolve)
 from repro_torch.engine.api import GenerateRequest, GenerateResult, uses_cfg
 from repro_torch.models import clip as clip_mod
 from repro_torch.models import unet as unet_mod
@@ -75,33 +83,68 @@ def build_denoise(cfg: SDConfig, sampler_name: str, use_cfg: bool, *,
     text_len)`` prompts and ``(B, hw, hw, 4)`` unit noise to images (or x0
     latents with ``decode=False``)."""
     sampler = samplers_mod.get_sampler(sampler_name)
-    sched = sched_mod.NoiseSchedule()
-    clip_cfg = cfg.clip_cfg()
+    encode = build_encode(cfg, use_cfg)
+    denoise_step = build_denoise_step(cfg, sampler_name, use_cfg)
+    finalize_decode = build_finalize_decode(cfg, sampler_name)
 
     def fn(params, tokens, neg_tokens, gscale, noise, plan):
-        b = tokens.shape[0]
+        ctx, ctx_u = encode(params, tokens, neg_tokens)
+        x = sampler.init_latent(noise.float(), plan)
+        for i in range(plan["valid"].shape[0]):
+            x = denoise_step(params, ctx, ctx_u, gscale, x,
+                             {k: v[i] for k, v in plan.items()})
+        if not decode:
+            return sampler.finalize(x)
+        return finalize_decode(params, x)
+    return fn
+
+
+def build_encode(cfg: SDConfig, use_cfg: bool) -> Callable:
+    """Prompt-encoding half of the segmented path:
+    ``fn(params, tokens, neg_tokens) -> (ctx, ctx_uncond | None)``."""
+    clip_cfg = cfg.clip_cfg()
+
+    def fn(params, tokens, neg_tokens):
         ctx = clip_mod.clip_encode(params["clip"], clip_cfg, tokens)
         ctx_u = (clip_mod.clip_encode(params["clip"], clip_cfg, neg_tokens)
                  if use_cfg else None)
-        x = sampler.init_latent(noise.float(), plan)
+        return ctx, ctx_u
+    return fn
+
+
+def build_denoise_step(cfg: SDConfig, sampler_name: str,
+                       use_cfg: bool) -> Callable:
+    """One solver step: ``fn(params, ctx, ctx_u, gscale, x, step) -> x``
+    where ``step`` is one per-step slice of the sampler plan (0-d
+    tensors).  An invalid (padding) step returns ``x`` unchanged."""
+    sampler = samplers_mod.get_sampler(sampler_name)
+    sched = sched_mod.NoiseSchedule()
+
+    def fn(params, ctx, ctx_u, gscale, x, step):
+        if not bool(step["valid"]):
+            return x
+        b = x.shape[0]
         g = gscale[:, None, None, None]
-        for i in range(plan["valid"].shape[0]):
-            step = {k: v[i] for k, v in plan.items()}
-            if not bool(step["valid"]):
-                continue
-            xm, t = sampler.model_input(x, step)
-            tb = t.to(device=x.device, dtype=torch.int32).expand(b)
-            xb = xm.to(torch.bfloat16)
-            eps = unet_mod.apply_unet(params["unet"], cfg.unet, xb, tb,
-                                      ctx).float()
-            if use_cfg:
-                eps_u = unet_mod.apply_unet(params["unet"], cfg.unet, xb, tb,
-                                            ctx_u).float()
-                eps = eps_u + g * (eps - eps_u)
-            x = sampler.update(sched, x, eps, step)
+        xm, t = sampler.model_input(x, step)
+        tb = t.to(device=x.device, dtype=torch.int32).expand(b)
+        xb = xm.to(torch.bfloat16)
+        eps = unet_mod.apply_unet(params["unet"], cfg.unet, xb, tb,
+                                  ctx).float()
+        if use_cfg:
+            eps_u = unet_mod.apply_unet(params["unet"], cfg.unet, xb, tb,
+                                        ctx_u).float()
+            eps = eps_u + g * (eps - eps_u)
+        return sampler.update(sched, x, eps, step)
+    return fn
+
+
+def build_finalize_decode(cfg: SDConfig, sampler_name: str) -> Callable:
+    """Tail of both paths: ``fn(params, x) -> images`` applies the
+    sampler's finalize, then the VAE decoder."""
+    sampler = samplers_mod.get_sampler(sampler_name)
+
+    def fn(params, x):
         x0 = sampler.finalize(x)
-        if not decode:
-            return x0
         return vae_mod.apply_vae_decoder(params["vae"], cfg.vae,
                                          x0.to(torch.bfloat16))
     return fn
@@ -117,17 +160,33 @@ class DiffusionEngine(ev.EventStreamMixin):
     """Micro-batching diffusion engine (implements the Engine protocol).
 
     ``step()`` pops up to ``max_batch`` queued requests that share a
-    group — same (sampler, steps, latent size, guidance mode) — seeded
-    earliest-deadline-first, pads them to the batch bucket with row 0,
-    runs the denoise program on ``device`` and retires the batch.
+    group — same (sampler, steps, latent size, guidance mode, preview
+    cadence) — seeded earliest-deadline-first, pads them to the batch
+    bucket with row 0, and either runs the fused denoise program on
+    ``device`` and retires the batch (no previews), or starts the
+    segmented path and advances it one denoise step per ``step()``,
+    emitting ``Progress``/``PreviewLatent`` and honouring ``cancel()``
+    between steps.
+
+    Construction takes ``config=EngineConfig(diffusion=...)`` or the
+    loose kwargs; explicit kwargs win over the config.
     """
 
-    def __init__(self, params: dict, cfg: SDConfig, *, max_batch: int = 1,
-                 bus: ev.EventBus | None = None,
-                 clock: Callable[[], float] = time.monotonic,
-                 weight_quant: str | None = None, device="cuda",
+    def __init__(self, params: dict, cfg: SDConfig, *,
+                 config: EngineConfig | None = None,
+                 max_batch: int = UNSET,
+                 bus: ev.EventBus | None = UNSET,
+                 clock: Callable[[], float] = UNSET,
+                 cost_model=UNSET, metrics=UNSET,
+                 weight_quant: str | None = UNSET, device="cuda",
                  noise_fn: Callable[[GenerateRequest, int],
                                     torch.Tensor] | None = None):
+        self.config, diffc = resolve(config, "diffusion", dict(
+            max_batch=max_batch, bus=bus, clock=clock,
+            cost_model=cost_model, metrics=metrics,
+            weight_quant=weight_quant))
+        require_unported(self.config)
+        weight_quant = self.config.weight_quant
         self.device = resolve_device(device)
         params = to_device(params, self.device)
         if weight_quant is not None:
@@ -135,11 +194,13 @@ class DiffusionEngine(ev.EventStreamMixin):
         self.weight_quant = weight_quant
         self.params = params
         self.cfg = cfg
-        self.max_batch = max_batch
+        self.max_batch = diffc.max_batch
         self.noise_fn = noise_fn or request_noise
         self.queue: deque[GenerateRequest] = deque()
         self.finished: list[GenerateResult] = []
-        self.bus = bus if bus is not None else ev.EventBus(clock)
+        self.bus = (self.config.bus if self.config.bus is not None
+                    else ev.EventBus(self.config.clock))
+        self._inflight: dict | None = None      # segmented batch state
         self._meta: dict[int, tuple] = {}       # rid -> (seq, deadline, prio)
         self._subseq = 0
 
@@ -151,10 +212,6 @@ class DiffusionEngine(ev.EventStreamMixin):
         if request.preview_every < 0:
             raise ValueError(
                 f"preview_every must be >= 0, got {request.preview_every}")
-        if request.preview_every:
-            raise NotImplementedError(
-                "preview_every > 0 needs the segmented preview path, which "
-                "is not ported yet")
         hw = (self.cfg.latent_hw if request.latent_hw is None
               else request.latent_hw)
         down = 2 ** (len(self.cfg.unet.channel_mult) - 1)
@@ -174,19 +231,33 @@ class DiffusionEngine(ev.EventStreamMixin):
         return self.handle(request.rid)
 
     def has_work(self) -> bool:
-        return bool(self.queue)
+        return bool(self.queue) or self._inflight is not None
 
     def cancel(self, rid: int) -> bool:
-        """Abort a queued request.  A running batch retires atomically."""
+        """Abort a request: a queued one leaves the queue; one inside a
+        segmented batch stops emitting and is dropped at the batch's end
+        (its row keeps computing: co-batched rows keep the batch shape).
+        A fused batch retires atomically and cannot be cancelled."""
         for r in self.queue:
             if r.rid == rid:
                 self.queue.remove(r)
                 self.bus.emit(ev.Cancelled, rid)
                 return True
+        st = self._inflight
+        if st is not None:
+            for r in st["reqs"]:
+                if r.rid == rid and rid not in st["cancelled"]:
+                    st["cancelled"].add(rid)
+                    self.bus.emit(ev.Cancelled, rid)
+                    return True
         return False
 
     def step(self) -> int:
-        """Pop and run one micro-batch; returns #requests progressed."""
+        """One quantum: advance the in-flight segmented batch by one
+        denoise step, or pop and run a new micro-batch; returns the
+        number of requests progressed (0 if idle)."""
+        if self._inflight is not None:
+            return self._segment_quantum()
         if not self.queue:
             return 0
         seed = min(self.queue, key=self._edf_key)
@@ -203,6 +274,9 @@ class DiffusionEngine(ev.EventStreamMixin):
         self.queue = rest
         for i, r in enumerate(batch):
             self.bus.emit(ev.Admitted, r.rid, slot=i)
+        if gkey[4]:                      # preview_every > 0: segmented
+            self._start_segmented(batch, gkey)
+            return self._segment_quantum()
         self._run_batch(batch, gkey)
         return len(batch)
 
@@ -222,9 +296,13 @@ class DiffusionEngine(ev.EventStreamMixin):
 
     def _group_key(self, req: GenerateRequest) -> tuple:
         fixed = samplers_mod.get_sampler(req.sampler).fixed_steps
+        # preview_decode joins the key only when previews stream, so
+        # plain requests never split batches over it.
         return (req.sampler, fixed or req.steps,
                 req.latent_hw or self.cfg.latent_hw,
-                uses_cfg(req.neg_tokens, req.guidance_scale))
+                uses_cfg(req.neg_tokens, req.guidance_scale),
+                req.preview_every,
+                bool(req.preview_every and req.preview_decode))
 
     def _pack(self, reqs: list[GenerateRequest], hw: int) -> tuple:
         """Batch request rows, padding to the bucket with row 0 (padded
@@ -250,8 +328,16 @@ class DiffusionEngine(ev.EventStreamMixin):
                 torch.tensor(scales, dtype=torch.float32, device=dev),
                 torch.stack(noises).to(dev))
 
+    def _finish(self, r: GenerateRequest, image, sampler_name: str,
+                steps: int) -> None:
+        res = GenerateResult(rid=r.rid, image=image, sampler=sampler_name,
+                             steps=steps, seed=r.seed, decode_steps=steps)
+        self.finished.append(res)
+        self.bus.emit(ev.Finished, r.rid, result=res)
+
+    # ------------------------------------------------- fused path
     def _run_batch(self, reqs: list[GenerateRequest], gkey: tuple) -> None:
-        sampler_name, steps, hw, use_cfg = gkey
+        sampler_name, steps, hw, use_cfg = gkey[:4]
         toks, negs, scales, noises = self._pack(reqs, hw)
         sampler = samplers_mod.get_sampler(sampler_name)
         plan = sampler.plan(sched_mod.NoiseSchedule(), steps,
@@ -260,8 +346,68 @@ class DiffusionEngine(ev.EventStreamMixin):
         with torch.no_grad():
             imgs = fn(self.params, toks, negs, scales, noises, plan)
         for i, r in enumerate(reqs):
-            res = GenerateResult(rid=r.rid, image=imgs[i],
-                                 sampler=sampler_name, steps=steps,
-                                 seed=r.seed, decode_steps=steps)
-            self.finished.append(res)
-            self.bus.emit(ev.Finished, r.rid, result=res)
+            self._finish(r, imgs[i], sampler_name, steps)
+
+    # ------------------------------------------------- segmented path
+    def _start_segmented(self, reqs: list[GenerateRequest],
+                         gkey: tuple) -> None:
+        sampler_name, steps, hw, use_cfg = gkey[:4]
+        toks, negs, scales, noises = self._pack(reqs, hw)
+        with torch.no_grad():
+            ctx, ctx_u = build_encode(self.cfg, use_cfg)(self.params, toks,
+                                                          negs)
+        sampler = samplers_mod.get_sampler(sampler_name)
+        # Unpadded plan: one solver step serves any step count.
+        plan = sampler.plan(sched_mod.NoiseSchedule(), steps, steps)
+        self._inflight = dict(
+            reqs=reqs, key=(sampler_name, steps, hw, use_cfg),
+            x=sampler.init_latent(noises.float(), plan), ctx=ctx,
+            ctx_u=ctx_u, g=scales, plan=plan, i=0, cancelled=set(),
+            step_fn=build_denoise_step(self.cfg, sampler_name, use_cfg),
+            decode_fn=build_finalize_decode(self.cfg, sampler_name))
+
+    def _segment_quantum(self) -> int:
+        st = self._inflight
+        sampler_name, steps, hw, use_cfg = st["key"]
+        live = [(row, r) for row, r in enumerate(st["reqs"])
+                if r.rid not in st["cancelled"]]
+        if not live:                     # everyone cancelled mid-flight
+            self._inflight = None
+            return 0
+        i = st["i"]
+        step_slice = {k: v[i] for k, v in st["plan"].items()}
+        with torch.no_grad():
+            st["x"] = st["step_fn"](self.params, st["ctx"], st["ctx_u"],
+                                    st["g"], st["x"], step_slice)
+        st["i"] = i + 1
+        sampler = samplers_mod.get_sampler(sampler_name)
+        at_stride = [(row, r) for row, r in live
+                     if st["i"] % r.preview_every == 0 or st["i"] == steps]
+        pv_imgs = None
+        if any(r.preview_decode for _row, r in at_stride):
+            # Pixel previews: the final decode's program on the current
+            # latent; preview_decode is in the group key, so every row
+            # of the batch opted in.
+            with torch.no_grad():
+                pv_imgs = st["decode_fn"](self.params, st["x"])
+        for row, r in live:
+            self.bus.emit(ev.Progress, r.rid, step=st["i"], total=steps,
+                          phase="denoise")
+        for row, r in at_stride:
+            if r.preview_decode and pv_imgs is not None:
+                self.bus.emit(ev.PreviewLatent, r.rid, step=st["i"],
+                              total=steps, latent=pv_imgs[row],
+                              decoded=True)
+            else:
+                self.bus.emit(ev.PreviewLatent, r.rid, step=st["i"],
+                              total=steps,
+                              latent=sampler.finalize(st["x"][row]))
+        if st["i"] >= steps:
+            imgs = pv_imgs               # the last preview is the decode
+            if imgs is None:
+                with torch.no_grad():
+                    imgs = st["decode_fn"](self.params, st["x"])
+            for row, r in live:
+                self._finish(r, imgs[row], sampler_name, steps)
+            self._inflight = None
+        return len(live)

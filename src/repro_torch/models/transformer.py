@@ -216,11 +216,14 @@ def prefill_path(cfg: ModelConfig, *, quantized_kv: bool = False,
 
 def _lm_prefill_chunk_fused(params: dict, cfg: ModelConfig,
                             tokens: torch.Tensor, pos0, cache: list,
-                            block_tables: torch.Tensor
+                            block_tables: torch.Tensor, *,
+                            last_only: bool = True
                             ) -> tuple[torch.Tensor, list]:
     """The whole chunk as one forward over the paged pool per layer
     (``attention_prefill_paged``); MLPs are position-wise.  Returns the
-    last position's logits (1, 1, V)."""
+    last position's logits (1, 1, V), or every position's (1, C, V) with
+    ``last_only=False`` (verification needs the target's choice after
+    each proposed token)."""
     t = tokens.shape[1]
     pos0 = attn_mod._as_int(pos0)
     x = L.apply_embedding(params["embed"], tokens)
@@ -234,8 +237,15 @@ def _lm_prefill_chunk_fused(params: dict, cfg: ModelConfig,
                                                 block_tables, rope=rope)
         new.append(c)
         x = _apply_ffn(p, cfg, x + y)
-    x = _apply_norm(cfg, params["final_norm"], x[:, -1:])
+    x = _apply_norm(cfg, params["final_norm"], x[:, -1:] if last_only else x)
     return L.apply_unembed(_head(params), x), new
+
+
+def _chunk_positions(pos0, b: int, device) -> torch.Tensor:
+    """(B,) int32 first positions of a chunk on ``device``."""
+    if isinstance(pos0, torch.Tensor):
+        return pos0.to(device=device, dtype=torch.int32)
+    return torch.full((b,), int(pos0), dtype=torch.int32, device=device)
 
 
 def lm_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -255,17 +265,40 @@ def lm_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     fused=fused) == "fused":
         return _lm_prefill_chunk_fused(params, cfg, tokens, pos0, cache,
                                        block_tables)
-    if isinstance(pos0, torch.Tensor):
-        pos = pos0.to(device=tokens.device, dtype=torch.int32)
-    else:
-        pos = torch.full((b,), int(pos0), dtype=torch.int32,
-                         device=tokens.device)
+    pos = _chunk_positions(pos0, b, tokens.device)
     logits = None
     for i in range(c):
         logits, cache = lm_decode_step(params, cfg, tokens[:, i:i + 1],
                                        pos + i, cache,
                                        block_tables=block_tables)
     return logits, cache
+
+
+def lm_verify_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                    pos0, cache: list, *, block_tables: torch.Tensor,
+                    fused: bool = True) -> tuple[torch.Tensor, list]:
+    """Verification launch for speculative decoding: tokens (B, C) at
+    positions pos0 .. pos0+C-1 -> (logits (B, C, V), cache).
+
+    The same math as :func:`lm_prefill_chunk` (the fused chunk when
+    eligible, the decode-step scan otherwise), but every chunk position
+    is unembedded.  On the scan path position ``j``'s logits are exactly
+    those of feeding the chunk token by token through
+    :func:`lm_decode_step`, so scan-verified speculation gives the plain
+    decode's tokens bit for bit."""
+    _check_supported(cfg)
+    b, c = tokens.shape
+    if prefill_path(cfg, quantized_kv=_is_quantized(cache), batch=b,
+                    fused=fused) == "fused":
+        return _lm_prefill_chunk_fused(params, cfg, tokens, pos0, cache,
+                                       block_tables, last_only=False)
+    pos = _chunk_positions(pos0, b, tokens.device)
+    logits = []
+    for i in range(c):
+        lg, cache = lm_decode_step(params, cfg, tokens[:, i:i + 1], pos + i,
+                                   cache, block_tables=block_tables)
+        logits.append(lg[:, 0])
+    return torch.stack(logits, dim=1), cache
 
 
 # ---------------------------------------------------- slot cache surgery

@@ -1,42 +1,52 @@
 """Continuous-batching LM serving scheduler over the paged KV runtime
 (``repro.serving.scheduler``).
 
-Python request plumbing around two programs, with the cache bookkeeping
-in :class:`repro_torch.serving.kvcache.PagedKVRuntime`:
+Python request plumbing around the model programs, with the cache
+bookkeeping in :class:`repro_torch.serving.kvcache.PagedKVRuntime`:
 
 * **Chunked prefill** — admission feeds the prompt in chunks at batch 1
   (``models.transformer.lm_prefill_chunk``).  By default each chunk is
   one fused paged flash-prefill kernel per layer (bf16 or Q8_0 pools);
   ``fused_prefill=False`` runs the decode-step scan instead.  The last
   chunk's logits emit the first generated token.
-* **Decode quanta** — one greedy step at the fixed slot-batch shape;
-  idle rows point their table at the null block and are never emitted.
+* **Decode quanta** — one greedy step at the fixed slot-batch shape
+  (``decode_fn`` replaces it); idle rows point their table at the null
+  block and are never emitted.
+* **Speculative decoding** (``config.lm.spec_decode``) — a draft model
+  with its own paged pool proposes up to ``k`` tokens per slot in
+  batched decode steps; the target verifies each slot's pending token
+  plus proposal in one chunk launch (``make_verify_chunk``), keeps the
+  longest greedy-agreeing prefix plus one bonus token, and rolls the
+  rejected tail back with ``PagedKVRuntime.truncate``.  Each draft step's
+  tokens and each verify's greedy row come to the host with one
+  ``.cpu()`` each (``host_reads``).
 * **Prefix reuse** (``prefix_share=True``) — retiring requests donate
   their full prompt blocks; a later request with the same prefix adopts
   them read-only and skips their chunks.  The copy-on-write hook copies
   a block in place on the device.
 * **Fairness** — round-robin across request ``group`` ids, earliest
-  deadline first within a group.
+  deadline first within a group (``edf=False``: arrival order).
 * **Streaming lifecycle** — ``Admitted``, ``Progress(prefill)`` per
   chunk, ``TokenDelta`` per token, ``Finished``; ``cancel()`` and
   ``preempt()`` (re-ingest prompt + generated tokens on resume).
 
-``step()`` runs one quantum — pending prompt chunks first, otherwise one
-batched decode step — and counts it in ``prefill_quanta`` /
+``step()`` runs one quantum — pending prompt chunks first (the draft's
+chunks ride the same quantum), otherwise one batched decode step or one
+speculative round — and counts it in ``prefill_quanta`` /
 ``decode_quanta``; ``prefill_launches`` / ``decode_launches`` count the
-model programs run (one per fused chunk or one per scanned token, one
-per decode quantum).
+target's model programs (one per fused chunk or verify, one per scanned
+token, one per decode quantum) and ``draft_launches`` the draft's.
 
-Not ported yet: speculative decoding, the cost model and metrics,
-``evacuate``/``adopt``, ``EngineConfig``, encoder inputs,
-``preempt_over_budget`` and the reference's ``decode_fn``,
-``extra_blocks`` and ``edf`` switches (the port always pops EDF within
-a group).
+Construction takes ``config=EngineConfig(lm=LMEngineConfig(...))`` or
+the loose kwargs; explicit kwargs win over the config.
+
+Not ported yet: the cost model and metrics (``cost_model=``,
+``metrics=``, ``preempt_over_budget``), ``evacuate``/``adopt``,
+``next_deadline``/``next_slack`` and encoder inputs (``enc_embeds``).
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import OrderedDict, deque
 from typing import Any, Callable
 
@@ -48,11 +58,13 @@ from repro_torch.core.policy import get_policy
 from repro_torch.core.qlinear import quantize_params
 from repro_torch.core.tree import to_device
 from repro_torch.engine import events as ev
+from repro_torch.engine.config import (UNSET, EngineConfig, require_unported,
+                                       resolve)
 from repro_torch.models.transformer import (cache_slot_merge, cache_slot_reset,
                                             cache_slot_view, init_cache,
                                             lm_decode_step, lm_prefill_chunk,
-                                            prefill_path)
-from repro_torch.serving.kvcache import PagedKVRuntime, cdiv
+                                            lm_verify_chunk, prefill_path)
+from repro_torch.serving.kvcache import NULL_BLOCK, PagedKVRuntime, cdiv
 
 DEFAULT_BLOCK = 16
 
@@ -70,6 +82,10 @@ class Request:
     done: bool = False
     prefill_steps: int = 0        # prefill quanta this request consumed
     decode_steps: int = 0         # decode quanta that emitted for it
+    # Speculative decoding: draft tokens offered to the verifier and
+    # draft tokens the target accepted (0 without spec_decode).
+    proposed: int = 0
+    accepted: int = 0
     _cursor: int = dataclasses.field(default=0, repr=False)
     _seq: int = dataclasses.field(default=0, repr=False)    # arrival
     _deadline: float = dataclasses.field(default=float("inf"), repr=False)
@@ -100,6 +116,44 @@ def make_prefill_chunk(cfg: ModelConfig, *, fused: bool = True):
     return prefill
 
 
+def make_verify_chunk(cfg: ModelConfig, *, fused: bool = True):
+    """Batch-1 verification launch for speculative decoding: the whole
+    ``[pending token, proposal...]`` chunk through one prefill-path
+    program (the same dispatch as :func:`make_prefill_chunk`), returning
+    the target's greedy token at every chunk position (1, C) and the
+    cache.  A rejected tail is rolled back afterwards by
+    ``PagedKVRuntime.truncate``."""
+    def verify(params, tokens, pos0, slot, block_row, cache):
+        local = cache_slot_view(cache, slot)
+        logits, local = lm_verify_chunk(params, cfg, tokens, pos0, local,
+                                        block_tables=block_row, fused=fused)
+        cache = cache_slot_merge(cache, local, slot)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return verify
+
+
+def _check_spec(sp, cfg: ModelConfig) -> None:
+    """Refuse a speculation set-up whose rollback or proposals cannot be
+    honoured: a recurrent or enc-dec target or draft (rollback is a
+    position truncation), another vocabulary, or k < 1."""
+    dcfg = sp.draft_cfg
+    if set(cfg.block_pattern) != {"attn"} or cfg.is_enc_dec:
+        raise ValueError(
+            "spec_decode needs a pure-attention decoder-only target:"
+            " rollback is a position truncation, which recurrent or"
+            " encoder-fed state cannot honour")
+    if set(dcfg.block_pattern) != {"attn"} or dcfg.is_enc_dec:
+        raise ValueError(
+            "spec_decode draft must be a pure-attention decoder-only"
+            " model (draft KV rolls back by position truncation too)")
+    if dcfg.vocab_size != cfg.vocab_size:
+        raise ValueError(
+            f"draft vocab {dcfg.vocab_size} != target vocab "
+            f"{cfg.vocab_size}: proposals would not be token-compatible")
+    if sp.k < 1:
+        raise ValueError(f"spec_decode.k must be >= 1, got {sp.k}")
+
+
 def copy_block(cache: list, src: int, dst: int) -> list:
     """Copy-on-write on the device: block ``src`` of every pool (quants
     and scales alike) into block ``dst``, in place."""
@@ -114,27 +168,51 @@ class ContinuousBatcher(ev.EventStreamMixin):
     """``max_len`` is the per-request logical capacity (size it with
     :meth:`required_len`).  ``device`` holds the parameters and the
     pools (the card unless the caller asks for the CPU); the scheduler's
-    own state stays on the host.  ``clock`` is the SLO/event timebase."""
+    own state stays on the host.  ``decode_fn`` replaces the decode
+    quantum and follows :func:`make_paged_decode`'s signature,
+    ``(params, tokens (S, 1), positions (S,), block_tables (S, MB),
+    cache) -> (next_tokens (S,), cache)``.  ``extra_blocks`` adds blocks
+    to the pool.  ``edf=False`` pops each group in arrival order.
+    ``clock`` is the SLO/event timebase."""
 
-    def __init__(self, params: Any, cfg: ModelConfig, *, slots: int = 4,
-                 max_len: int | None = None,
-                 quantized_kv: bool = False,
-                 weight_quant: str | None = None,
-                 block_size: int = DEFAULT_BLOCK,
-                 prefill_chunk: int = 8,
-                 prefix_share: bool = False,
-                 fused_prefill: bool = True,
-                 bus: ev.EventBus | None = None,
-                 clock: Callable[[], float] = time.monotonic,
+    def __init__(self, params: Any, cfg: ModelConfig, *,
+                 config: EngineConfig | None = None,
+                 slots: int = UNSET, max_len: int = UNSET,
+                 decode_fn: Callable | None = UNSET,
+                 quantized_kv: bool = UNSET,
+                 weight_quant: str | None = UNSET,
+                 block_size: int = UNSET,
+                 prefill_chunk: int = UNSET,
+                 prefix_share: bool = UNSET,
+                 extra_blocks: int = UNSET,
+                 fused_prefill: bool = UNSET,
+                 bus: ev.EventBus | None = UNSET,
+                 clock: Callable[[], float] = UNSET,
+                 edf: bool = UNSET,
+                 cost_model=UNSET, metrics=UNSET,
                  device="cuda"):
-        if max_len is None:
-            raise ValueError("max_len is required (size it with "
+        self.config, lmc = resolve(config, "lm", dict(
+            slots=slots, max_len=max_len, decode_fn=decode_fn, quantized_kv=quantized_kv,
+            weight_quant=weight_quant, block_size=block_size,
+            prefill_chunk=prefill_chunk, prefix_share=prefix_share,
+            extra_blocks=extra_blocks, fused_prefill=fused_prefill,
+            bus=bus, clock=clock, edf=edf, cost_model=cost_model, metrics=metrics))
+        require_unported(self.config)
+        if lmc.max_len is None:
+            raise ValueError("max_len is required (pass max_len= or "
+                             "config.lm.max_len; size it with "
                              "required_len())")
+        slots, max_len, block_size = lmc.slots, lmc.max_len, lmc.block_size
+        quantized_kv, prefix_share = lmc.quantized_kv, lmc.prefix_share
+        weight_quant = self.config.weight_quant
         if prefix_share and (set(cfg.block_pattern) != {"attn"}
                              or cfg.is_enc_dec):
             raise ValueError(
                 "prefix_share needs a pure-attention decoder: recurrent "
                 "states and encoder KV cannot be adopted from a cache")
+        self.spec = lmc.spec_decode
+        if self.spec is not None:
+            _check_spec(self.spec, cfg)
         self.device = resolve_device(device)
         params = to_device(params, self.device)
         if weight_quant is not None:
@@ -143,21 +221,23 @@ class ContinuousBatcher(ev.EventStreamMixin):
         self.params = params
         self.cfg = cfg
         self.max_len = max_len
-        self.prefill_chunk = max(1, prefill_chunk)
+        self.prefill_chunk = max(1, lmc.prefill_chunk)
         # With prefix sharing the pool holds a second span per slot for
         # retained prompt blocks.
         self.runtime = PagedKVRuntime(
             slots, max_len, block_size, prefix_share=prefix_share,
-            extra_blocks=slots * cdiv(max_len, block_size) if prefix_share else 0)
+            extra_blocks=lmc.extra_blocks
+            + (slots * cdiv(max_len, block_size) if prefix_share else 0))
         self.runtime.copy_block = self._copy_block
         self.cache = init_cache(params, cfg, slots, max_len,
                                 quantized_kv=quantized_kv,
                                 block_size=block_size,
                                 num_blocks=self.runtime.num_blocks,
                                 device=self.device)
-        self.step_fn = make_paged_decode(cfg)
+        self.step_fn = lmc.decode_fn or make_paged_decode(cfg)
         self.fused_prefill = prefill_path(
-            cfg, quantized_kv=quantized_kv, fused=fused_prefill) == "fused"
+            cfg, quantized_kv=quantized_kv,
+            fused=lmc.fused_prefill) == "fused"
         self._prefill_raw = make_prefill_chunk(cfg, fused=self.fused_prefill)
         self.slots: list[Request | None] = [None] * slots
         self._pending: list[list[int]] = [[] for _ in range(slots)]
@@ -167,15 +247,48 @@ class ContinuousBatcher(ev.EventStreamMixin):
         # across groups, EDF-popped within a group.
         self._groups: "OrderedDict[int, list[Request]]" = OrderedDict()
         self._rr: deque[int] = deque()
-        self.bus = bus if bus is not None else ev.EventBus(clock)
+        self.bus = (self.config.bus if self.config.bus is not None
+                    else ev.EventBus(self.config.clock))
+        self.edf = self.config.edf
         self.quantized_kv = quantized_kv
         self.preemptions = 0
         self._subseq = 0
         self.prefill_quanta = 0
         self.decode_quanta = 0
         self.prefill_launches = 0
+        # Target-model launches of decoding: one per decode quantum, one
+        # per fused verify (the chunk's length on the scan path).
         self.decode_launches = 0
+        self.draft_launches = 0
+        self.spec_rounds = 0        # speculative quanta run
+        self.spec_verifies = 0      # per-slot verification launches
+        self.spec_proposed = 0      # draft tokens offered to the target
+        self.spec_accepted = 0      # draft tokens the target accepted
+        self.host_reads = 0         # .cpu() reads of speculative quanta
         self.last_quantum: tuple[str, int] | None = None
+        self._draft_pending: list[list[int]] = [[] for _ in range(slots)]
+        if self.spec is not None:
+            self._init_spec(slots, max_len, block_size)
+
+    def _init_spec(self, slots: int, max_len: int, block_size: int) -> None:
+        """The draft's own serving state: a paged runtime and pool that
+        no other model shares (so a rollback never dirties a CoW-shared
+        prefix block), and its decode and prefill programs."""
+        sp = self.spec
+        dcfg = sp.draft_cfg
+        self.draft_params = to_device(sp.draft_params, self.device)
+        self.draft_runtime = PagedKVRuntime(slots, max_len, block_size)
+        self.draft_cache = init_cache(self.draft_params, dcfg, slots,
+                                      max_len, block_size=block_size,
+                                      num_blocks=self.draft_runtime.num_blocks,
+                                      device=self.device)
+        self._draft_step = sp.draft_step_fn or make_paged_decode(dcfg)
+        self._draft_fused = prefill_path(
+            dcfg, fused=sp.draft_fused_prefill) == "fused"
+        self._draft_prefill_raw = make_prefill_chunk(dcfg,
+                                                     fused=self._draft_fused)
+        self._verify_raw = make_verify_chunk(self.cfg,
+                                             fused=self.fused_prefill)
 
     # ------------------------------------------------------------ sizing
     @staticmethod
@@ -223,7 +336,10 @@ class ContinuousBatcher(ev.EventStreamMixin):
 
     def _edf_key(self, req: Request) -> tuple:
         """EDF pop order within a group: expired requests last, then
-        deadline, priority (higher first), arrival."""
+        deadline, priority (higher first), arrival; with ``edf=False``
+        arrival only."""
+        if not self.edf:
+            return (req._seq,)
         expired = req._deadline < self.bus.clock()
         return (expired, req._deadline, -req.priority, req._seq)
 
@@ -263,6 +379,12 @@ class ContinuousBatcher(ev.EventStreamMixin):
             req._cursor = reused
             self._pending[i] = list(req._feed[reused:])
             self.cache = cache_slot_reset(self.cache, i)
+            if self.spec is not None:
+                # The draft pool covers every slot fully and has no
+                # prefix cache, so its admission cannot fail.
+                dre = self.draft_runtime.admit(i, req._feed, remaining)
+                assert dre == 0, "draft pool has no prefix cache"
+                self._draft_pending[i] = list(req._feed)
             if self.bus.admitted(req.rid):   # back from preemption
                 self.bus.emit(ev.Progress, req.rid, phase="resume",
                               step=len(req.out), total=req.max_new)
@@ -276,6 +398,7 @@ class ContinuousBatcher(ev.EventStreamMixin):
             i, cached if self.runtime.prefix is not None else None)
         self.slots[i] = None
         self._pending[i] = []
+        self._release_draft(i)
         req._feed = list(req.prompt) + list(req.out)
         self.preemptions += 1
         self.bus.emit(ev.Preempted, req.rid, reason=reason)
@@ -304,10 +427,17 @@ class ContinuousBatcher(ev.EventStreamMixin):
                 self.runtime.release(i)   # no prefix donation: blocks
                 self.slots[i] = None      # may be half-written
                 self._pending[i] = []
+                self._release_draft(i)
                 self.runtime.check_consistency()
                 self.bus.emit(ev.Cancelled, rid)
                 return True
         return False
+
+    def _release_draft(self, i: int) -> None:
+        """Return the slot's draft-pool blocks (speculation only)."""
+        if self.spec is not None:
+            self.draft_runtime.release(i)
+            self._draft_pending[i] = []
 
     # ------------------------------------------------------- scheduling
     def step(self) -> int:
@@ -315,12 +445,42 @@ class ContinuousBatcher(ev.EventStreamMixin):
         requests progressed."""
         self._admit()
         for i, req in enumerate(self.slots):
-            if req is not None and self._pending[i]:
+            if req is not None and (self._pending[i]
+                                    or self._draft_pending[i]):
                 return self._prefill_quantum(i)
+        if self.spec is not None:
+            return self._spec_quantum()
         return self._decode_quantum()
+
+    def _draft_ingest(self, i: int) -> torch.Tensor:
+        """One draft prefill chunk.  The draft keeps a full private copy
+        of the slot's feed (its pool has no prefix cache), so it rides
+        the slot's prefill quanta until it has caught up."""
+        chunk = self._draft_pending[i][:self.prefill_chunk]
+        del self._draft_pending[i][:len(chunk)]
+        dpos = self.draft_runtime.pos[i]
+        dev = self.device
+        nxt, self.draft_cache = self._draft_prefill_raw(
+            self.draft_params,
+            torch.tensor([chunk], dtype=torch.int64, device=dev),
+            torch.full((1,), dpos, dtype=torch.int32),
+            i,
+            torch.tensor([self.draft_runtime.tables[i]], dtype=torch.int32,
+                         device=dev),
+            self.draft_cache)
+        self.draft_runtime.pos[i] = dpos + len(chunk)
+        self.draft_launches += 1 if self._draft_fused else len(chunk)
+        return nxt
 
     def _prefill_quantum(self, i: int) -> int:
         req = self.slots[i]
+        if not self._pending[i]:
+            # The target's feed is in, the draft's is not (a prefix hit
+            # skipped target chunks the draft must still ingest).
+            self._draft_ingest(i)
+            self.prefill_quanta += 1
+            self.last_quantum = ("draft-prefill", 1)
+            return 1
         chunk = self._pending[i][:self.prefill_chunk]
         del self._pending[i][:len(chunk)]
         pos = self.runtime.pos[i]
@@ -344,6 +504,8 @@ class ContinuousBatcher(ev.EventStreamMixin):
         self.last_quantum = ("prefill", 1)
         self.bus.emit(ev.Progress, req.rid, phase="prefill",
                       step=req._cursor, total=len(req._feed))
+        if self.spec is not None and self._draft_pending[i]:
+            self._draft_ingest(i)       # rides the same quantum
         if not self._pending[i]:        # feed done: next token is out
             tok = int(nxt[0])
             req.out.append(tok)
@@ -383,6 +545,140 @@ class ContinuousBatcher(ev.EventStreamMixin):
             self._maybe_retire(i)
         return len(active)
 
+    # ------------------------------------------- speculative decoding
+    def _slot_cap(self, req: Request) -> int:
+        """Cacheable positions of this request (the admit-time block
+        reservation): the final token is emitted, never cached."""
+        return min(len(req.prompt) + req.max_new - 1, self.max_len)
+
+    def spec_tokens_per_round(self) -> float:
+        """Tokens emitted per verification launch (accepted draft tokens
+        plus the bonus token); 1.0 before any speculation has run."""
+        if not self.spec_verifies:
+            return 1.0
+        return self.spec_accepted / self.spec_verifies + 1.0
+
+    def _spec_quantum(self) -> int:
+        """One speculative decode quantum, in three phases:
+
+        1. **Draft proposal** — batched draft decode steps at the slot
+           shape propose up to ``k`` tokens per slot greedily.  A slot
+           whose proposal is done (or that has no request) runs as an
+           idle row: position 0, its table all ``NULL_BLOCK``.
+        2. **Verification** — per slot, the pending token plus the
+           proposal in one chunk launch; the target's greedy token at
+           every position decides the longest accepted prefix, and the
+           position after it gives a bonus token.
+        3. **Commit / rollback** — the rejected tail rolls back with
+           ``PagedKVRuntime.truncate`` (the write window went through
+           ``ensure_writable`` first); the draft pool rolls back the same
+           way and re-feeds any gap next round.
+
+        Near a request's horizon the proposal shrinks to what still
+        fits; when no slot can propose, the quantum is one plain decode
+        step."""
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            self.last_quantum = None
+            return 0
+        k: dict[int, int] = {}
+        for i in active:
+            r = self.slots[i]
+            k[i] = max(0, min(self.spec.k, r.max_new - len(r.out) - 1,
+                              self._slot_cap(r) - 1 - self.runtime.pos[i]))
+        if all(k[i] == 0 for i in active):
+            return self._decode_quantum()
+        n_slots = len(self.slots)
+        mb = self.draft_runtime.blocks_per_slot
+        dev = self.device
+        # ---- phase 1: draft proposals (batched across slots) --------
+        base, feeds, steps, props = {}, {}, {}, {}
+        for i in active:
+            r = self.slots[i]
+            stream = list(r.prompt) + list(r.out)
+            base[i] = self.draft_runtime.pos[i]
+            # The catch-up gap (tokens committed since the draft last saw
+            # this slot) and the pending token, whose output is the
+            # first proposal.
+            feeds[i] = stream[base[i]:self.runtime.pos[i] + 1]
+            steps[i] = len(feeds[i]) + max(k[i] - 1, 0)
+            props[i] = []
+        for t in range(max(steps.values())):
+            toks = [0] * n_slots
+            poss = [0] * n_slots
+            tab = [[NULL_BLOCK] * mb for _ in range(n_slots)]
+            for i in active:
+                if t >= steps[i]:
+                    continue            # idle row: writes land in NULL_BLOCK
+                tab[i] = self.draft_runtime.tables[i]
+                poss[i] = base[i] + t
+                toks[i] = feeds[i][t] if t < len(feeds[i]) else props[i][-1]
+            nxt, self.draft_cache = self._draft_step(
+                self.draft_params,
+                torch.tensor(toks, dtype=torch.int64, device=dev)[:, None],
+                torch.tensor(poss, dtype=torch.int32, device=dev),
+                torch.tensor(tab, dtype=torch.int32, device=dev),
+                self.draft_cache)
+            self.draft_launches += 1
+            nxt_host = nxt.cpu().tolist()
+            self.host_reads += 1
+            for i in active:
+                if (t < steps[i] and t >= len(feeds[i]) - 1
+                        and len(props[i]) < k[i]):
+                    props[i].append(int(nxt_host[i]))
+        # ---- phases 2 and 3: verify, commit, roll back (per slot) ----
+        bs = self.runtime.block_size
+        total_prop = total_acc = 0
+        for i in active:
+            req = self.slots[i]
+            pos = self.runtime.pos[i]
+            chunk = [int(self._next_tok[i])] + props[i]
+            length = len(chunk)
+            for bi in range(pos // bs, cdiv(pos + length, bs)):
+                self.runtime.ensure_writable(i, bi * bs)
+            g, self.cache = self._verify_raw(
+                self.params,
+                torch.tensor([chunk], dtype=torch.int64, device=dev),
+                torch.full((1,), pos, dtype=torch.int32),
+                i,
+                torch.tensor([self.runtime.tables[i]], dtype=torch.int32,
+                             device=dev),
+                self.cache)
+            greedy = g.cpu()[0].tolist()
+            self.host_reads += 1
+            self.decode_launches += 1 if self.fused_prefill else length
+            self.spec_verifies += 1
+            m = 0
+            while m < k[i] and props[i][m] == greedy[m]:
+                m += 1
+            emitted = props[i][:m] + [greedy[m]]
+            req.proposed += k[i]
+            req.accepted += m
+            total_prop += k[i]
+            total_acc += m
+            if req.eos is not None and req.eos in emitted:
+                emitted = emitted[:emitted.index(req.eos) + 1]
+            # The verify cached all `length` fed positions: keep the
+            # pending token and the accepted prefix, rewind the rest.
+            self.runtime.pos[i] = pos + length
+            self.runtime.truncate(i, pos + len(emitted))
+            # The draft was fed the pending token and props[:k-1]; past
+            # the accepted prefix they describe a stream that is gone.
+            self.draft_runtime.pos[i] = min(pos + 1 + m, pos + max(k[i], 1))
+            for tok in emitted:
+                req.out.append(tok)
+                self.bus.emit(ev.TokenDelta, req.rid, token=tok,
+                              pos=len(req.out) - 1)
+            req.decode_steps += 1
+            self._next_tok[i] = emitted[-1]
+            self._maybe_retire(i)
+        self.decode_quanta += 1
+        self.spec_rounds += 1
+        self.spec_proposed += total_prop
+        self.spec_accepted += total_acc
+        self.last_quantum = ("decode-spec", len(active))
+        return len(active)
+
     def _maybe_retire(self, i: int) -> None:
         req = self.slots[i]
         over = len(req.out) >= req.max_new
@@ -396,6 +692,7 @@ class ContinuousBatcher(ev.EventStreamMixin):
             self.runtime.release(i, req.prompt)
             self.slots[i] = None
             self._pending[i] = []
+            self._release_draft(i)
             self.bus.emit(ev.Finished, req.rid, result=req)
 
     def run(self, max_steps: int = 10_000) -> list[Request]:

@@ -91,8 +91,9 @@ def test_engine_validates_requests():
         eng.submit(GenerateRequest(rid=0, tokens=[0] * 77, steps=0))
     with pytest.raises(ValueError):
         eng.submit(GenerateRequest(rid=0, tokens=[0] * 77, latent_hw=3))
-    with pytest.raises(NotImplementedError):
-        eng.submit(GenerateRequest(rid=0, tokens=[0] * 77, preview_every=1))
+    with pytest.raises(ValueError):
+        eng.submit(GenerateRequest(rid=0, tokens=[0] * 77, preview_every=-1))
+    eng.submit(GenerateRequest(rid=1, tokens=[0] * 77, preview_every=1))
     eng.submit(GenerateRequest(rid=0, tokens=[0] * 77))
     with pytest.raises(ValueError):
         eng.submit(GenerateRequest(rid=0, tokens=[0] * 77))

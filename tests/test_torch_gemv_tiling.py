@@ -365,6 +365,16 @@ def test_cta_rule_at_the_decode_shapes():
             assert k // step >= GEMV_WARPS
 
 
+def test_verify_linears_are_held_on_the_card():
+    """A speculative verify runs the q8_0 target's linears and its Q8_0
+    head at M = k + 1 rows, on the decode path; chip_smoke holds each of
+    them at that M."""
+    m = chip_smoke.SPEC_K + 1
+    assert m <= M_GEMV
+    want = {**DECODE_LINEARS, (49152, 4096): 3072}
+    assert {(n, k) for mm, n, k in chip_smoke.Q8_SHAPES if mm == m} >= set(want)
+
+
 def _constants(path: Path) -> dict[str, int]:
     return {name: int(val) for name, val in
             re.findall(r"constexpr int (\w+) = (\d+);", path.read_text())}
