@@ -26,7 +26,11 @@ caught and passed over):
              yardstick's device time under torch.profiler.
              ``q8_matmul_w8a8`` has no model path (as in the reference): its
              launches are counted through ``ops.quantized_matmul_w8a8``, its
-             only entry point, at the LM shapes.
+             only entry point, at its shapes (Granite-8B's decode linears at
+             M = 4, 5, 8, 16, its 256-token chunk, the UNet's level-0
+             linears); each of its shapes also gives the block-order sum of
+             the reference's terms bit for bit (``w8a8_block_order``), and
+             its timed rows log the f32 epilogue floor beside the bound.
              The paged prefill (bf16 and Q8_0 pools) and decode kernels at
              Granite-8B's widths: outputs within the attention limit, pools
              and Q8_0 bytes bit-identical to the plain version's, including
@@ -218,8 +222,15 @@ Q4_EDGE = [(77, 320, 768), (1, 70, 96), (3, 70, 100),   # K = 100: tail-padded
            (16, 70, 96), (9, 70, 100),                  # decode path, two token groups
            (17, 70, 96), (129, 100, 100),               # tile path: a half K step; tail-padded
            (255, 70, 1152)]                             # ragged M and N, 18 K steps
-W8A8_SHAPES = LM_MATMUL_SHAPES
-W8A8_EDGE = [(4, 1000, 4128), (5, 70, 96)]   # K/32 = 129 and 3: a partial K stage
+# q8_matmul_w8a8 (decode path up to M_GEMV = 16 rows, csrc/q8_matmul_w8a8.cu):
+# Granite-8B's linears, M = 8 and 16 at the path's top, the verify's M = 5,
+# and the UNet's level-0 linears as q8_matmul has them (tile path).
+W8A8_SHAPES = LM_MATMUL_SHAPES + [(8, 14336, 4096), (16, 14336, 4096),
+                                  (SPEC_K + 1, 14336, 4096), (4096, 320, 320),
+                                  (4096, 2560, 320)]
+W8A8_EDGE = [(4, 1000, 4128), (5, 70, 96),   # K/32 = 129 and 3: a partial K stage
+             (16, 70, 96), (17, 70, 96),     # the path cut
+             (129, 100, 4128)]               # ragged tiles and a partial K stage
 # Contiguous decode at Granite-8B's widths: (B, Hkv, G, hd, C, kv_len).
 # The second is full_gen's own: a 2048-slot cache at position 159.
 FLASH_DECODE_SHAPES = [(4, 8, 4, 128, 2048, 2000), (4, 8, 4, 128, 2048, 160)]
@@ -287,6 +298,11 @@ ATTN_ABS, ATTN_REL = 2e-3, 1e-2
 # at |out| in [1, 2); the same rounding emulated in f32 gives the same).
 ATTN_P_ROUND = 2.0 ** -9
 MATMUL_RTOL = 2e-3     # same bf16 operands, f32 sums in another order
+# The w8a8 epilogue: per (m, n, block) a multiply, a multiply and an add in
+# f32 on the CUDA cores (the reference's rounding), at 128 lanes x 132 SMs
+# x 1.98 GHz (67 TFLOP/s counting an FMA as two).
+FP32_INSTR_PER_S = 128 * 132 * 1.98e9
+W8A8_EPILOGUE_INSTR = 3
 TINY_CORR, TINY_MAXABS = 0.999, 5e-2
 
 
@@ -488,6 +504,18 @@ def _matmul_case(kind: str, shape, gen, timed: bool) -> dict:
         raise AssertionError(f"{kind} {shape}: max|err| {err} > {tol}")
     if not torch.equal(kern(), out):
         raise AssertionError(f"{kind} {shape}: a second call gave other bits")
+    if kind == "q8_matmul_w8a8":
+        if not torch.equal(out, w8a8_block_order(xa.qs, xs, wt)):
+            raise AssertionError(f"{kind} {shape}: not the block-order sum bit for bit")
+        if not timed:
+            # Both scale tensors one element into their storage (ws 2 bytes
+            # off a 4-byte word): the kernel copies the words around them.
+            def shifted(t):
+                buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+                buf[1:] = t.flatten()
+                return buf[1:].view(t.shape)
+            if not torch.equal(q8.q8_matmul_w8a8(xa.qs, shifted(xs), wt.qs, shifted(wt.d)), out):
+                raise AssertionError(f"{kind} {shape}: offset scale tensors gave other bits")
     row = {"shape": shape, "max_abs_err": err}
     if timed:
         # cuBLAS on the weight already dequantized to bf16 (what the
@@ -505,11 +533,28 @@ def _matmul_case(kind: str, shape, gen, timed: bool) -> dict:
         # bytes: x (bf16, or int8 + f32 scales for w8a8), the weight, y f32.
         row["bound_ms"], row["bound_by"] = bound(
             2.0 * m * n * kdim, xbytes + wbytes + 4 * m * n, ops_flops)
+        if kind == "q8_matmul_w8a8":
+            row["epilogue_floor_ms"] = (m * n * (kdim // 32) * W8A8_EPILOGUE_INSTR
+                                        / FP32_INSTR_PER_S * 1e3)
     return row
 
 
-def _flash_decode_case(case, gen, timed: bool) -> dict:
-    from repro_torch.kernels import flash_decode as fd
+def w8a8_block_order(xq: torch.Tensor, xs: torch.Tensor, w) -> torch.Tensor:
+    """The reference's w8a8 terms, ``(dot * xs) * ws`` with each block dot
+    exact, added in block order from 0 in f32: what
+    ``csrc/q8_matmul_w8a8.cu`` computes, bit for bit (the plain version
+    adds the same terms in torch's order)."""
+    acc = torch.zeros((xq.shape[0], w.qs.shape[0]), dtype=torch.float32, device=xq.device)
+    ws = w.d.float()
+    for b in range(xq.shape[1] // 32):
+        cols = slice(32 * b, 32 * b + 32)
+        dot = xq[:, cols].float() @ w.qs[:, cols].float().t()   # exact: |dot| <= 2^19
+        acc = acc + (dot * xs[:, b:b + 1]) * ws[:, b]
+    return acc
+
+
+def flash_decode_inputs(case, gen):
+    """A contiguous decode case's q, k, v, kv_len and scale, drawn from gen."""
     b, hkv, g, hd, c, n = case
     q = torch.randn((b, hkv, g, hd), generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn((b, hkv, c, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -517,7 +562,13 @@ def _flash_decode_case(case, gen, timed: bool) -> dict:
     k[:, :, n:] = float("nan")             # never loaded: slots past kv_len
     v[:, :, n:] = float("nan")
     kv_len = torch.tensor([n], dtype=torch.int32, device="cuda")
-    scale = hd ** -0.5                     # passed, as the model passes it
+    return q, k, v, kv_len, hd ** -0.5     # the scale passed, as the model passes it
+
+
+def _flash_decode_case(case, gen, timed: bool) -> dict:
+    from repro_torch.kernels import flash_decode as fd
+    b, hkv, g, hd, c, n = case
+    q, k, v, kv_len, scale = flash_decode_inputs(case, gen)
 
     def kern():
         return fd.flash_decode(q, k, v, kv_len, scale=scale)
@@ -543,23 +594,29 @@ def _flash_decode_case(case, gen, timed: bool) -> dict:
     return row
 
 
+# phase_kernels: each kernel draws its inputs from a generator of its own,
+# seeded SEED plus the kernel's offset here, so the cases of one kernel
+# decide nothing of another's inputs.
+KERNEL_SEED_OFFSET = {"flash_attention": 0, "q8_matmul": 11, "q3k_matmul": 12,
+                      "q4_matmul": 13, "q8_matmul_w8a8": 14, "flash_decode": 15}
+
+
 def phase_kernels() -> dict[str, list[dict]]:
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = {"flash_attention": [], "q8_matmul": [], "q3k_matmul": [],
-            "q4_matmul": [], "q8_matmul_w8a8": [], "flash_decode": []}
+    gens = {kind: torch.Generator(device="cuda").manual_seed(SEED + off)
+            for kind, off in KERNEL_SEED_OFFSET.items()}
+    rows = {kind: [] for kind in KERNEL_SEED_OFFSET}
     for shape in ATTN_SHAPES + ATTN_LM_SHAPES + ATTN_EDGE:
         rows["flash_attention"].append(
-            _attn_case(shape, gen, timed=shape not in ATTN_EDGE))
+            _attn_case(shape, gens["flash_attention"], timed=shape not in ATTN_EDGE))
     for kind, shapes, edges in (("q8_matmul", Q8_SHAPES, Q8_EDGE),
                                 ("q3k_matmul", Q3K_SHAPES, Q3K_EDGE),
                                 ("q4_matmul", Q4_SHAPES, Q4_EDGE),
                                 ("q8_matmul_w8a8", W8A8_SHAPES, W8A8_EDGE)):
         for shape in shapes + edges:
-            rows[kind].append(_matmul_case(kind, shape, gen,
-                                           timed=shape in shapes))
+            rows[kind].append(_matmul_case(kind, shape, gens[kind], timed=shape in shapes))
     for case in FLASH_DECODE_SHAPES + FLASH_DECODE_EDGE:
-        rows["flash_decode"].append(
-            _flash_decode_case(case, gen, timed=case in FLASH_DECODE_SHAPES))
+        rows["flash_decode"].append(_flash_decode_case(
+            case, gens["flash_decode"], timed=case in FLASH_DECODE_SHAPES))
     _log_rows(rows)
     return rows
 
@@ -871,6 +928,8 @@ def _log_rows(rows: dict) -> None:
             if "device_ms" in r:
                 timing += (f"; device ms {r['device_ms']:.4f} library "
                            f"{r['library_device_ms']:.4f}")
+            if "epilogue_floor_ms" in r:
+                timing += f"; epilogue floor {r['epilogue_floor_ms']:.4f}"
             if "cublas_ms" in r:
                 timing += (f"; cuBLAS on bf16 ms {r['cublas_ms']:.4f} device "
                            f"{r['cublas_device_ms']:.4f}")
@@ -956,7 +1015,7 @@ def _tiny_segmented(params, tokens) -> None:
 OURS = ("flash_attention_kernel", "tile_kernel", "q8_gemv_kernel",
         "q3k_gemv_kernel", "attend_kernel", "write_bf16_kernel",
         "write_q8_kernel", "decode_cluster_kernel", "q4_gemv_kernel",
-        "w8a8_kernel")
+        "w8a8_gemv_kernel")
 
 
 def _kind(name: str) -> str:

@@ -42,6 +42,25 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
+// ldmatrix of two 8x8 b16 matrices (rows of 16 bytes at the addresses
+// lanes 0-7 and 8-15 give; the other lanes' addresses are not read).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+// d(16x8, s32) = a(16x32, s8, row) b(32x8, s8, col) + c in every element:
+// an exact int32 dot over k = 32 (one Q8_0 block) per (row, column).
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1, int c) {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(c), "r"(c),
+          "r"(c), "r"(c));
+}
+
 // c(16x8, f32) += a(16x16, bf16, row) b(16x8, bf16, col).
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -353,6 +372,13 @@ __device__ __forceinline__ void cp_async4_n(void* dst, const void* src, int n) {
 template <int N>
 __device__ __forceinline__ void cp_async_wait_n() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A 16-byte copy through L1 (cp.async.ca): for data that other blocks of
+// the SM read again.
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
 // ---------------------------------------------------------------------

@@ -19,14 +19,16 @@ Granite-8B chunk (Hkv 8, G 4, hd 128, bs 16) through
 (256, 0), (256, 1792) and (208, 1792); and those of the quantized matmuls
 ``q4_matmul``, ``q8_matmul`` and ``q3k_matmul``: M = 1..16 on their decode
 paths, and the tile paths' shapes above (M = 32, Granite-8B's 256-token
-chunk linears, SD-Turbo's), where each case is also timed over copies of
-its weight, each call on the next, that together pass the L2 cache at the
-LM shapes (``cold device ms``).  ``--kinds`` limits a run to some of
+chunk linears, SD-Turbo's), and ``q8_matmul_w8a8`` at ``chip_smoke.py``'s
+``W8A8_SHAPES`` (x quantized to Q8_0 once), where each case is also timed
+over copies of its weight, each call on the next, that together pass the
+L2 cache at the LM shapes (``cold device ms``).  ``--kinds`` limits a run to some of
 these kernels (``q4_matmul,flash_decode_paged``).  It needs one card.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import itertools
 import json
 import re
@@ -55,6 +57,14 @@ Q3K = DECODE_MN + [(4, 4096, 4096), (4, 1024, 4096), (32, 14336, 4096),
                    (256, 1280, 1280), (154, 768, 768), (64, 1280, 5120)] + CHUNK
 PAGED = [(2000, 1990, 2011, 1500)]      # positions; MB 132, Hkv 8, G 4, hd 128, bs 16
 PREFILL = [(256, 0), (256, 1792), (208, 1792)]   # (T, pos0); MB 128, Hkv 8, G 4, hd 128
+
+
+def _w8a8_shapes() -> list[tuple[int, int, int]]:
+    """q8_matmul_w8a8's cases: this checkout's ``chip_smoke.W8A8_SHAPES``."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke.W8A8_SHAPES
 
 
 def _cuda_ms(fn, iters: int = 20) -> float:
@@ -124,7 +134,8 @@ def child(src_root: Path, sets: list[str], kinds: set[str] | None) -> None:
         return kinds is None or kind in kinds
     libs = {"flash_decode": "flash_decode", "flash_decode_paged": "flash_decode",
             "flash_prefill_paged": "flash_prefill", "flash_prefill_paged_q8": "flash_prefill",
-            "q4_matmul": "q4_matmul", "q8_matmul": "q8_matmul", "q3k_matmul": "q3k_matmul"}
+            "q4_matmul": "q4_matmul", "q8_matmul": "q8_matmul", "q3k_matmul": "q3k_matmul",
+            "q8_matmul_w8a8": "q8_matmul_w8a8"}
     build.build_all(tuple({lib for kind, lib in libs.items() if wanted(kind)}))
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -166,14 +177,22 @@ def child(src_root: Path, sets: list[str], kinds: set[str] | None) -> None:
             record(fn.__name__, (t, pos0), lambda: fn(q, kn, vn, *pools, table, pos0))
     # Each matmul case also runs over copies of its weight (up to 64, as far
     # as 100 MB: past the 50 MB L2 for the LM shapes), each call on the next
-    # (``cold_device_ms``), as a serving step finds its weights.
-    for kind, cases, quantize, fn in (
-            ("q4_matmul", Q4, quant.quantize_q4_0, lambda x, w: q4.q4_matmul(x, w.qs, w.d)),
-            ("q8_matmul", Q8, quant.quantize_q8_0, lambda x, w: q8.q8_matmul(x, w.qs, w.d)),
+    # (``cold_device_ms``), as a serving step finds its weights.  w8a8's x is
+    # quantized to Q8_0 once, outside the timed calls.
+    def q8_0_pair(x):
+        xa = quant.quantize_q8_0(x)
+        return xa.qs, xa.d.float()
+    for kind, cases, quantize, fn, prep in (
+            ("q4_matmul", Q4, quant.quantize_q4_0, lambda x, w: q4.q4_matmul(x, w.qs, w.d),
+             None),
+            ("q8_matmul", Q8, quant.quantize_q8_0, lambda x, w: q8.q8_matmul(x, w.qs, w.d),
+             None),
             ("q3k_matmul", Q3K, quant.quantize_q3_k,
-             lambda x, w: q3k.q3k_matmul(x, w.ql, w.qh, w.scales, w.d))):
+             lambda x, w: q3k.q3k_matmul(x, w.ql, w.qh, w.scales, w.d), None),
+            ("q8_matmul_w8a8", _w8a8_shapes(), quant.quantize_q8_0,
+             lambda x, w: q8.q8_matmul_w8a8(x[0], x[1], w.qs, w.d), q8_0_pair)):
         for m, n, kdim in cases if wanted(kind) else []:
-            x = bf16(m, kdim)
+            x = bf16(m, kdim) if prep is None else prep(bf16(m, kdim))
             ws = [quantize(torch.randn((n, kdim), generator=gen, device="cuda"))]
             while len(ws) * ws[0].nbytes() < 100e6 and len(ws) < 64:
                 ws.append(quantize(torch.randn((n, kdim), generator=gen, device="cuda")))
