@@ -18,7 +18,9 @@ caught and passed over):
              that ends inside the w8a8 kernel's K stage, the q8, q3k and q4
              decode paths with two token groups, kv_len = 1 and C, kv_len off the
              16-key range step, hd = 120 and 256, G = 1 and 16, logits
-             recomputed), with the tolerance stated beside it, and every matmul and
+             recomputed), with the tolerance stated beside it (contiguous
+             decode cases of at most FEW_KEYS keys add ATTN_P_ROUND * max|v|
+             and are held one-sided to an f64 softmax), and every matmul and
              flash_decode shape called twice for the same bits;
              per shape the kernel's, the plain version's and a yardstick
              PyTorch call's time (CUDA events), the roofline bound, and for
@@ -103,11 +105,38 @@ caught and passed over):
              whose ``lm_forward`` margin exceeds 0.125 (``make_prefill``'s
              first token likewise) equal to its argmax; tokens/s, peak
              memory and a profile of one decode step.
+8. full_router — SD-Turbo (bf16, 512x512, turbo, batch 2) and Granite-8B
+             (bf16 pool, 4 slots, block 16, chunk 256) at full width and depth
+             behind one ``EngineRouter`` on one bus, one ``CostModel`` shared
+             through ``EngineConfig`` and ``Telemetry`` attached.  The cost
+             model is calibrated on a micro-run (two images in two batches,
+             two 1024-token prompts with 8 new; each key's ms logged), then a
+             mixed run: 4 images (two with a 2 s deadline), full_lm's 6 LM
+             requests (60 s) and an image and an LM request with a 1 ms
+             budget.  Gates: the two 1 ms requests end Rejected at submit and
+             nothing else; every other rid one Admitted and one Finished; the
+             images equal a bare DiffusionEngine run's bits and the tokens a
+             bare ContinuousBatcher run's (and pass the lm_forward check above
+             0.125); launches equal the two bare runs' sum; the phase
+             histograms reconcile with the quanta and the trace has one root
+             span per rid.  Logged: the router's wall against the bare runs',
+             and the time blocked in the cost model's and telemetry's syncs.
+9. full_fleet — a ``FleetManager`` of two replicas, each an ``EngineRouter``
+             over the same SD-Turbo and Granite-8B weight tensors, serving two
+             segmented images (euler 4, a latent preview every step) and two
+             1024-token LM requests (32 new), uninterrupted and with replica0
+             killed while it holds an image mid-denoise and an LM request
+             mid-prefill.  Gates: one terminal per rid; the migrated ones
+             Preempted and resumed; images the uninterrupted run's bits (one
+             batch bucket); tokens pass the lm_forward check above 0.125;
+             building replica1 costs its KV pool, not the weights, and the
+             run's peak stays under two pools plus full_router's activations.
 
 Progress goes to stderr.  Standard output gets three lines at the end of
 a run that passed: the card's name and power limit as ``nvidia-smi``
 gives them, a JSON object ``{"kernels": [...]}`` (per kernel: launches
-on the main paths, phases full, full_lm and full_gen, and for
+on the main paths, phases full, full_lm, full_gen, full_router and
+full_fleet, and for
 ``q8_matmul_w8a8`` through its entry point; worst error; the headline
 shape's times and bound), and ``{"ok": true, "device": {...}}``.
 """
@@ -297,6 +326,14 @@ ATTN_ABS, ATTN_REL = 2e-3, 1e-2
 # moves an output by up to 2^-9 * max|v| before its bf16 rounding (2 ulps
 # at |out| in [1, 2); the same rounding emulated in f32 gives the same).
 ATTN_P_ROUND = 2.0 ** -9
+# Contiguous flash_decode cases with at most FEW_KEYS keys carry the same
+# allowance, for the same reason: both versions round the normalised P to
+# bf16, from f32 p that differ in the last bits, and with a handful of keys
+# one p rounding the other way moves an output by up to 2^-9 * max|v|.
+# Those cases are also held one-sided to an f64 softmax of the same bf16
+# inputs: the kernel's largest distance from it may exceed the plain
+# version's by at most ATTN_ABS.
+FEW_KEYS = 64
 MATMUL_RTOL = 2e-3     # same bf16 operands, f32 sums in another order
 # The w8a8 epilogue: per (m, n, block) a multiply, a multiply and an add in
 # f32 on the CUDA cores (the reference's rounding), at 128 lanes x 132 SMs
@@ -565,6 +602,20 @@ def flash_decode_inputs(case, gen):
     return q, k, v, kv_len, hd ** -0.5     # the scale passed, as the model passes it
 
 
+def flash_decode_f64(q, k, v, n: int, scale: float) -> torch.Tensor:
+    """Attention of one contiguous decode case in f64 over the first ``n``
+    keys of the same bf16 q, k, v: the yardstick of the few-key check."""
+    lg = torch.einsum("bhgd,bhcd->bhgc", q.double(), k[:, :, :n].double()) * scale
+    return torch.einsum("bhgc,bhcd->bhgd", torch.softmax(lg, -1), v[:, :, :n].double())
+
+
+def flash_decode_p_round(case, v) -> float:
+    """The ATTN_P_ROUND allowance of a contiguous decode case: 2^-9 *
+    max|v| over its keys when it has at most FEW_KEYS of them, else 0."""
+    n = case[-1]
+    return ATTN_P_ROUND * v[:, :, :n].float().abs().max().item() if n <= FEW_KEYS else 0.0
+
+
 def _flash_decode_case(case, gen, timed: bool) -> dict:
     from repro_torch.kernels import flash_decode as fd
     b, hkv, g, hd, c, n = case
@@ -577,7 +628,20 @@ def _flash_decode_case(case, gen, timed: bool) -> dict:
         return fd.flash_decode_ref(q, k, v, kv_len, scale=scale)
     out, want = kern(), plain()
     torch.cuda.synchronize()
-    row = {"shape": case, "max_abs_err": _check_attn("flash_decode", case, out, want)}
+    p_round = flash_decode_p_round(case, v)
+    row = {"shape": case,
+           "max_abs_err": _check_attn("flash_decode", case, out, want, p_round)}
+    if n <= FEW_KEYS:
+        exact = flash_decode_f64(q, k, v, n, scale)
+        kern_f64 = (out.double() - exact).abs().max().item()
+        plain_f64 = (want.double() - exact).abs().max().item()
+        log(f"[kernels] flash_decode {case}: {n} keys, limit + {p_round:.3e} "
+            f"(ATTN_P_ROUND * max|v|); from an f64 softmax: kernel {kern_f64:.3e}, "
+            f"plain {plain_f64:.3e}")
+        if not kern_f64 <= plain_f64 + ATTN_ABS:
+            raise AssertionError(f"flash_decode {case}: the kernel is {kern_f64} from an "
+                                 f"f64 softmax, the plain version {plain_f64}: more "
+                                 f"than {ATTN_ABS} further")
     if not torch.equal(kern(), out):
         raise AssertionError(f"flash_decode {case}: a second call gave other bits")
     if timed:
@@ -659,13 +723,15 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.view({1: torch.uint8, 2: torch.int16}[x.element_size()])
 
 
-def _check_attn(name: str, case, out, want) -> float:
+def _check_attn(name: str, case, out, want, p_round: float = 0.0) -> float:
+    """``out`` within ATTN_ABS (plus ``p_round``) + ATTN_REL * |want|."""
+    atol = ATTN_ABS + p_round
     diff = (out.float() - want.float()).abs()
     err = diff.max().item()
-    excess = (diff - ATTN_ABS - ATTN_REL * want.float().abs()).max().item()
+    excess = (diff - atol - ATTN_REL * want.float().abs()).max().item()
     if not (torch.isfinite(out.float()).all() and excess <= 0):
         raise AssertionError(f"{name} {case}: max|err| {err}; some |err| "
-                             f"exceeds {ATTN_ABS} + {ATTN_REL}*|ref| by {excess}")
+                             f"exceeds {atol} + {ATTN_REL}*|ref| by {excess}")
     return err
 
 
@@ -1602,13 +1668,15 @@ def _timed_run(cb, reqs, trace_spec: bool = False) -> dict:
             "tokens_per_s": (n_pre + gen_tokens) / wall}
 
 
-def _check_against_forward(cb, params, cfg, margin_limit: float = TIE_MARGIN) -> None:
-    """Every generated token whose top-2 margin in ``lm_forward``'s logits
-    (over prompt + generated tokens) exceeds ``margin_limit`` is its argmax."""
+def _check_against_forward(finished, params, cfg, margin_limit: float = TIE_MARGIN,
+                           label: str = "full_lm") -> None:
+    """Every token generated for the ``finished`` requests whose top-2
+    margin in ``lm_forward``'s logits (over prompt + generated tokens)
+    exceeds ``margin_limit`` is its argmax."""
     from repro_torch.models.transformer import lm_forward
     checked = ties = 0
     with torch.no_grad():
-        for r in cb.finished:
+        for r in finished:
             seq = torch.tensor([r.prompt + r.out[:-1]], device="cuda")
             logits = lm_forward(params, cfg, seq)[0][0, len(r.prompt) - 1:]
             top = logits.topk(2, dim=-1)
@@ -1621,10 +1689,10 @@ def _check_against_forward(cb, params, cfg, margin_limit: float = TIE_MARGIN) ->
                 checked += 1
                 if best[i] != tok:
                     raise AssertionError(
-                        f"full_lm rid {r.rid} token {i}: served {tok}, lm_forward "
+                        f"{label} rid {r.rid} token {i}: served {tok}, lm_forward "
                         f"argmax {best[i]} with margin {margin[i]:.4f}")
             del logits
-    log(f"[full_lm] lm_forward agrees on {checked} generated tokens; "
+    log(f"[{label}] lm_forward agrees on {checked} generated tokens; "
         f"{ties} near-ties (margin <= {margin_limit}) not compared")
 
 
@@ -1697,7 +1765,7 @@ def phase_full_lm(card: str) -> dict[str, int]:
             f"{cb.decode_quanta} decode; prefix hits {hits}; peak {peak:.2f} GiB; "
             f"weights {param_bytes(cb.params) / 2**30:.2f} GiB; launches {counts}; {card}")
         if preset == "none" and not quantized:
-            _check_against_forward(cb, base, cfg)
+            _check_against_forward(cb.finished, base, cfg)
         _profile_lm(cb, label)     # every run: bf16 and Q8_0 pools
         if preset == "none" and not quantized:
             plain_quantum_ms = stats["decode_quantum_ms"]
@@ -1763,7 +1831,7 @@ def _full_lm_spec(base, cfg, max_len: int, plain_quantum_ms: float, card: str) -
             raise AssertionError(f"full_lm spec {label}: no speculative round")
         for name, c in counts.items():
             totals[name] += c
-        _check_against_forward(cb, target, cfg, GEN_TIE_MARGIN)
+        _check_against_forward(cb.finished, target, cfg, GEN_TIE_MARGIN)
         emitted = stats["generated_tokens"] - len(reqs)   # the first tokens come from prefill
         acc = cb.spec_accepted / max(cb.spec_proposed, 1)
         verify_ms, draft_ms = _profile_spec(cb, label)
@@ -2051,6 +2119,419 @@ def phase_full_gen(card: str) -> dict[str, int]:
     return totals
 
 
+# ------------------------------------------------- the serving surface
+# phase full_router: images (rids 0-3; 0 and 1 with a SERVE_IMAGE_DEADLINE_MS
+# budget), full_lm's six LM requests (rids 4-9, SERVE_LM_DEADLINE_MS), then
+# one image (10) and one LM request (11) that no engine can serve in 1 ms.
+SERVE_IMAGES = 4
+SERVE_IMAGE_DEADLINE_MS = 2000.0
+SERVE_LM_DEADLINE_MS = 60000.0
+SERVE_HOPELESS_MS = 1.0
+CALIB_PROMPT, CALIB_NEW = 1024, 8
+# phase full_fleet: two images on the segmented path (euler, FLEET_STEPS
+# steps, a latent preview every step) and two LM requests of FLEET_PROMPT
+# tokens; replica0 holds rids 0 and 2 and dies at its quantum FLEET_KILL_AT,
+# with rid 0 two denoise steps in and rid 2 two prefill chunks in.
+FLEET_STEPS, FLEET_PROMPT, FLEET_KILL_AT = 4, 1024, 4
+
+
+def _pool_bytes(cb) -> int:
+    return sum(t.numel() * t.element_size() for c in cb.cache for t in c
+               if t is not None)
+
+
+class _SyncTimer:
+    """Count and time the engines' observation syncs (``sync_device``, which
+    they call only with a cost model or metrics attached) over one run."""
+    MODULES = ("repro_torch.engine.diffusion_engine", "repro_torch.serving.scheduler")
+
+    def __enter__(self):
+        import importlib
+        self.mods = [importlib.import_module(m) for m in self.MODULES]
+        self.inner = [m.sync_device for m in self.mods]
+        self.calls, self.seconds = 0, 0.0
+
+        def timed(device, _inner=self.inner[0]):
+            s0 = time.perf_counter()
+            _inner(device)
+            self.seconds += time.perf_counter() - s0
+            self.calls += 1
+        for m in self.mods:
+            m.sync_device = timed
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in zip(self.mods, self.inner):
+            m.sync_device = fn
+
+
+def _serving_bases():
+    """SD-Turbo and Granite-8B bf16 weights on the card, seeded as phases
+    full and full_lm seed them: one tree each, which every engine of the
+    two serving phases shares."""
+    from repro_torch.configs import SD_TURBO, get_config
+    from repro_torch.engine import init_pipeline
+    from repro_torch.models.transformer import init_lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("granite-8b")
+    assert cfg.num_layers == LM_LAYERS
+    sd = init_pipeline(SEED, SD_TURBO, device="cuda")
+    lm = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    return sd, lm, cfg
+
+
+def _serve_max_len() -> int:
+    from repro_torch.serving import ContinuousBatcher
+    return ContinuousBatcher.required_len(len(LM_PROMPTS), 4, max(LM_PROMPTS), LM_MAX_NEW)
+
+
+def _router_requests(vocab_sd: int, vocab_lm: int):
+    """New request objects for one run (a request carries its serving
+    state), with the same tokens at every call: (images, LM requests, the
+    two hopeless ones)."""
+    from repro_torch.configs import SD_TURBO
+    from repro_torch.engine import GenerateRequest
+    from repro_torch.serving import Request
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    toks = [torch.randint(0, vocab_sd, (SD_TURBO.text_len,), generator=gen,
+                          device="cuda").tolist() for _ in range(SERVE_IMAGES + 1)]
+    lm = _lm_requests(Request, LM_PROMPTS, vocab_lm, LM_MAX_NEW, LM_SHARED,
+                      torch.Generator(device="cuda").manual_seed(SEED + 5))
+    images = [GenerateRequest(rid=i, tokens=toks[i], seed=300 + i,
+                              deadline_ms=SERVE_IMAGE_DEADLINE_MS if i < 2 else None)
+              for i in range(SERVE_IMAGES)]
+    texts = [Request(rid=SERVE_IMAGES + r.rid, prompt=r.prompt, max_new=r.max_new,
+                     deadline_ms=SERVE_LM_DEADLINE_MS) for r in lm]
+    n = SERVE_IMAGES + len(lm)
+    hopeless = [GenerateRequest(rid=n, tokens=toks[-1], seed=300 + n,
+                                deadline_ms=SERVE_HOPELESS_MS),
+                Request(rid=n + 1, prompt=list(lm[0].prompt), max_new=LM_MAX_NEW,
+                        deadline_ms=SERVE_HOPELESS_MS)]
+    return images, texts, hopeless
+
+
+def _timed_drain(engine) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_full_router(card: str, sd, lm, cfg) -> tuple[dict, int]:
+    """SD-Turbo (bf16, 512x512, turbo, batch 2) and Granite-8B (bf16 pool,
+    4 slots, block 16, chunk 256) behind one ``EngineRouter`` on one bus,
+    one ``CostModel`` shared through ``EngineConfig`` and ``Telemetry``
+    attached.  The cost model is calibrated on a micro-run, then the mixed
+    run is held to bare runs of the same requests: images bit for bit,
+    tokens equal, launches the sum of the bare runs'.  Returns the launches
+    and the activation high-water of the mixed run (bytes above its start)."""
+    from repro_torch.configs import SD_TURBO
+    from repro_torch.engine import (CostModel, DiffusionEngine, DiffusionEngineConfig,
+                                    EngineConfig, EngineRouter, GenerateRequest,
+                                    LMEngineConfig, calibrate)
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Telemetry, TraceRecorder
+    from repro_torch.serving import ContinuousBatcher, Request
+    max_len = _serve_max_len()
+    lm_kw = dict(slots=4, max_len=max_len, block_size=16, prefill_chunk=256)
+    vocab_sd = SD_TURBO.clip_cfg().vocab_size
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+
+    def add(counts):
+        for name, c in counts.items():
+            totals[name] += c
+
+    cm = CostModel()
+    tele = Telemetry(tracer=TraceRecorder())
+    conf = EngineConfig(cost_model=cm, metrics=tele,
+                        lm=LMEngineConfig(**lm_kw),
+                        diffusion=DiffusionEngineConfig(max_batch=2))
+    deng = DiffusionEngine(sd, SD_TURBO, config=conf, device="cuda")
+    leng = ContinuousBatcher(lm, cfg, config=conf, device="cuda")
+    router = EngineRouter(diffusion=deng, lm=leng, metrics=tele)
+    tele.attach(router.bus)
+    # Calibration: two images in two batches (each engine leaves the first
+    # call of a program key unobserved), two 1024-token prompts, 8 new.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    calib_img = [GenerateRequest(rid=-1 - i, seed=500 + i, tokens=torch.randint(
+        0, vocab_sd, (SD_TURBO.text_len,), generator=gen, device="cuda").tolist())
+        for i in range(2)]
+    calib_lm = [Request(rid=-3 - i, max_new=CALIB_NEW, prompt=torch.randint(
+        1, cfg.vocab_size, (CALIB_PROMPT,), generator=gen, device="cuda").tolist())
+        for i in range(2)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    calibrate(router, [calib_img[0]] + calib_lm)
+    calibrate(router, calib_img[1:])
+    torch.cuda.synchronize()
+    add(ops.launch_counts())
+    log(f"[full_router] calibration: 2 images (2 batches), 2 prompts of {CALIB_PROMPT} "
+        f"tokens with {CALIB_NEW} new, {time.perf_counter() - t0:.2f} s; diffusion "
+        f"first calls (traces) {deng.traces}; {card}")
+    for key, (cost, n) in sorted(cm.snapshot().items(), key=lambda kv: repr(kv[0])):
+        log(f"[full_router] cost model {key}: {1e3 * cost:.2f} ms ({n} observations)")
+    # The bare runs (after the calibration, so that both they and the mixed
+    # run find the process warm): the same requests, no cost model, no
+    # metrics.
+    bare_d = DiffusionEngine(sd, SD_TURBO, device="cuda", max_batch=2)
+    for r in _router_requests(vocab_sd, cfg.vocab_size)[0]:
+        bare_d.submit(r)
+    ops.reset_launch_counts()
+    wall_d = _timed_drain(bare_d)
+    counts_d = ops.launch_counts()
+    want_img = {res.rid: res.image for res in bare_d.finished}
+    bare_l = ContinuousBatcher(lm, cfg, device="cuda", **lm_kw)
+    for r in _router_requests(vocab_sd, cfg.vocab_size)[1]:
+        bare_l.submit(r)
+    ops.reset_launch_counts()
+    wall_l = _timed_drain(bare_l)
+    counts_l = ops.launch_counts()
+    want_tok = {r.rid: list(r.out) for r in bare_l.finished}
+    add(counts_d)
+    add(counts_l)
+    del bare_d, bare_l
+    torch.cuda.empty_cache()
+
+    images, texts, hopeless = _router_requests(vocab_sd, cfg.vocab_size)
+    for key in (cm._diff_keys(deng, images[0])["fused"],) + cm.lm_keys(leng):
+        if cm.cost(key) is None:
+            raise AssertionError(f"full_router: calibration left {key} unpriced")
+
+    # The mixed run.
+    q0 = deng.quanta + leng.prefill_quanta + leng.decode_quanta
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _SyncTimer() as syncs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in images + texts:
+            router.submit(r)
+        for r in hopeless:
+            router.submit(r)
+            if router.bus.terminal(r.rid) is None:
+                raise AssertionError(f"full_router: rid {r.rid} ({SERVE_HOPELESS_MS} ms) "
+                                     "was not rejected at submit")
+        router.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    act = torch.cuda.max_memory_allocated() - base_mem
+    add(counts)
+    quanta = deng.quanta + leng.prefill_quanta + leng.decode_quanta - q0
+
+    by_rid: dict[int, list] = {}
+    for e in router.bus.log:
+        by_rid.setdefault(e.rid, []).append(type(e).__name__)
+    for r in hopeless:
+        if by_rid[r.rid] != ["Rejected"]:
+            raise AssertionError(f"full_router rid {r.rid}: events {by_rid[r.rid]}")
+    for r in images + texts + calib_img + calib_lm:
+        kinds = by_rid.get(r.rid, [])
+        if kinds.count("Admitted") != 1 or kinds[-1] != "Finished" or sum(
+                k in ("Finished", "Cancelled", "Rejected") for k in kinds) != 1:
+            raise AssertionError(f"full_router rid {r.rid}: events {kinds}")
+    got_img = {res.rid: res.image for res in deng.finished if res.rid >= 0}
+    if sorted(got_img) != sorted(want_img) or not all(
+            torch.equal(got_img[rid], want_img[rid]) for rid in want_img):
+        raise AssertionError("full_router: the router's images are not the bare run's bits")
+    for rid, img in got_img.items():
+        if tuple(img.shape) != (512, 512, 3) or not torch.isfinite(img.float()).all():
+            raise AssertionError(f"full_router rid {rid}: a bad image")
+    got = [r for r in leng.finished if r.rid >= 0]
+    if {r.rid: list(r.out) for r in got} != want_tok:
+        raise AssertionError("full_router: the router's tokens differ from the bare run's")
+    want = {name: counts_d[name] + counts_l[name] for name in counts}
+    if counts != want:
+        raise AssertionError(f"full_router: launches {counts}, the bare runs' sum {want}")
+    for name in ("flash_attention", "flash_prefill_paged", "flash_decode_paged"):
+        if not counts[name]:
+            raise AssertionError(f"full_router: {name} was never launched")
+    ph = tele.registry.get("phase_seconds")
+    seen = {(e, p): ph.count(engine=e, phase=p) for e, p in (
+        ("lm", "prefill"), ("lm", "decode"), ("diffusion", "fused"), ("diffusion", "unet_step"))}
+    if (seen["lm", "prefill"], seen["lm", "decode"],
+            seen["diffusion", "fused"] + seen["diffusion", "unet_step"]) != (
+            leng.prefill_quanta, leng.decode_quanta, deng.quanta):
+        raise AssertionError(f"full_router: phase counts {seen} against quanta "
+                             f"{leng.prefill_quanta} prefill, {leng.decode_quanta} decode, "
+                             f"{deng.quanta} diffusion")
+    tracer = tele.tracer
+    rids = sorted(by_rid)
+    roots = {rid: sum(1 for s in tracer.spans if s.rid == rid and s.name == "request")
+             for rid in rids}
+    if tracer.rids() != rids or set(roots.values()) != {1}:
+        raise AssertionError(f"full_router: root spans per rid {roots}")
+    _check_against_forward(got, lm, cfg, GEN_TIE_MARGIN, label="full_router")
+    steps = tele.registry.get("router_steps_total")
+    log(f"[full_router] mixed run: {len(images)} images + {len(texts)} LM requests, "
+        f"rids {[r.rid for r in hopeless]} rejected at submit; {wall:.2f} s wall against "
+        f"{wall_d + wall_l:.2f} s for the bare runs ({wall_d:.2f} diffusion + {wall_l:.2f} "
+        f"LM), {quanta} quanta ({steps.value(engine='diffusion'):.0f} diffusion / "
+        f"{steps.value(engine='lm'):.0f} LM router steps over the whole phase), "
+        f"{1e3 * (wall - wall_d - wall_l) / quanta:.2f} ms per quantum above the bare "
+        f"runs; cost-model and telemetry syncs: {syncs.calls} calls, "
+        f"{1e3 * syncs.seconds:.1f} ms blocked ({1e3 * syncs.seconds / quanta:.2f} ms per "
+        f"quantum); launches {counts} = the bare runs' sum; activations "
+        f"{act / 2**30:.2f} GiB above the start; KV pool {_pool_bytes(leng) / 2**30:.2f} GiB; "
+        f"phase counts {seen}; one root span for each of {len(rids)} rids; {card}")
+    del router, deng, leng
+    torch.cuda.empty_cache()
+    return totals, act
+
+
+def _fleet_requests(vocab_sd: int, vocab_lm: int):
+    from repro_torch.configs import SD_TURBO
+    from repro_torch.engine import GenerateRequest
+    from repro_torch.serving import Request
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    imgs = [GenerateRequest(rid=i, seed=600 + i, sampler="euler", steps=FLEET_STEPS,
+                            preview_every=1, tokens=torch.randint(
+                                0, vocab_sd, (SD_TURBO.text_len,), generator=gen,
+                                device="cuda").tolist()) for i in range(2)]
+    texts = [Request(rid=2 + i, max_new=LM_MAX_NEW, prompt=torch.randint(
+        1, vocab_lm, (FLEET_PROMPT,), generator=gen, device="cuda").tolist())
+        for i in range(2)]
+    return imgs + texts
+
+
+def phase_full_fleet(card: str, sd, lm, cfg, act: int) -> dict:
+    """A ``FleetManager`` of two replicas, each an ``EngineRouter`` over
+    SD-Turbo and Granite-8B built on the same weight tensors, serving two
+    segmented images and two LM requests; once uninterrupted, once with
+    replica0 killed while it holds an image mid-denoise and an LM request
+    mid-prefill.  Every rid ends once, the migrated ones resume, images keep
+    their bits, tokens pass the ``lm_forward`` check, and the second
+    replica costs its KV pool, not a second copy of the weights."""
+    from repro_torch.configs import SD_TURBO
+    from repro_torch.engine import (DiffusionEngine, EngineRouter, FaultInjector,
+                                    FleetManager, ReplicaSpec)
+    from repro_torch.engine import events as ev
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ContinuousBatcher
+    max_len = _serve_max_len()
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+    built: dict[str, tuple[int, int]] = {}
+
+    def spec(name):
+        def build():
+            m0 = torch.cuda.memory_allocated()
+            rep = EngineRouter(
+                diffusion=DiffusionEngine(sd, SD_TURBO, device="cuda", max_batch=2),
+                lm=ContinuousBatcher(lm, cfg, device="cuda", slots=4, max_len=max_len,
+                                     block_size=16, prefill_chunk=256))
+            torch.cuda.synchronize()
+            built[name] = (torch.cuda.memory_allocated() - m0, _pool_bytes(rep.lm))
+            return rep
+        return ReplicaSpec(name, build=build)
+
+    def serve(injector):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fleet = FleetManager([spec("replica0"), spec("replica1")], injector=injector,
+                             watchdog_threshold=1e9)
+        for r in _fleet_requests(SD_TURBO.clip_cfg().vocab_size, cfg.vocab_size):
+            fleet.submit(r)
+        fleet.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for name, c in counts.items():
+            totals[name] += c
+        out = (fleet.bus.log, fleet.stats(), wall, counts,
+               torch.cuda.max_memory_allocated() - m0)
+        del fleet
+        return out
+
+    def results(log_):
+        imgs = {e.rid: e.result.image for e in log_
+                if isinstance(e, ev.Finished) and hasattr(e.result, "image")}
+        reqs = [e.result for e in log_ if isinstance(e, ev.Finished)
+                and hasattr(e.result, "out")]
+        return imgs, reqs
+
+    log0, stats0, wall0, _, _ = serve(None)
+    if stats0["migrations"] or stats0["evictions"]:
+        raise AssertionError(f"full_fleet: the uninterrupted run migrated: {stats0}")
+    want_img, want_lm = results(log0)
+    log1, stats1, wall1, counts, peak = serve(FaultInjector().kill("replica0", FLEET_KILL_AT))
+    got_img, got_lm = results(log1)
+
+    kill = next(j for j, e in enumerate(log1) if isinstance(e, ev.Preempted))
+    before = [e for e in log1[:kill] if isinstance(e, ev.Progress)]
+    denoise = [e.step for e in before if e.rid == 0 and e.phase == "denoise"]
+    prefill = [e.step for e in before if e.rid == 2 and e.phase == "prefill"]
+    if not (denoise and 0 < denoise[-1] < FLEET_STEPS and prefill
+            and 0 < prefill[-1] < FLEET_PROMPT):
+        raise AssertionError(f"full_fleet: the kill found rid 0 at denoise steps "
+                             f"{denoise} and rid 2 at prefill {prefill}")
+    if stats1["evictions"] != [("replica0", f"injected kill of replica0 at step "
+                                            f"{FLEET_KILL_AT}")] \
+            or stats1["migrations"] != 2 or stats1["lost"]:
+        raise AssertionError(f"full_fleet: {stats1}")
+    by_rid: dict[int, list] = {}
+    for e in log1:
+        by_rid.setdefault(e.rid, []).append(e)
+    for rid, evs in sorted(by_rid.items()):
+        kinds = [type(e).__name__ for e in evs]
+        if kinds.count("Admitted") != 1 or kinds[-1] != "Finished" or sum(
+                k in ("Finished", "Cancelled", "Rejected") for k in kinds) != 1:
+            raise AssertionError(f"full_fleet rid {rid}: events {kinds}")
+        resumed = any(isinstance(e, ev.Progress) and e.phase == "resume" for e in evs)
+        if (rid in (0, 2)) != ("Preempted" in kinds) or (rid in (0, 2)) != resumed:
+            raise AssertionError(f"full_fleet rid {rid}: events {kinds}")
+    if sorted(by_rid) != [0, 1, 2, 3]:
+        raise AssertionError(f"full_fleet: rids {sorted(by_rid)}")
+    # Every batch has the bucket max_batch = 2, so the restarted image keeps
+    # the uninterrupted run's bits.
+    if sorted(got_img) != [0, 1] or not all(torch.equal(got_img[r], want_img[r])
+                                            for r in got_img):
+        raise AssertionError("full_fleet: the images are not the uninterrupted run's bits")
+    _check_against_forward(got_lm, lm, cfg, GEN_TIE_MARGIN, label="full_fleet")
+    same = {r.rid: r.out == next(w.out for w in want_lm if w.rid == r.rid) for r in got_lm}
+    rise, pool = built["replica1"]
+    if not rise <= pool + 64 * 2**20:
+        raise AssertionError(f"full_fleet: building replica1 took {rise / 2**30:.2f} GiB, "
+                             f"its KV pool {pool / 2**30:.2f} GiB")
+    limit = 2 * pool + act + 512 * 2**20
+    if not peak <= limit:
+        raise AssertionError(f"full_fleet: peak {peak / 2**30:.2f} GiB above the start, "
+                             f"limit {limit / 2**30:.2f} (two KV pools + activations)")
+    for name in ("flash_attention", "flash_prefill_paged", "flash_decode_paged"):
+        if not counts[name]:
+            raise AssertionError(f"full_fleet: {name} was never launched")
+    log(f"[full_fleet] 2 replicas on one weight tree; replica0 killed at its quantum "
+        f"{FLEET_KILL_AT} (rid 0 at denoise step {denoise[-1]}/{FLEET_STEPS}, rid 2 at "
+        f"prefill {prefill[-1]}/{FLEET_PROMPT}); {stats1['migrations']} migrated; wall "
+        f"{wall1:.2f} s (uninterrupted {wall0:.2f} s); images = the uninterrupted run's "
+        f"bits; LM tokens equal to the uninterrupted run's: {same}; building replica1 "
+        f"took {rise / 2**30:.3f} GiB for a {pool / 2**30:.3f} GiB KV pool; peak "
+        f"{peak / 2**30:.2f} GiB above the start (limit {limit / 2**30:.2f}); launches "
+        f"{counts}; {card}")
+    return totals
+
+
+def phase_full_serving(card: str) -> dict[str, int]:
+    """Phases full_router and full_fleet on one pair of weight trees."""
+    sd, lm, cfg = _serving_bases()
+    totals, act = phase_full_router(card, sd, lm, cfg)
+    for name, n in phase_full_fleet(card, sd, lm, cfg, act).items():
+        totals[name] += n
+    del sd, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         log(f"chip_smoke: takes no arguments, got {sys.argv[1:]}")
@@ -2072,7 +2553,8 @@ def main() -> int:
     phase_tiny_lm()
     phase_tiny_gen()
     for phase in (lambda: phase_full(rows["flash_attention"]),
-                  lambda: phase_full_lm(card), lambda: phase_full_gen(card)):
+                  lambda: phase_full_lm(card), lambda: phase_full_gen(card),
+                  lambda: phase_full_serving(card)):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
     for name in KERNEL_META:

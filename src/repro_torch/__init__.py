@@ -35,3 +35,11 @@ def resolve_device(device) -> torch.device:
                            "available (pass device='cpu' to run the plain "
                            "PyTorch path)")
     return dev
+
+
+def sync_device(device: torch.device) -> None:
+    """Wait for the work queued on ``device``: ``torch.cuda.synchronize``
+    on a card, nothing on the CPU (where every op has finished when it
+    returns).  The engines call it only to time an observed quantum."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

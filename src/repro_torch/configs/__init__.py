@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import importlib
 
+import torch
+
 from repro_torch.configs.base import (SD15_UNET, SD15_VAE, SD_TURBO,  # noqa: F401
                                       TINY_CLIP, TINY_SD, TINY_UNET,
                                       TINY_VAE, ModelConfig, MoEConfig,
@@ -38,3 +40,15 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; have {list(ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[name]}")
     return mod.config
+
+
+def smoke_inputs(seed: int, cfg: ModelConfig, *, batch: int = 2,
+                 seq: int = 16, device="cpu") -> dict:
+    """Small concrete inputs: ``tokens`` and ``labels`` of shape ``(batch,
+    seq)``, drawn from a ``torch.Generator`` seeded ``seed`` on
+    ``device`` (the reference's ``smoke_inputs`` for the dense LMs; the
+    audio and vision prefixes come with their slices)."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return {name: torch.randint(0, cfg.vocab_size, (batch, seq),
+                                generator=gen, device=device)
+            for name in ("tokens", "labels")}

@@ -1,10 +1,12 @@
 """Request-based generation API (``repro.engine.api``): the typed
-text-to-image request and result.  The LM and ASR requests and the
-structural ``Engine`` protocol come with the slices that need them."""
+text-to-image request and result, and the structural ``Engine``
+protocol that ``DiffusionEngine``, ``ContinuousBatcher`` and
+``EngineRouter`` satisfy without a common base.  The LM request lives in
+``serving.scheduler``; ``TranscribeRequest`` comes with the ASR slice."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Protocol, Sequence, runtime_checkable
 
 import torch
 
@@ -17,6 +19,14 @@ def default_sampler(steps: int) -> str:
 def uses_cfg(neg_tokens, guidance_scale: float) -> bool:
     """Whether classifier-free guidance changes the output."""
     return neg_tokens is not None or guidance_scale != 1.0
+
+
+def is_transcribe(request: Any) -> bool:
+    """Whether ``request`` is an ASR ``TranscribeRequest``.  The port has
+    no ASR engine yet, so the class is matched by name: routers and
+    fleets send such a request to their ASR engine, and raise when they
+    have none, as the reference does."""
+    return type(request).__name__ == "TranscribeRequest"
 
 
 @dataclasses.dataclass
@@ -54,3 +64,36 @@ class GenerateResult:
     seed: int
     prefill_steps: int = 0
     decode_steps: int = 0
+
+
+@runtime_checkable
+class Engine(Protocol):
+    """Structural protocol every serving engine implements."""
+
+    def submit(self, request: Any) -> Any:
+        """Enqueue a request (admission happens inside ``step``);
+        returns a :class:`repro_torch.engine.events.RequestHandle`."""
+        ...
+
+    def step(self) -> int:
+        """Advance one scheduling quantum; return #requests progressed."""
+        ...
+
+    def stream(self, max_steps: int = 100_000) -> Any:
+        """Generator: step the engine, yielding typed lifecycle events
+        in emission order, until it idles."""
+        ...
+
+    def cancel(self, rid: int) -> bool:
+        """Abort a request (queued or running) and free its state;
+        True if the rid was live."""
+        ...
+
+    def has_work(self) -> bool:
+        """Whether any request is queued or in flight."""
+        ...
+
+    def run(self, max_steps: int = 10_000) -> list:
+        """Drive ``step`` until the queue drains; return finished items
+        (drain-the-stream compatibility wrapper)."""
+        ...

@@ -18,9 +18,6 @@ build the same engine.  New knobs (``spec_decode``) exist only on the
 config.  ``device`` and ``noise_fn`` are constructor kwargs of the port's
 engines, not config fields: the reference has no such fields.
 
-The port's engines have no cost model and no metrics yet: they raise
-``NotImplementedError`` when ``cost_model`` or ``metrics`` is set.
-
 This module imports nothing but the standard library; ``build_engine``
 imports the engines at call time.
 """
@@ -78,8 +75,8 @@ class SpecDecodeConfig:
 @dataclasses.dataclass(frozen=True)
 class LMEngineConfig:
     """Section consumed by ``serving.scheduler.ContinuousBatcher``.  The
-    reference's ``enc_embeds`` and ``preempt_over_budget`` are left out
-    until encoder inputs and the cost model are ported."""
+    reference's ``enc_embeds`` is left out until encoder inputs are
+    ported (ROADMAP section 1, the enc-dec item)."""
 
     slots: int = 4
     max_len: Optional[int] = None
@@ -90,6 +87,7 @@ class LMEngineConfig:
     prefix_share: bool = False
     extra_blocks: int = 0
     fused_prefill: bool = True
+    preempt_over_budget: bool = False
     spec_decode: Optional[SpecDecodeConfig] = None
 
 
@@ -163,15 +161,6 @@ def resolve(config: Optional[EngineConfig], section: str,
     sec = dataclasses.replace(sec, **local)
     cfg = dataclasses.replace(cfg, **shared, **{section: sec})
     return cfg, sec
-
-
-def require_unported(config: EngineConfig) -> None:
-    """Refuse the shared knobs whose machinery the port lacks."""
-    for name in ("cost_model", "metrics"):
-        if getattr(config, name) is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP section 1, the "
-                "serving-surface item)")
 
 
 def build_engine(kind: str, params: Any, model_cfg: Any,

@@ -22,8 +22,21 @@ The counterpart of ``repro.engine.diffusion_engine``:
 * Initial noise comes from ``noise_fn(request, hw)``; the default draws
   ``torch.randn`` from a generator seeded with the request's seed.  It
   cannot reproduce ``jax.random``, so tests inject the reference's noise.
-
-Not ported yet: the cost model and telemetry, and ``evacuate``/``adopt``.
+* **Serving surface** — ``evacuate``/``adopt`` for fleet migration (an
+  adopted rid re-enters with ``Progress(phase="resume")``),
+  ``next_deadline``/``next_slack`` for the router, ``quanta``;
+  ``cost_model=`` (submit-time ``Rejected``, the per-step sweep of
+  expired or infeasible queued requests, online EWMA observations) and
+  ``metrics=`` (phase histograms and spans, queue gauges).
+* **First-call accounting** — the reference compiles one program per
+  key and skips the cost-model observation of any quantum that paid a
+  trace.  The port runs eagerly, but the first call of a program key
+  still pays one-off costs (kernel builds, cuBLAS heuristics, allocator
+  growth), so ``traces`` counts the first sighting of each key the
+  reference would compile, and the same quanta go unobserved.
+* With a cost model or metrics attached, an observed quantum waits for
+  the device (``torch.cuda.synchronize`` on a card) before it reads the
+  clock; with neither, ``step()`` adds no host sync.
 """
 from __future__ import annotations
 
@@ -32,7 +45,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sync_device
 from repro_torch.configs.base import SD_TURBO, TINY_SD, SDConfig  # noqa: F401
 from repro_torch.core.policy import OffloadPolicy, get_policy
 from repro_torch.core.qlinear import quantize_params
@@ -40,8 +53,7 @@ from repro_torch.core.tree import to_device
 from repro_torch.diffusion import schedule as sched_mod
 from repro_torch.engine import events as ev
 from repro_torch.engine import samplers as samplers_mod
-from repro_torch.engine.config import (UNSET, EngineConfig, require_unported,
-                                       resolve)
+from repro_torch.engine.config import UNSET, EngineConfig, resolve
 from repro_torch.engine.api import GenerateRequest, GenerateResult, uses_cfg
 from repro_torch.models import clip as clip_mod
 from repro_torch.models import unet as unet_mod
@@ -185,7 +197,6 @@ class DiffusionEngine(ev.EventStreamMixin):
             max_batch=max_batch, bus=bus, clock=clock,
             cost_model=cost_model, metrics=metrics,
             weight_quant=weight_quant))
-        require_unported(self.config)
         weight_quant = self.config.weight_quant
         self.device = resolve_device(device)
         params = to_device(params, self.device)
@@ -203,6 +214,14 @@ class DiffusionEngine(ev.EventStreamMixin):
         self._inflight: dict | None = None      # segmented batch state
         self._meta: dict[int, tuple] = {}       # rid -> (seq, deadline, prio)
         self._subseq = 0
+        self.cost_model = self.config.cost_model  # None: no admission control
+        self.rejections = 0
+        self.metrics = self.config.metrics      # None: no instrumentation
+        self.quanta = 0                         # non-idle step() count
+        # First calls of the program keys the reference compiles (see the
+        # module docstring); a quantum that adds one goes unobserved.
+        self.traces = 0
+        self._seen: set[tuple] = set()
 
     # ------------------------------------------------------------ API
     def submit(self, request: GenerateRequest) -> ev.RequestHandle:
@@ -222,16 +241,104 @@ class DiffusionEngine(ev.EventStreamMixin):
         if request.rid in self._meta \
                 or self.bus.terminal(request.rid) is not None:
             raise ValueError(f"duplicate rid {request.rid}")
+        if self.metrics is not None:
+            # Before admission control, so requests rejected here are
+            # visible to telemetry too (submission is not a bus event).
+            self.metrics.request_submitted(request.rid, "diffusion",
+                                           self.bus.clock())
+        if self.cost_model is not None and request.deadline_ms is not None:
+            est = self.cost_model.estimate_diffusion(self, request)
+            if est is not None:
+                # Charge the expected wait behind already-queued work.
+                est += self.cost_model.queue_wait(self)
+            budget = request.deadline_ms / 1e3
+            if est is not None and est > budget:
+                self.rejections += 1
+                self.bus.emit(ev.Rejected, request.rid, estimated_s=est,
+                              budget_s=budget, reason="infeasible")
+                return self.handle(request.rid)
         deadline = (float("inf") if request.deadline_ms is None
                     else self.bus.clock() + request.deadline_ms / 1e3)
         request._deadline = deadline
         self._meta[request.rid] = (self._subseq, deadline, request.priority)
         self._subseq += 1
         self.queue.append(request)
+        self._obs_sched()
+        return self.handle(request.rid)
+
+    # ------------------------------------------- fleet migration hooks
+    def evacuate(self, reason: str = "evacuate") -> list[GenerateRequest]:
+        """Return every live request for another engine to ``adopt()``:
+        the in-flight segmented ones first (``Preempted`` emitted, their
+        partial denoise abandoned), then the queue in arrival order, with
+        no terminal events.  A rerun from the seed gives the same image:
+        the seed alone sets the initial latent."""
+        out: list[GenerateRequest] = []
+        st = self._inflight
+        if st is not None:
+            for r in st["reqs"]:
+                if r.rid not in st["cancelled"]:
+                    self.bus.emit(ev.Preempted, r.rid, reason=reason)
+                    out.append(r)
+            self._inflight = None
+        out.extend(self.queue)
+        self.queue = deque()
+        for r in out:
+            self._meta.pop(r.rid, None)
+        return out
+
+    def adopt(self, request: GenerateRequest) -> ev.RequestHandle:
+        """Admit a request evacuated from another engine on the same bus:
+        no duplicate-rid guard (its admission lives on the bus), no
+        submit-time rejection (the per-step sweep still applies), and its
+        original absolute deadline (``request._deadline``).  At batch pop
+        an already-admitted rid re-enters with
+        ``Progress(phase="resume")``, never a second ``Admitted``."""
+        self._meta[request.rid] = (self._subseq, request._deadline,
+                                   request.priority)
+        self._subseq += 1
+        self.queue.append(request)
         return self.handle(request.rid)
 
     def has_work(self) -> bool:
         return bool(self.queue) or self._inflight is not None
+
+    def next_deadline(self) -> float:
+        """Earliest deadline over queued and in-flight requests (+inf if
+        none declares one): the router's multiplex key."""
+        cands = [self._meta[r.rid][1] for r in self.queue]
+        if self._inflight is not None:
+            cands += [self._meta[r.rid][1] for r in self._inflight["reqs"]
+                      if r.rid not in self._inflight["cancelled"]]
+        return min(cands, default=float("inf"))
+
+    def next_slack(self) -> float:
+        """Least estimated slack (deadline - now - estimated remaining
+        service) over queued and in-flight requests; +inf when none
+        declares a deadline.  A request the cost model cannot price yet
+        (or every request, without one) counts 0 service: raw deadline
+        order."""
+        cm = self.cost_model
+        now = self.bus.clock()
+        best = float("inf")
+        for r in self.queue:
+            dl = self._meta[r.rid][1]
+            if dl == float("inf"):
+                continue
+            est = cm.estimate_diffusion(self, r) if cm else None
+            best = min(best, dl - now - (est or 0.0))
+        st = self._inflight
+        if st is not None:
+            for r in st["reqs"]:
+                if r.rid in st["cancelled"]:
+                    continue
+                dl = self._meta[r.rid][1]
+                if dl == float("inf"):
+                    continue
+                est = (cm.remaining_diffusion(self, r, st["i"])
+                       if cm else None)
+                best = min(best, dl - now - (est or 0.0))
+        return best
 
     def cancel(self, rid: int) -> bool:
         """Abort a request: a queued one leaves the queue; one inside a
@@ -256,10 +363,16 @@ class DiffusionEngine(ev.EventStreamMixin):
         """One quantum: advance the in-flight segmented batch by one
         denoise step, or pop and run a new micro-batch; returns the
         number of requests progressed (0 if idle)."""
+        if self.cost_model is not None and self.queue:
+            self._sweep_infeasible()
         if self._inflight is not None:
+            self.quanta += 1
+            self._obs_sched()
             return self._segment_quantum()
         if not self.queue:
             return 0
+        self.quanta += 1
+        self._obs_sched()
         seed = min(self.queue, key=self._edf_key)
         gkey = self._group_key(seed)
         batch: list[GenerateRequest] = [seed]
@@ -273,7 +386,11 @@ class DiffusionEngine(ev.EventStreamMixin):
                 rest.append(r)
         self.queue = rest
         for i, r in enumerate(batch):
-            self.bus.emit(ev.Admitted, r.rid, slot=i)
+            if self.bus.admitted(r.rid):   # adopted after a migration
+                self.bus.emit(ev.Progress, r.rid, phase="resume",
+                              step=0, total=gkey[1])
+            else:
+                self.bus.emit(ev.Admitted, r.rid, slot=i)
         if gkey[4]:                      # preview_every > 0: segmented
             self._start_segmented(batch, gkey)
             return self._segment_quantum()
@@ -293,6 +410,70 @@ class DiffusionEngine(ev.EventStreamMixin):
         priority, then arrival (no deadlines -> FIFO)."""
         seq, deadline, prio = self._meta[req.rid]
         return (deadline < self.bus.clock(), deadline, -prio, seq)
+
+    def _sweep_infeasible(self) -> None:
+        """Once per ``step()`` with a cost model: queued requests whose
+        deadline expired, or that can no longer meet it (now + estimated
+        service > deadline), end ``Rejected``."""
+        now = self.bus.clock()
+        keep: deque[GenerateRequest] = deque()
+        for r in self.queue:
+            dl = self._meta[r.rid][1]
+            if dl == float("inf"):
+                keep.append(r)
+                continue
+            expired = dl < now
+            est = self.cost_model.estimate_diffusion(self, r)
+            if expired or (est is not None and now + est > dl):
+                self.rejections += 1
+                self.bus.emit(ev.Rejected, r.rid, estimated_s=est or 0.0,
+                              budget_s=dl - now,
+                              reason="expired" if expired
+                              else "infeasible")
+            else:
+                keep.append(r)
+        self.queue = keep
+
+    def _first_call(self, key: tuple) -> None:
+        """Count the first call of a program key (the reference's trace)."""
+        if key not in self._seen:
+            self._seen.add(key)
+            self.traces += 1
+
+    def _observe(self, key: tuple, t0: float, traces0: int) -> None:
+        """Feed one quantum's duration to the cost model, unless the
+        quantum made a first call (its one-off costs would poison the
+        steady-state EWMA); waits for the device first."""
+        if self.cost_model is None or self.traces != traces0:
+            return
+        sync_device(self.device)
+        self.cost_model.observe(key, self.bus.clock() - t0)
+
+    def _obs_phase(self, phase: str, t0: float, rids: list,
+                   args: dict | None = None) -> None:
+        """Phase telemetry (histogram and span).  Unlike ``_observe`` it
+        keeps first-call quanta, so phase counts reconcile with the
+        events and ``quanta``."""
+        if self.metrics is None:
+            return
+        sync_device(self.device)
+        self.metrics.phase("diffusion", phase, t0, self.bus.clock(),
+                           rids=rids, args=args)
+
+    def _obs_sched(self) -> None:
+        if self.metrics is None:
+            return
+        self.metrics.gauge(
+            "engine_queue_depth", "queued requests by engine",
+            labels=("engine",)).set(len(self.queue), engine="diffusion")
+        st = self._inflight
+        live = 0 if st is None else sum(
+            1 for r in st["reqs"] if r.rid not in st["cancelled"])
+        self.metrics.gauge(
+            "diffusion_inflight",
+            "live requests in the segmented in-flight batch").set(live)
+        self.metrics.gauge("diffusion_traces",
+                           "cumulative jit traces").set(self.traces)
 
     def _group_key(self, req: GenerateRequest) -> tuple:
         fixed = samplers_mod.get_sampler(req.sampler).fixed_steps
@@ -339,12 +520,21 @@ class DiffusionEngine(ev.EventStreamMixin):
     def _run_batch(self, reqs: list[GenerateRequest], gkey: tuple) -> None:
         sampler_name, steps, hw, use_cfg = gkey[:4]
         toks, negs, scales, noises = self._pack(reqs, hw)
+        sbucket = steps_bucket(steps)
         sampler = samplers_mod.get_sampler(sampler_name)
-        plan = sampler.plan(sched_mod.NoiseSchedule(), steps,
-                            steps_bucket(steps))
+        plan = sampler.plan(sched_mod.NoiseSchedule(), steps, sbucket)
         fn = build_denoise(self.cfg, sampler_name, use_cfg)
+        t0, tr0 = self.bus.clock(), self.traces
+        self._first_call((sampler_name, sbucket, hw, use_cfg,
+                          self.max_batch))
         with torch.no_grad():
             imgs = fn(self.params, toks, negs, scales, noises, plan)
+        self._observe(("diff", self.cfg.name, "fused", sampler_name,
+                       sbucket, hw, use_cfg, self.max_batch,
+                       self.weight_quant), t0, tr0)
+        self._obs_phase("fused", t0, [r.rid for r in reqs],
+                        args={"steps": steps, "batch": len(reqs),
+                              "weight_quant": self.weight_quant})
         for i, r in enumerate(reqs):
             self._finish(r, imgs[i], sampler_name, steps)
 
@@ -353,9 +543,16 @@ class DiffusionEngine(ev.EventStreamMixin):
                          gkey: tuple) -> None:
         sampler_name, steps, hw, use_cfg = gkey[:4]
         toks, negs, scales, noises = self._pack(reqs, hw)
+        t0, tr0 = self.bus.clock(), self.traces
+        self._first_call(("enc", use_cfg, self.max_batch))
         with torch.no_grad():
             ctx, ctx_u = build_encode(self.cfg, use_cfg)(self.params, toks,
                                                           negs)
+        self._observe(("diff", self.cfg.name, "clip", use_cfg,
+                       self.max_batch, self.weight_quant), t0, tr0)
+        self._obs_phase("clip", t0, [r.rid for r in reqs],
+                        args={"batch": len(reqs),
+                              "weight_quant": self.weight_quant})
         sampler = samplers_mod.get_sampler(sampler_name)
         # Unpadded plan: one solver step serves any step count.
         plan = sampler.plan(sched_mod.NoiseSchedule(), steps, steps)
@@ -365,6 +562,22 @@ class DiffusionEngine(ev.EventStreamMixin):
             ctx_u=ctx_u, g=scales, plan=plan, i=0, cancelled=set(),
             step_fn=build_denoise_step(self.cfg, sampler_name, use_cfg),
             decode_fn=build_finalize_decode(self.cfg, sampler_name))
+
+    def _decode_latent(self, st: dict, rids: list,
+                       preview: bool) -> torch.Tensor:
+        """The finalize + VAE pass on the in-flight latent, observed as
+        the reference observes its ``dec`` program."""
+        sampler_name, _steps, hw, _use_cfg = st["key"]
+        t0, tr0 = self.bus.clock(), self.traces
+        self._first_call(("dec", sampler_name, hw, self.max_batch))
+        with torch.no_grad():
+            imgs = st["decode_fn"](self.params, st["x"])
+        self._observe(("diff", self.cfg.name, "vae", hw, self.max_batch,
+                       self.weight_quant), t0, tr0)
+        args = {"weight_quant": self.weight_quant}
+        self._obs_phase("vae", t0, rids,
+                        args=dict(preview=True, **args) if preview else args)
+        return imgs
 
     def _segment_quantum(self) -> int:
         st = self._inflight
@@ -376,9 +589,17 @@ class DiffusionEngine(ev.EventStreamMixin):
             return 0
         i = st["i"]
         step_slice = {k: v[i] for k, v in st["plan"].items()}
+        t0, tr0 = self.bus.clock(), self.traces
+        self._first_call(("seg", sampler_name, hw, use_cfg, self.max_batch))
         with torch.no_grad():
             st["x"] = st["step_fn"](self.params, st["ctx"], st["ctx_u"],
                                     st["g"], st["x"], step_slice)
+        self._observe(("diff", self.cfg.name, "unet_step", sampler_name,
+                       hw, use_cfg, self.max_batch, self.weight_quant),
+                      t0, tr0)
+        self._obs_phase("unet_step", t0, [r.rid for _row, r in live],
+                        args={"step": i + 1, "total": steps,
+                              "weight_quant": self.weight_quant})
         st["i"] = i + 1
         sampler = samplers_mod.get_sampler(sampler_name)
         at_stride = [(row, r) for row, r in live
@@ -388,8 +609,8 @@ class DiffusionEngine(ev.EventStreamMixin):
             # Pixel previews: the final decode's program on the current
             # latent; preview_decode is in the group key, so every row
             # of the batch opted in.
-            with torch.no_grad():
-                pv_imgs = st["decode_fn"](self.params, st["x"])
+            pv_imgs = self._decode_latent(
+                st, [r.rid for _row, r in at_stride], preview=True)
         for row, r in live:
             self.bus.emit(ev.Progress, r.rid, step=st["i"], total=steps,
                           phase="denoise")
@@ -403,10 +624,14 @@ class DiffusionEngine(ev.EventStreamMixin):
                               total=steps,
                               latent=sampler.finalize(st["x"][row]))
         if st["i"] >= steps:
-            imgs = pv_imgs               # the last preview is the decode
+            # The last preview is the decode: at the last step every live
+            # row is at its stride, so one VAE pass (observed once, where
+            # the reference runs and observes its program twice) serves
+            # the preview and the image.
+            imgs = pv_imgs
             if imgs is None:
-                with torch.no_grad():
-                    imgs = st["decode_fn"](self.params, st["x"])
+                imgs = self._decode_latent(st, [r.rid for _row, r in live],
+                                           preview=False)
             for row, r in live:
                 self._finish(r, imgs[row], sampler_name, steps)
             self._inflight = None

@@ -157,7 +157,7 @@ REJECTED = "REJECTED"
 
 class EventBus:
     """Totally-ordered event log shared by every request of an engine
-    (or, once the router is ported, by several
+    (or, through :class:`repro_torch.engine.router.EngineRouter`, by several
     engines — the router rebinds its engines onto one bus so merged
     streams need no cross-bus ordering)."""
 
@@ -173,7 +173,7 @@ class EventBus:
     def subscribe(self, fn: Callable[[Event], None]) -> Callable:
         """Register a synchronous observer called once per emitted
         event, after it is appended to the log (the observability
-        layer's tap).  Observers must
+        layer's tap — ``repro_torch.obs.Telemetry.attach``).  Observers must
         not emit or mutate the bus; subscriptions live on this bus
         object, so attach only after router/fleet bus rebinding."""
         self._subs.append(fn)

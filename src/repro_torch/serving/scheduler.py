@@ -29,6 +29,24 @@ bookkeeping in :class:`repro_torch.serving.kvcache.PagedKVRuntime`:
 * **Streaming lifecycle** — ``Admitted``, ``Progress(prefill)`` per
   chunk, ``TokenDelta`` per token, ``Finished``; ``cancel()`` and
   ``preempt()`` (re-ingest prompt + generated tokens on resume).
+* **Feasibility admission (``cost_model=``)** — ``submit()`` rejects a
+  request whose estimated service time (prefill chunks + decode tokens,
+  plus the wait behind queued work) exceeds its budget, each ``step()``
+  sweeps queued requests that expired or became infeasible, the pop in
+  ``_admit`` re-checks, and every quantum but the first of each shape
+  refines the EWMA.  ``preempt_over_budget`` evicts the decode most
+  over its deadline while a feasible request waits: after the fact
+  without a cost model, predicted with one.
+* **Migration** — ``evacuate()`` preempts every running request and
+  returns them with the queue; ``adopt()`` on another batcher on the
+  same bus re-ingests prompt + generated tokens and resumes with
+  ``Progress(phase="resume")``.  ``next_deadline``/``next_slack`` are
+  the router's multiplex keys.
+* **Telemetry (``metrics=``)** — a phase histogram and span per quantum,
+  queue and slot gauges, the KV pool's gauges, speculation counters.
+  With a cost model or metrics attached an observed quantum waits for
+  the device (``torch.cuda.synchronize`` on a card) before it reads the
+  clock; with neither, ``step()`` adds no host sync.
 
 ``step()`` runs one quantum — pending prompt chunks first (the draft's
 chunks ride the same quantum), otherwise one batched decode step or one
@@ -40,9 +58,7 @@ token, one per decode quantum) and ``draft_launches`` the draft's.
 Construction takes ``config=EngineConfig(lm=LMEngineConfig(...))`` or
 the loose kwargs; explicit kwargs win over the config.
 
-Not ported yet: the cost model and metrics (``cost_model=``,
-``metrics=``, ``preempt_over_budget``), ``evacuate``/``adopt``,
-``next_deadline``/``next_slack`` and encoder inputs (``enc_embeds``).
+Not ported yet: encoder inputs (``enc_embeds``, the enc-dec slice).
 """
 from __future__ import annotations
 
@@ -52,14 +68,13 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sync_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import get_policy
 from repro_torch.core.qlinear import quantize_params
 from repro_torch.core.tree import to_device
 from repro_torch.engine import events as ev
-from repro_torch.engine.config import (UNSET, EngineConfig, require_unported,
-                                       resolve)
+from repro_torch.engine.config import UNSET, EngineConfig, resolve
 from repro_torch.models.transformer import (cache_slot_merge, cache_slot_reset,
                                             cache_slot_view, init_cache,
                                             lm_decode_step, lm_prefill_chunk,
@@ -173,7 +188,10 @@ class ContinuousBatcher(ev.EventStreamMixin):
     ``(params, tokens (S, 1), positions (S,), block_tables (S, MB),
     cache) -> (next_tokens (S,), cache)``.  ``extra_blocks`` adds blocks
     to the pool.  ``edf=False`` pops each group in arrival order.
-    ``clock`` is the SLO/event timebase."""
+    ``preempt_over_budget=True`` lets admission evict a decoding request
+    that is over its deadline (or, with a cost model, predicted to be)
+    while a feasible request waits.  ``clock`` is the SLO/event
+    timebase."""
 
     def __init__(self, params: Any, cfg: ModelConfig, *,
                  config: EngineConfig | None = None,
@@ -189,6 +207,7 @@ class ContinuousBatcher(ev.EventStreamMixin):
                  bus: ev.EventBus | None = UNSET,
                  clock: Callable[[], float] = UNSET,
                  edf: bool = UNSET,
+                 preempt_over_budget: bool = UNSET,
                  cost_model=UNSET, metrics=UNSET,
                  device="cuda"):
         self.config, lmc = resolve(config, "lm", dict(
@@ -196,8 +215,9 @@ class ContinuousBatcher(ev.EventStreamMixin):
             weight_quant=weight_quant, block_size=block_size,
             prefill_chunk=prefill_chunk, prefix_share=prefix_share,
             extra_blocks=extra_blocks, fused_prefill=fused_prefill,
-            bus=bus, clock=clock, edf=edf, cost_model=cost_model, metrics=metrics))
-        require_unported(self.config)
+            bus=bus, clock=clock, edf=edf,
+            preempt_over_budget=preempt_over_budget,
+            cost_model=cost_model, metrics=metrics))
         if lmc.max_len is None:
             raise ValueError("max_len is required (pass max_len= or "
                              "config.lm.max_len; size it with "
@@ -222,12 +242,14 @@ class ContinuousBatcher(ev.EventStreamMixin):
         self.cfg = cfg
         self.max_len = max_len
         self.prefill_chunk = max(1, lmc.prefill_chunk)
+        self.metrics = self.config.metrics     # None: no instrumentation
         # With prefix sharing the pool holds a second span per slot for
         # retained prompt blocks.
         self.runtime = PagedKVRuntime(
             slots, max_len, block_size, prefix_share=prefix_share,
             extra_blocks=lmc.extra_blocks
-            + (slots * cdiv(max_len, block_size) if prefix_share else 0))
+            + (slots * cdiv(max_len, block_size) if prefix_share else 0),
+            metrics=self.metrics)
         self.runtime.copy_block = self._copy_block
         self.cache = init_cache(params, cfg, slots, max_len,
                                 quantized_kv=quantized_kv,
@@ -250,7 +272,13 @@ class ContinuousBatcher(ev.EventStreamMixin):
         self.bus = (self.config.bus if self.config.bus is not None
                     else ev.EventBus(self.config.clock))
         self.edf = self.config.edf
+        self.preempt_over_budget = lmc.preempt_over_budget
         self.quantized_kv = quantized_kv
+        self.cost_model = self.config.cost_model  # None: no admission control
+        self.rejections = 0
+        # Shapes whose first quantum already ran: the cost model skips
+        # each shape's first quantum (its one-off costs).
+        self._cm_warm: set = set()
         self.preemptions = 0
         self._subseq = 0
         self.prefill_quanta = 0
@@ -318,6 +346,21 @@ class ContinuousBatcher(ev.EventStreamMixin):
                          else self.bus.clock() + req.deadline_ms / 1e3)
         if not req._feed:
             req._feed = list(req.prompt)
+        if self.metrics is not None:
+            # Before admission control, so requests rejected here are
+            # visible to telemetry too (submission is not a bus event).
+            self.metrics.request_submitted(req.rid, "lm", self.bus.clock())
+        if self.cost_model is not None and req.deadline_ms is not None:
+            est = self.cost_model.estimate_lm(self, req)
+            if est is not None:
+                # Charge the expected wait behind already-queued work.
+                est += self.cost_model.queue_wait(self)
+            budget = req.deadline_ms / 1e3
+            if est is not None and est > budget:
+                self.rejections += 1
+                self.bus.emit(ev.Rejected, req.rid, estimated_s=est,
+                              budget_s=budget, reason="infeasible")
+                return self.handle(req.rid)
         self._enqueue(req)
         return self.handle(req.rid)
 
@@ -333,6 +376,67 @@ class ContinuousBatcher(ev.EventStreamMixin):
 
     def has_work(self) -> bool:
         return bool(self.queue_len) or any(s is not None for s in self.slots)
+
+    def next_deadline(self) -> float:
+        """Earliest deadline over queued and running requests (+inf if
+        none declares one): the router's multiplex key."""
+        cands = [r._deadline for q in self._groups.values() for r in q]
+        cands += [r._deadline for r in self.slots if r is not None]
+        return min(cands, default=float("inf"))
+
+    def next_slack(self) -> float:
+        """Least estimated slack (deadline - now - estimated remaining
+        service) over queued and running requests; +inf when none
+        declares a deadline.  A request the cost model cannot price yet
+        (or every request, without one) counts 0 service."""
+        cm = self.cost_model
+        now = self.bus.clock()
+        best = float("inf")
+        for q in self._groups.values():
+            for r in q:
+                if r._deadline == float("inf"):
+                    continue
+                est = cm.estimate_lm(self, r) if cm else None
+                best = min(best, r._deadline - now - (est or 0.0))
+        for i, r in enumerate(self.slots):
+            if r is None or r._deadline == float("inf"):
+                continue
+            est = cm.remaining_lm(self, i) if cm else None
+            best = min(best, r._deadline - now - (est or 0.0))
+        return best
+
+    # ------------------------------------------- feasibility admission
+    def _infeasible(self, req: Request, now: float) -> tuple[bool, Any]:
+        """(hopeless, estimate): the deadline expired, or the cost model
+        predicts the request cannot finish in time even if served now.
+        Called only with a cost model attached."""
+        if req._deadline == float("inf"):
+            return False, None
+        est = self.cost_model.estimate_lm(self, req)
+        if req._deadline < now:
+            return True, est
+        return (est is not None and now + est > req._deadline), est
+
+    def _reject(self, req: Request, est, now: float) -> None:
+        self.rejections += 1
+        self.bus.emit(ev.Rejected, req.rid, estimated_s=est or 0.0,
+                      budget_s=req._deadline - now,
+                      reason="expired" if req._deadline < now
+                      else "infeasible")
+
+    def _sweep_infeasible(self) -> None:
+        """Once per ``step()`` with a cost model: queued requests that
+        expired or can no longer meet their deadline end ``Rejected``."""
+        now = self.bus.clock()
+        for q in self._groups.values():
+            keep = []
+            for r in q:
+                hopeless, est = self._infeasible(r, now)
+                if hopeless:
+                    self._reject(r, est, now)
+                else:
+                    keep.append(r)
+            q[:] = keep
 
     def _edf_key(self, req: Request) -> tuple:
         """EDF pop order within a group: expired requests last, then
@@ -367,7 +471,18 @@ class ContinuousBatcher(ev.EventStreamMixin):
         for i, slot in enumerate(self.slots):
             if slot is not None or not self.queue_len:
                 continue
-            req = self._pop_round_robin()
+            while True:
+                req = self._pop_round_robin()
+                if req is None or self.cost_model is None:
+                    break
+                # Pop-time guard: a request that became hopeless after
+                # the step's sweep (a preempted over-budget decode
+                # requeued this quantum) must not take the slot.
+                now = self.bus.clock()
+                hopeless, est = self._infeasible(req, now)
+                if not hopeless:
+                    break
+                self._reject(req, est, now)
             if req is None:
                 break
             remaining = req.max_new - len(req.out)
@@ -391,6 +506,45 @@ class ContinuousBatcher(ev.EventStreamMixin):
             else:
                 self.bus.emit(ev.Admitted, req.rid, slot=i)
 
+    def _maybe_preempt(self) -> None:
+        """With ``preempt_over_budget`` (and EDF): when feasible requests
+        wait and no slot is free, evict the decoding request furthest
+        past its deadline back to the queue, at most one per quantum.
+        Without a cost model the test is after the fact (the deadline
+        expired); with one it is predicted (now + remaining service past
+        the deadline), and the victim is rejected at its next pop."""
+        if not self.preempt_over_budget or not self.edf \
+                or not self.queue_len:
+            return
+        if any(s is None for s in self.slots):
+            return
+        now = self.bus.clock()
+        if self.cost_model is None:
+            feasible_waiter = any(r._deadline >= now
+                                  for q in self._groups.values()
+                                  for r in q)
+        else:
+            feasible_waiter = any(not self._infeasible(r, now)[0]
+                                  for q in self._groups.values()
+                                  for r in q)
+        if not feasible_waiter:
+            return
+        victims = []
+        for i, r in enumerate(self.slots):
+            if r is None or self._pending[i] or self._draft_pending[i] \
+                    or r._deadline == float("inf"):
+                continue
+            est = (self.cost_model.remaining_lm(self, i)
+                   if self.cost_model is not None else None)
+            # Predicted miss; the overrun itself when the model cannot
+            # price the decode yet.
+            miss = now + (est or 0.0) - r._deadline
+            if miss > 0:
+                victims.append((miss, i))
+        if victims:
+            _, i = max(victims)
+            self._preempt_slot(i, "deadline-overrun")
+
     def _preempt_slot(self, i: int, reason: str) -> None:
         req = self.slots[i]
         cached = req._feed[:self.runtime.pos[i]]
@@ -412,6 +566,39 @@ class ContinuousBatcher(ev.EventStreamMixin):
                 self._preempt_slot(i, reason)
                 return True
         return False
+
+    # ------------------------------------------- fleet migration hooks
+    def evacuate(self, reason: str = "evacuate") -> list[Request]:
+        """Preempt every running request (blocks released, ``Preempted``
+        emitted, feed reset to prompt + generated tokens) and pop every
+        queued one; returns them in arrival order with no terminal
+        events, for a batcher on the same bus to ``adopt()``."""
+        for i, r in enumerate(self.slots):
+            if r is not None:
+                self._preempt_slot(i, reason)
+        out = [r for q in self._groups.values() for r in q]
+        self._groups.clear()
+        self._rr.clear()
+        out.sort(key=lambda r: r._seq)
+        return out
+
+    def adopt(self, req: Request) -> ev.RequestHandle:
+        """Admit a request evacuated from another batcher on the same
+        bus: no duplicate-rid guard (its admission lives on the bus), no
+        submit-time rejection (the per-step sweep still applies), and its
+        original absolute deadline.  Admission re-ingests prompt +
+        generated tokens and resumes with ``Progress(phase="resume")``,
+        never a second ``Admitted``."""
+        need = len(req.prompt) + req.max_new - 1
+        if need > self.max_len:
+            raise ValueError(
+                f"adopted rid {req.rid} needs capacity {need} > "
+                f"per-request max_len={self.max_len}")
+        req._feed = list(req.prompt) + list(req.out)
+        req._seq = self._subseq
+        self._subseq += 1
+        self._enqueue(req)
+        return self.handle(req.rid)
 
     def cancel(self, rid: int) -> bool:
         """Abort a request wherever it is (queue, mid-prefill or
@@ -443,7 +630,11 @@ class ContinuousBatcher(ev.EventStreamMixin):
     def step(self) -> int:
         """One scheduling quantum (prefill first); returns the number of
         requests progressed."""
+        if self.cost_model is not None and self.queue_len:
+            self._sweep_infeasible()
+        self._maybe_preempt()
         self._admit()
+        self._obs_sched()
         for i, req in enumerate(self.slots):
             if req is not None and (self._pending[i]
                                     or self._draft_pending[i]):
@@ -451,6 +642,39 @@ class ContinuousBatcher(ev.EventStreamMixin):
         if self.spec is not None:
             return self._spec_quantum()
         return self._decode_quantum()
+
+    def _obs_quantum(self, kind: str, t0: float, rids: list,
+                     args: dict | None = None) -> None:
+        """Phase telemetry (histogram and span).  Unlike
+        ``_observe_quantum`` it keeps each shape's first quantum, so
+        phase counts reconcile with ``prefill_quanta``/``decode_quanta``."""
+        if self.metrics is None:
+            return
+        sync_device(self.device)
+        self.metrics.phase("lm", kind, t0, self.bus.clock(),
+                           rids=rids, args=args)
+
+    def _obs_sched(self) -> None:
+        if self.metrics is None:
+            return
+        self.metrics.gauge(
+            "engine_queue_depth", "queued requests by engine",
+            labels=("engine",)).set(self.queue_len, engine="lm")
+        self.metrics.gauge(
+            "lm_slots_active", "occupied decode slots").set(
+            sum(1 for s in self.slots if s is not None))
+
+    def _observe_quantum(self, key: tuple, shape: tuple, t0: float) -> None:
+        """Feed one quantum's duration to the cost model, skipping the
+        first quantum of each ``shape`` (its one-off costs would poison
+        the steady-state EWMA); waits for the device first."""
+        if self.cost_model is None:
+            return
+        if shape not in self._cm_warm:
+            self._cm_warm.add(shape)
+            return
+        sync_device(self.device)
+        self.cost_model.observe(key, self.bus.clock() - t0)
 
     def _draft_ingest(self, i: int) -> torch.Tensor:
         """One draft prefill chunk.  The draft keeps a full private copy
@@ -477,10 +701,14 @@ class ContinuousBatcher(ev.EventStreamMixin):
         if not self._pending[i]:
             # The target's feed is in, the draft's is not (a prefix hit
             # skipped target chunks the draft must still ingest).
+            t0 = self.bus.clock()
             self._draft_ingest(i)
             self.prefill_quanta += 1
             self.last_quantum = ("draft-prefill", 1)
+            self._obs_quantum("draft-prefill", t0, [req.rid],
+                              args={"slot": i})
             return 1
+        t0 = self.bus.clock()
         chunk = self._pending[i][:self.prefill_chunk]
         del self._pending[i][:len(chunk)]
         pos = self.runtime.pos[i]
@@ -502,6 +730,14 @@ class ContinuousBatcher(ev.EventStreamMixin):
         self.prefill_quanta += 1
         self.prefill_launches += 1 if self.fused_prefill else len(chunk)
         self.last_quantum = ("prefill", 1)
+        if self.cost_model is not None:
+            self._observe_quantum(self.cost_model.lm_keys(self)[0],
+                                  ("prefill", len(chunk)), t0)
+        self._obs_quantum("prefill", t0, [req.rid],
+                          args={"tokens": len(chunk), "slot": i,
+                                "fused": self.fused_prefill,
+                                "quantized_kv": self.quantized_kv,
+                                "weight_quant": self.weight_quant})
         self.bus.emit(ev.Progress, req.rid, phase="prefill",
                       step=req._cursor, total=len(req._feed))
         if self.spec is not None and self._draft_pending[i]:
@@ -516,6 +752,7 @@ class ContinuousBatcher(ev.EventStreamMixin):
         return 1
 
     def _decode_quantum(self) -> int:
+        t0 = self.bus.clock()
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if not active:
             self.last_quantum = None
@@ -533,6 +770,14 @@ class ContinuousBatcher(ev.EventStreamMixin):
         self.decode_launches += 1
         self.last_quantum = ("decode", len(active))
         nxt_host = nxt.tolist()
+        if self.cost_model is not None:
+            self._observe_quantum(self.cost_model.lm_keys(self)[1],
+                                  ("decode",), t0)
+        self._obs_quantum("decode", t0,
+                          [self.slots[i].rid for i in active],
+                          args={"batch": len(active),
+                                "quantized_kv": self.quantized_kv,
+                                "weight_quant": self.weight_quant})
         for i in active:
             req = self.slots[i]
             self.runtime.pos[i] += 1    # the fed token is now cached
@@ -588,6 +833,7 @@ class ContinuousBatcher(ev.EventStreamMixin):
                               self._slot_cap(r) - 1 - self.runtime.pos[i]))
         if all(k[i] == 0 for i in active):
             return self._decode_quantum()
+        t0 = self.bus.clock()
         n_slots = len(self.slots)
         mb = self.draft_runtime.blocks_per_slot
         dev = self.device
@@ -629,6 +875,7 @@ class ContinuousBatcher(ev.EventStreamMixin):
         # ---- phases 2 and 3: verify, commit, roll back (per slot) ----
         bs = self.runtime.block_size
         total_prop = total_acc = 0
+        rids = [self.slots[i].rid for i in active]
         for i in active:
             req = self.slots[i]
             pos = self.runtime.pos[i]
@@ -677,6 +924,26 @@ class ContinuousBatcher(ev.EventStreamMixin):
         self.spec_proposed += total_prop
         self.spec_accepted += total_acc
         self.last_quantum = ("decode-spec", len(active))
+        if self.cost_model is not None:
+            self._observe_quantum(self.cost_model.lm_spec_key(self),
+                                  ("decode-spec",), t0)
+        self._obs_quantum("decode-spec", t0, rids,
+                          args={"batch": len(active),
+                                "proposed": total_prop,
+                                "accepted": total_acc})
+        if self.metrics is not None:
+            self.metrics.counter(
+                "lm_spec_proposed_total",
+                "draft tokens offered to the verifier").inc(total_prop)
+            self.metrics.counter(
+                "lm_spec_accepted_total",
+                "draft tokens the target accepted").inc(total_acc)
+            if total_prop:
+                self.metrics.histogram(
+                    "lm_spec_acceptance", "per-quantum draft "
+                    "acceptance rate (accepted / proposed)",
+                    buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75,
+                             0.875, 1.0)).observe(total_acc / total_prop)
         return len(active)
 
     def _maybe_retire(self, i: int) -> None:

@@ -1,7 +1,10 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
 
-* Importing ``repro_torch`` and driving its engine leaves ``jax`` out of
-  ``sys.modules`` (checked in a fresh interpreter).
+* Importing ``repro_torch`` and driving its engines, the router, a fleet
+  with a cost model and telemetry, and ``launch/serve.py`` leaves ``jax``
+  and ``repro`` out of ``sys.modules`` (checked in a fresh interpreter).
+* Without a cost model and metrics the engines never synchronise the
+  device; the observation sync is ``torch.cuda.synchronize`` on a card.
 * No file of the package, and not ``chip_smoke.py``, imports ``jax`` or
   any ``repro`` module.
 * Asking for the card without one raises; it never runs on the CPU.
@@ -63,6 +66,27 @@ def test_import_and_engine_leave_jax_unloaded():
         "from repro_torch.train.serve_step import greedy_generate\n"
         "q4 = quantize_params(p, get_policy('q4_0'))\n"
         "assert greedy_generate(q4, cfg, [[3] * 4], 2, device='cpu').shape == (1, 6)\n"
+        "import repro_torch.obs, repro_torch.distributed.fault_tolerance\n"
+        "import repro_torch.engine.router, repro_torch.engine.fleet\n"
+        "import repro_torch.engine.costmodel, repro_torch.launch.serve as S\n"
+        "from repro_torch.engine import (CostModel, EngineConfig, FleetManager,\n"
+        "    LMEngineConfig, ReplicaSpec, EngineRouter, FaultInjector)\n"
+        "from repro_torch.obs import Telemetry, TraceRecorder\n"
+        "tele = Telemetry(tracer=TraceRecorder())\n"
+        "conf = EngineConfig(cost_model=CostModel(), metrics=tele,\n"
+        "    lm=LMEngineConfig(slots=2, max_len=12))\n"
+        "fleet = FleetManager([ReplicaSpec(n, params=p, model_cfg=cfg, config=conf,\n"
+        "    device='cpu') for n in 'ab'], injector=FaultInjector().kill('a', 1),\n"
+        "    watchdog_threshold=1e9)\n"
+        "tele.attach(fleet.bus)\n"
+        "for i in range(3):\n"
+        "    fleet.submit(Request(rid=i, prompt=[3 + i] * 6, max_new=3))\n"
+        "assert len(fleet.run()) == 3 and fleet.stats()['migrations']\n"
+        "assert 'phase_seconds' in tele.registry.to_prometheus()\n"
+        "sys.argv = ['serve', '--arch', 'granite-8b', '--device', 'cpu',\n"
+        "    '--slots', '2', '--requests', '2', '--gen', '2', '--admission',\n"
+        "    '--replicas', '2', '--deadline-ms', '60000']\n"
+        "S.main()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n")
@@ -129,3 +153,40 @@ def test_modules_run_the_functions():
     img = vae.VAEDecoder(p["vae"], TINY_SD.vae)(eps)
     assert torch.equal(img, vae.apply_vae_decoder(p["vae"], TINY_SD.vae, eps))
     assert img.shape == (2, 16, 16, 3)
+
+
+def test_engines_add_no_device_sync_without_cost_model_or_metrics(monkeypatch):
+    """``torch.cuda.synchronize`` patched with a counter: a router over
+    both engines and a fleet, run with ``cost_model=None, metrics=None``,
+    never call it; the engines' observation sync calls it on a CUDA
+    device and not on the CPU."""
+    import repro_torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.engine import (EngineRouter, FleetManager, ReplicaSpec)
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving import ContinuousBatcher, Request
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: calls.append(device))
+    cfg = reduced(get_config("granite-8b"))
+    lm = init_lm(torch.Generator().manual_seed(0), cfg)
+    sd = init_pipeline(0, TINY_SD, device="cpu")
+    router = EngineRouter(
+        diffusion=DiffusionEngine(sd, TINY_SD, device="cpu", max_batch=2),
+        lm=ContinuousBatcher(lm, cfg, max_len=16, device="cpu"))
+    router.submit(GenerateRequest(rid=0, tokens=[1] * 77))
+    router.submit(GenerateRequest(rid=1, tokens=[2] * 77, sampler="euler",
+                                  steps=2, preview_every=1, preview_decode=True))
+    router.submit(Request(rid=2, prompt=[3] * 9, max_new=3))
+    assert len(router.run()) == 3
+    fleet = FleetManager([ReplicaSpec(n, lambda: ContinuousBatcher(
+        lm, cfg, max_len=16, device="cpu")) for n in "ab"],
+        watchdog_threshold=1e9)
+    for i in range(3):
+        fleet.submit(Request(rid=i, prompt=[4 + i] * 5, max_new=2))
+    assert len(fleet.run()) == 3
+    assert calls == []
+    repro_torch.sync_device(torch.device("cpu"))
+    assert calls == []
+    repro_torch.sync_device(torch.device("cuda", 0))
+    assert calls == [torch.device("cuda", 0)]

@@ -29,6 +29,8 @@ from repro_torch.engine import (Cancelled, DiffusionEngine,  # noqa: E402
                                 Finished, GenerateRequest, PreviewLatent,
                                 Progress, build_engine)
 from repro_torch.engine import diffusion_engine as tde  # noqa: E402
+from repro_torch.engine.costmodel import CostModel  # noqa: E402
+from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
 
 CORR, MAX_ABS = 0.9999, 5e-2
@@ -265,7 +267,10 @@ def test_engine_config_builds_the_same_engine(params):
     b = run(build_engine("diffusion", params[1], TINY_SD, conf, device="cpu",
                          noise_fn=jax_noise))
     assert torch.equal(a[0], b[0]) and a[1] == b[1]
-    for knob in ("cost_model", "metrics"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            DiffusionEngine(params[1], TINY_SD, device="cpu",
-                            **{knob: object()})
+    # cost_model= and metrics= reach the engine by kwarg or by config.
+    for knob, obj in (("cost_model", CostModel()), ("metrics", Telemetry())):
+        assert getattr(DiffusionEngine(params[1], TINY_SD, device="cpu",
+                                       **{knob: obj}), knob) is obj
+        assert getattr(build_engine("diffusion", params[1], TINY_SD,
+                                    EngineConfig(**{knob: obj}),
+                                    device="cpu"), knob) is obj

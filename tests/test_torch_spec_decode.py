@@ -44,6 +44,8 @@ from repro_torch.engine.config import resolve  # noqa: E402
 from repro_torch.serving import ContinuousBatcher as TCB  # noqa: E402
 from repro_torch.serving import Request as TReq  # noqa: E402
 from repro_torch.serving.scheduler import make_paged_decode  # noqa: E402
+from repro_torch.engine.costmodel import CostModel  # noqa: E402
+from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
 
 pytestmark = pytest.mark.serving
@@ -296,10 +298,13 @@ def test_spec_config_validation(weights):
         slots=1, max_len=32, spec_decode=_spec(weights, 1)))
     with pytest.raises(ValueError, match="pure-attention"):
         TCB(weights["target"][1], hyb, config=conf, device="cpu")
-    for knob in ("cost_model", "metrics"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TCB(weights["target"][1], TCFG, max_len=8, device="cpu",
-                **{knob: object()})
+    # cost_model= and metrics= reach the batcher (by kwarg or by config).
+    for knob, obj in (("cost_model", CostModel()), ("metrics", Telemetry())):
+        assert getattr(TCB(weights["target"][1], TCFG, max_len=8, device="cpu",
+                           **{knob: obj}), knob) is obj
+        assert getattr(TCB(weights["target"][1], TCFG, device="cpu",
+                           config=EngineConfig(**{knob: obj}, lm=LMEngineConfig(
+                               max_len=8))), knob) is obj
     with pytest.raises(TypeError, match="unknown engine kwargs"):
         resolve(None, "lm", {"max_batch": 2})
 
