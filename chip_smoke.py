@@ -45,6 +45,14 @@ caught and passed over):
              The verify cases (5 rows at depth 1029 and 2011, both pools)
              first write a chunk 3 rows longer at the same position, whose
              stale tail the verify must mask.
+             The batched (expert) entries of q8_matmul and q3k_matmul, one
+             launch over E experts, at deepseek-moe-16b's expert shapes
+             (E = 64; 4 decode rows and a fused chunk's 30 rows per
+             expert) and at edges (E = 4, M = 1 and 17, N = 70, scales
+             padded per expert): within the matmul limit of the plain
+             version (the 2-D plain version expert by expert), the same
+             bits twice, and every expert the 2-D entry's bits on its
+             operands; cuBLAS bmm on the dequantized weights beside.
 4. tiny    — TINY_SD with the same seeded weights and noise on the CPU
              (plain versions) and on the card (kernels); images must agree,
              on the fused path and on the segmented preview path (euler,
@@ -132,11 +140,29 @@ caught and passed over):
              building replica1 costs its KV pool, not the weights, and the
              run's peak stays under two pools plus full_router's activations.
 
+10. full_moe — deepseek-moe-16b at full width (28 layers, d 2048, 64
+             routed experts of 1408, top-6, 2 shared, vocab 102400) with
+             seeded synthetic weights made on the card, after tiny_moe
+             (its reduced config at d 256 on the CPU and the card: one MoE
+             layer routes alike, lm_forward on the card's routing, exact
+             launches).  Under q8_0 and q3_k (each quantized copy freed
+             before the next): greedy_generate of 8 tokens after 16 at 4
+             rows, exact launches (each expert projection one batched
+             launch); its make_decode replay, and a plain replay pinned to
+             the replay's expert sets with every batched launch held to
+             its plain version: logits within GEN_LOGIT_TOL, argmax above
+             GEN_TIE_MARGIN, and where the plain replay's own router would
+             have routed otherwise reported; then ContinuousBatcher over 5
+             prompts of 280-600 tokens (fused chunks: 30 rows per expert,
+             the tile path) with every batched launch held to its plain
+             version on its own inputs, events, exact launches, and a
+             profile of one decode quantum and one prefill chunk.
+
 Progress goes to stderr.  Standard output gets three lines at the end of
 a run that passed: the card's name and power limit as ``nvidia-smi``
 gives them, a JSON object ``{"kernels": [...]}`` (per kernel: launches
-on the main paths, phases full, full_lm, full_gen, full_router and
-full_fleet, and for
+on the main paths, phases full, full_lm, full_gen, full_router,
+full_fleet and full_moe, and for
 ``q8_matmul_w8a8`` through its entry point; worst error; the headline
 shape's times and bound), and ``{"ok": true, "device": {...}}``.
 """
@@ -257,6 +283,20 @@ Q4_EDGE = [(77, 320, 768), (1, 70, 96), (3, 70, 100),   # K = 100: tail-padded
 W8A8_SHAPES = LM_MATMUL_SHAPES + [(8, 14336, 4096), (16, 14336, 4096),
                                   (SPEC_K + 1, 14336, 4096), (4096, 320, 320),
                                   (4096, 2560, 320)]
+# The batched entries (one launch over an MoE layer's experts): (E, M, N,
+# K) at deepseek-moe-16b's expert projections, up/gate (N 1408, K 2048)
+# and down (N 2048, K 1408), at 4 decode rows per expert (decode path) and
+# at a 256-token fused chunk's capacity, int(1.25 * 256 * 6 / 64) = 30 rows
+# (tile path).  Under q3_k only up and gate are Q3_K (1408 % 256 != 0).
+# Edges: 4 experts of one row and of 17 rows, N = 70 off every tile, K =
+# 96 (Q8_0) or 256 (Q3_K): per-expert scale and d sizes that are no
+# multiple of 16 bytes, so the wrapper pads them.
+MOE_CHUNK_CAP = int(1.25 * 256 * 6 / 64)
+Q8_EXPERT_SHAPES = [(64, 4, 1408, 2048), (64, 4, 2048, 1408),
+                    (64, MOE_CHUNK_CAP, 1408, 2048), (64, MOE_CHUNK_CAP, 2048, 1408)]
+Q8_EXPERT_EDGE = [(4, 1, 70, 96), (4, 17, 70, 96)]
+Q3K_EXPERT_SHAPES = [(64, 4, 1408, 2048), (64, MOE_CHUNK_CAP, 1408, 2048)]
+Q3K_EXPERT_EDGE = [(4, 1, 70, 256), (4, 17, 70, 256)]
 W8A8_EDGE = [(4, 1000, 4128), (5, 70, 96),   # K/32 = 129 and 3: a partial K stage
              (16, 70, 96), (17, 70, 96),     # the path cut
              (129, 100, 4128)]               # ragged tiles and a partial K stage
@@ -663,6 +703,9 @@ def _flash_decode_case(case, gen, timed: bool) -> dict:
 # decide nothing of another's inputs.
 KERNEL_SEED_OFFSET = {"flash_attention": 0, "q8_matmul": 11, "q3k_matmul": 12,
                       "q4_matmul": 13, "q8_matmul_w8a8": 14, "flash_decode": 15}
+# The batched entries' cases draw from generators of their own too (their
+# rows follow the kernel's own in its list).
+EXPERT_SEED_OFFSET = {"q8_matmul": 16, "q3k_matmul": 17}
 
 
 def phase_kernels() -> dict[str, list[dict]]:
@@ -681,8 +724,81 @@ def phase_kernels() -> dict[str, list[dict]]:
     for case in FLASH_DECODE_SHAPES + FLASH_DECODE_EDGE:
         rows["flash_decode"].append(_flash_decode_case(
             case, gens["flash_decode"], timed=case in FLASH_DECODE_SHAPES))
+    for kind, shapes, edges in (("q8_matmul", Q8_EXPERT_SHAPES, Q8_EXPERT_EDGE),
+                                ("q3k_matmul", Q3K_EXPERT_SHAPES, Q3K_EXPERT_EDGE)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + EXPERT_SEED_OFFSET[kind])
+        for shape in shapes + edges:
+            rows[kind].append(_experts_case(kind, shape, gen, timed=shape in shapes))
     _log_rows(rows)
     return rows
+
+
+def _experts_weight(kind: str, w: torch.Tensor):
+    from repro_torch.core import quant
+    return quant.quantize_q8_0(w) if kind == "q8_matmul" else quant.quantize_q3_k(w)
+
+
+def _experts_case(kind: str, shape, gen, timed: bool) -> dict:
+    """One launch of the batched entry of ``kind`` over E experts against
+    its plain version, a second call for the same bits, and every expert
+    against the two-dimensional entry on that expert's operands (the same
+    bits: one CTA computes the same sums in either)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import q3k_matmul as q3k
+    from repro_torch.kernels import q8_matmul as q8
+    e, m, n, kdim = shape
+    x = torch.randn((e, m, kdim), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((e, n, kdim), generator=gen, device="cuda") * kdim ** -0.5
+    wt = _experts_weight(kind, w)
+    del w
+    if kind == "q8_matmul":
+        def kern():
+            return q8.q8_matmul_experts(x, wt.qs, wt.d)
+
+        def one(i):
+            return q8.q8_matmul(x[i], wt.qs[i], wt.d[i])
+        wbytes = e * (n * kdim + 2 * n * kdim // 32)
+    else:
+        def kern():
+            return q3k.q3k_matmul_experts(x, wt.ql, wt.qh, wt.scales, wt.d)
+
+        def one(i):
+            return q3k.q3k_matmul(x[i], wt.ql[i], wt.qh[i], wt.scales[i], wt.d[i])
+        wbytes = e * (n * kdim // 4 + n * kdim // 8 + 14 * n * kdim // 256)
+
+    def plain():        # ops' CPU route: the 2-D plain version expert by expert
+        return ops._experts_plain(x, wt)
+
+    def library():
+        return torch.bmm(x, quant.dequantize(wt, torch.bfloat16).transpose(1, 2))
+    out, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (out - want).abs().max().item()
+    tol = MATMUL_RTOL * max(1.0, want.abs().max().item())
+    label = f"{kind} experts {shape}"
+    if not (torch.isfinite(out).all() and err <= tol):
+        raise AssertionError(f"{label}: max|err| {err} > {tol}")
+    if not torch.equal(kern(), out):
+        raise AssertionError(f"{label}: a second call gave other bits")
+    for i in range(e):
+        if not torch.equal(one(i), out[i]):
+            raise AssertionError(f"{label}: expert {i} differs from the "
+                                 "two-dimensional entry's bits")
+    row = {"shape": shape, "max_abs_err": err}
+    if timed:
+        wd = quant.dequantize(wt, torch.bfloat16)
+
+        def dense():
+            return torch.bmm(x, wd.transpose(1, 2))
+        row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3),
+                   library_ms=cuda_ms(library), device_ms=device_ms(kern),
+                   library_device_ms=device_ms(library), cublas_ms=cuda_ms(dense),
+                   cublas_device_ms=device_ms(dense))
+        del wd
+        row["bound_ms"], row["bound_by"] = bound(
+            2.0 * e * m * n * kdim, 2 * e * m * kdim + wbytes + 4 * e * m * n)
+    return row
 
 
 def phase_w8a8_entry() -> int:
@@ -1909,12 +2025,12 @@ GEN_LOGIT_TOL = 0.25
 GEN_TIE_MARGIN = 0.125
 
 
-def _replay(params, cfg, out, steps: int):
+def _replay(params, cfg, out, steps: int, max_len: int = GEN_MAX_LEN):
     """Feed ``out``'s tokens through ``make_cache`` + ``make_decode`` one
     synchronised step at a time: (logits (B, steps, V), seconds per step,
     the cache)."""
     from repro_torch.train.serve_step import make_cache, make_decode
-    cache = make_cache(params, cfg, GEN_BATCH, GEN_MAX_LEN)
+    cache = make_cache(params, cfg, out.shape[0], max_len)
     decode = make_decode(cfg)
     logits, times = [], []
     with torch.no_grad():
@@ -2520,6 +2636,377 @@ def phase_full_fleet(card: str, sd, lm, cfg, act: int) -> dict:
     return totals
 
 
+# ------------------------------------------------------- the MoE family
+# deepseek-moe-16b at full width (28 layers, d 2048, 16 heads of 128, 64
+# routed experts of 1408 top-6 and 2 shared, vocab 102400): greedy_generate
+# of MOE_GEN_STEPS tokens after MOE_GEN_PROMPT at 4 rows, then
+# ContinuousBatcher(slots=4, block 16, chunk 256) over MOE_PROMPTS (each
+# longer than a chunk, so the fused chunk's expert matmuls take the tile
+# path at MOE_CHUNK_CAP rows per expert), under q8_0 and q3_k weights.
+MOE_LAYERS = 28
+MOE_PRESETS = ("q8_0", "q3_k")
+MOE_GEN_BATCH, MOE_GEN_PROMPT, MOE_GEN_STEPS = 4, 16, 8
+MOE_PROMPTS = (600, 300, 520, 280, 350)
+MOE_MAX_NEW = 8
+# Kernel launches per forward of one MoE layer: under q8_0 every linear
+# but the f32 router is Q8_0 (q, k, v, o; the three expert projections,
+# one batched launch each; the shared MLP's up, gate and down); under q3_k
+# the same but the expert down projection (K = 1408, 1408 % 256 != 0: a
+# bf16 bmm); the head is Q8_0 under both.
+MOE_LAYER_LAUNCHES = {"q8_0": {"q8_matmul": 10}, "q3_k": {"q3k_matmul": 9}}
+MOE_EXPERT_LAUNCHES = {"q8_0": 3, "q3_k": 2}     # of those, batched expert launches
+
+
+def _matmul_launches(tree) -> dict:
+    """Kernel launches of one pass through ``tree``'s Linears: one per
+    Linear whose weight is quantized (the expert projections' stacked
+    weights included: one batched launch each), by kernel."""
+    from repro_torch.core.qlinear import Linear
+    from repro_torch.core.quant import Q3KTensor, Q4_0Tensor, Q8_0Tensor
+    from repro_torch.core.tree import tree_leaves
+    kernel = {Q8_0Tensor: "q8_matmul", Q3KTensor: "q3k_matmul", Q4_0Tensor: "q4_matmul"}
+    out: dict[str, int] = {}
+    for lin in tree_leaves(tree, is_leaf=lambda t: isinstance(t, Linear)):
+        name = kernel.get(type(lin.w)) if isinstance(lin, Linear) else None
+        if name:
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _moe_want(params, layers: int, forwards: int, attention: dict) -> dict:
+    """Launches of ``forwards`` forwards of an MoE stack, worked out from
+    its weights: each layer's quantized linears (``_matmul_launches`` of
+    layer 0) and the quantized head, plus ``attention`` (kernel name ->
+    launches)."""
+    from repro_torch.kernels import ops
+    want = {name: 0 for name in ops.KERNEL_MODULES}
+    head = params.get("lm_head") or params["embed"]
+    for tree, n in ((params["layers"][0], layers * forwards), (head, forwards)):
+        for name, k in _matmul_launches(tree).items():
+            want[name] += k * n
+    for name, n in attention.items():
+        want[name] += n
+    return want
+
+
+def experts_plain_batched(x: torch.Tensor, w) -> torch.Tensor:
+    """The batched entries' plain version in one batched product: every
+    expert's weight dequantized to bf16 at once, an f32 product of the
+    bf16 operands (the plain version's math, its f32 sums in another
+    order), (E, M, N) f32."""
+    from repro_torch.core import quant
+    wd = quant.dequantize(w, torch.bfloat16)
+    return torch.matmul(x.to(torch.bfloat16).float(), wd.float().transpose(1, 2))
+
+
+class _CheckedExperts:
+    """Hold every launch of a batched expert entry (``ops._experts_matmul``
+    on the card) against its plain version on that call's own inputs,
+    within MATMUL_RTOL of its largest magnitude.  The model goes on with
+    the kernel's result, or with ``plain=True`` the plain version's (a
+    plain replay).  The comparisons launch no kernel."""
+
+    def __init__(self, plain: bool = False):
+        self.plain = plain
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.inner = ops._experts_matmul
+        self.calls, self.err, self.excess = 0, None, None
+
+        def checked(x, w):
+            out = self.inner(x, w)
+            want = experts_plain_batched(x, w)
+            diff = (out - want).abs().amax()
+            excess = diff - MATMUL_RTOL * want.abs().amax().clamp_min(1.0)
+            self.err = diff if self.err is None else torch.maximum(self.err, diff)
+            self.excess = excess if self.excess is None else torch.maximum(
+                self.excess, excess)
+            self.calls += 1
+            return want if self.plain else out
+        ops._experts_matmul = checked
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops._experts_matmul = self.inner
+
+    def check(self, label: str, calls: int) -> None:
+        if self.calls != calls:
+            raise AssertionError(f"{label}: {self.calls} batched expert calls, expected {calls}")
+        if not self.excess.item() <= 0:
+            raise AssertionError(f"{label}: a batched expert launch is {self.err.item()} "
+                                 f"from its plain version, over MATMUL_RTOL by "
+                                 f"{self.excess.item()}")
+        log(f"[full_moe] {label}: {self.calls} batched expert launches held to their "
+            f"plain version, max|err| {self.err.item():.3e}")
+
+
+class _Routing:
+    """Record each MoE layer's top-k expert ids per token in call order
+    ((B, S, k), as ``moe.route`` gives them).  With ``pinned`` (such a
+    record of another run) each call routes to the recorded experts
+    instead, its gates its own probabilities of them renormalised: a
+    replay that differs from the recorded one only in its numerics."""
+
+    def __init__(self, pinned: list | None = None):
+        self.pinned = pinned
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.inner, self.sets, self.own = moe.route, [], []
+
+        def routed(p, cfg, x):
+            probs, gate, idx = self.inner(p, cfg, x)
+            self.own.append(idx)
+            if self.pinned is not None:
+                idx = self.pinned[len(self.sets)]
+                gate = probs.gather(-1, idx)
+                gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+            self.sets.append(idx)
+            return probs, gate, idx
+        moe.route = routed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.inner
+
+
+def _moe_routing_differs(a: list, b: list, layers: int) -> torch.Tensor:
+    """(B, steps, layers) bool: where a step-by-step replay's expert set
+    differs between routings ``a`` and ``b`` (``layers`` calls per step)."""
+    diff = [(x.sort(-1).values != y.sort(-1).values).any(-1).any(-1)
+            for x, y in zip(a, b)]                                       # (B,) per call
+    return torch.stack(diff).reshape(-1, layers, diff[0].shape[0]).permute(2, 0, 1).cpu()
+
+
+def _check_moe_against_plain(label: str, out, dec, plain, routed) -> None:
+    """The kernel replay ``dec`` against the plain replay ``plain`` that
+    was pinned to its routing: every logit within GEN_LOGIT_TOL and the
+    same argmax wherever the plain replay's top-2 margin exceeds
+    GEN_TIE_MARGIN, at every position.  ``routed`` (B, steps, layers)
+    marks where the plain replay's own router would have picked another
+    expert set (reported: left to itself, one swapped expert moves the
+    logits by more than any rounding)."""
+    diff = (dec - plain).abs()
+    worst = diff.max().item()
+    top = plain.topk(2, dim=-1)
+    margin = (top.values[..., 0] - top.values[..., 1]).cpu()
+    flips = (dec.argmax(-1) != plain.argmax(-1)).cpu()
+    same = dec.argmax(-1)[:, MOE_GEN_PROMPT - 1:].to(out.dtype) == out[:, MOE_GEN_PROMPT:]
+    moved = routed.any(-1)
+    log(f"[full_moe] {label}: kernel replay vs the plain replay on its routing: logits "
+        f"within {worst:.4f} ({100 * (diff == 0).float().mean().item():.3f}% bit-equal); "
+        f"{int(flips.sum())} of {flips.numel()} argmax differ (margins "
+        f"{[round(float(m), 4) for m in margin[flips]]}); left to itself the plain "
+        f"replay's router would pick another expert set in {int(routed.sum())} of "
+        f"{routed.numel()} (row, position, layer) triples, at {int(moved.sum())} of "
+        f"{moved.numel()} positions; {int((margin <= GEN_TIE_MARGIN).sum())} near-ties "
+        f"(margin <= {GEN_TIE_MARGIN}) not compared")
+    if not worst <= GEN_LOGIT_TOL or (flips & (margin > GEN_TIE_MARGIN)).any():
+        raise AssertionError(f"{label}: the kernel replay's logits differ from the plain "
+                             f"replay's by {worst} (limit {GEN_LOGIT_TOL}), or its argmax "
+                             f"where the margin exceeds {GEN_TIE_MARGIN}")
+    if not same.all():
+        raise AssertionError(f"{label}: the make_decode replay does not reproduce "
+                             "greedy_generate's tokens")
+
+
+def _tiny_moe() -> None:
+    """reduced(deepseek-moe-16b) at d_model 256 (so Q3_K takes the expert
+    up and gate) with the same seeded weights on the card (kernels) and
+    on the CPU (plain versions): one MoE layer on the same bf16 input
+    routes every token alike and gives outputs within 0.01 + 1% (about
+    two bf16 ulps); ``lm_forward`` launches exactly what its weights say,
+    and with the CPU run pinned to the card's routing its logits are
+    within 0.05 + 2% of the CPU's at every position (where the CPU's own
+    router would have picked another expert set is counted)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qlinear import quantize_params
+    from repro_torch.core.tree import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_lm, lm_forward
+    cfg = reduced(get_config("deepseek-moe-16b"), d_model=256)
+    base = init_lm(torch.Generator().manual_seed(SEED), cfg)
+    gen = torch.Generator().manual_seed(SEED + 31)
+    toks = torch.randint(1, cfg.vocab_size, (2, 40), generator=gen)
+    x = torch.randn((2, 40, cfg.d_model), generator=gen).to(torch.bfloat16)
+    for preset in MOE_PRESETS:
+        params = quantize_params(base, get_policy(preset))
+        ys = {}
+        for dev in ("cuda", "cpu"):
+            with _Routing() as routing, torch.no_grad():
+                y, _ = moe.apply_moe(to_device(params["layers"][0]["moe"], dev), cfg, x.to(dev))
+            ys[dev] = (y.float().cpu(), routing.sets[0].cpu().sort(-1).values)
+        if not torch.equal(ys["cpu"][1], ys["cuda"][1]):
+            raise AssertionError(f"tiny_moe {preset}: one MoE layer routes the same input "
+                                 "differently on the CPU and the card")
+        ydiff = (ys["cuda"][0] - ys["cpu"][0]).abs()
+        if not (ydiff <= 0.01 + 0.01 * ys["cpu"][0].abs()).all():
+            raise AssertionError(f"tiny_moe {preset}: MoE layer outputs differ by "
+                                 f"{ydiff.max().item()}")
+        ops.reset_launch_counts()
+        with _Routing() as card, torch.no_grad():
+            logits, aux = lm_forward(to_device(params, "cuda"), cfg, toks.cuda())
+        counts = ops.launch_counts()
+        with _Routing(pinned=[t.cpu() for t in card.sets]) as cpu, torch.no_grad():
+            want, want_aux = lm_forward(params, cfg, toks)
+        expect = _moe_want(params, cfg.num_layers, 1, {"flash_attention": cfg.num_layers})
+        if counts != expect:
+            raise AssertionError(f"tiny_moe {preset}: launches {counts}, expected {expect}")
+        diff = (logits.cpu() - want).abs()
+        if not ((diff <= 0.05 + 0.02 * want.abs()).all() and torch.isfinite(logits).all()):
+            raise AssertionError(f"tiny_moe {preset}: lm_forward logits differ from the "
+                                 f"CPU's by {diff.max().item()}")
+        moved = sum(int((a.cpu().sort(-1).values != b.sort(-1).values).any(-1).sum())
+                    for a, b in zip(card.sets, cpu.own))
+        log(f"[tiny_moe] weights={preset}: one MoE layer within {ydiff.max().item():.4f} "
+            f"of the CPU's, same routing; lm_forward logits within {diff.max().item():.4f} "
+            f"of the CPU's on the card's routing (the CPU's own router differs at {moved} "
+            f"of {2 * 40 * cfg.num_layers} (row, position, layer) triples); aux "
+            f"{aux.item():.6f} (CPU {want_aux.item():.6f}); launches {counts}")
+
+
+def _moe_gen(card: str, cfg, params, preset: str) -> dict:
+    """``greedy_generate`` at full width (counted), its replay through
+    ``make_decode`` with the kernels and with the plain batched expert
+    version (held to each other per call), and ``make_prefill``."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.serve_step import greedy_generate
+    prompts = torch.randint(1, cfg.vocab_size, (MOE_GEN_BATCH, MOE_GEN_PROMPT),
+                            generator=torch.Generator(device="cuda").manual_seed(SEED + 33),
+                            device="cuda")
+    steps = MOE_GEN_PROMPT + MOE_GEN_STEPS - 1
+    max_len = MOE_GEN_PROMPT + MOE_GEN_STEPS
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, prompts, MOE_GEN_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = _moe_want(params, cfg.num_layers, steps, {"flash_decode": cfg.num_layers * steps})
+    if counts != want:
+        raise AssertionError(f"full_moe {preset} greedy_generate: launches {counts}, "
+                             f"expected {want}")
+    if out.shape != (MOE_GEN_BATCH, max_len) \
+            or not torch.equal(out[:, :MOE_GEN_PROMPT], prompts.to(out.dtype)) \
+            or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"full_moe {preset}: output {tuple(out.shape)} is not the "
+                             "prompts followed by vocabulary tokens")
+    with _Routing() as kroute:
+        dec, times, _ = _replay(params, cfg, out, steps, max_len)
+    with _Routing(pinned=kroute.sets) as proute, _CheckedExperts(plain=True) as oracle:
+        plain = _replay(params, cfg, out, steps, max_len)[0]
+    oracle.check(f"weights={preset} plain replay",
+                 MOE_EXPERT_LAUNCHES[preset] * cfg.num_layers * steps)
+    if not torch.isfinite(dec).all():
+        raise AssertionError(f"full_moe {preset}: non-finite logits")
+    routed = _moe_routing_differs(kroute.sets, proute.own, cfg.num_layers)
+    _check_moe_against_plain(f"weights={preset}", out, dec, plain, routed)
+    step_ms = 1e3 * sum(times[2:]) / (steps - 2)
+    log(f"[full_moe] weights={preset} greedy_generate: {steps} decode steps of "
+        f"{MOE_GEN_BATCH} rows in {wall:.2f} s ({1e3 * wall / steps:.2f} ms per step "
+        f"unsynchronised); {step_ms:.2f} ms per synchronised decode step; launches "
+        f"{counts}; {card}")
+    del dec, plain
+    return counts
+
+
+def _moe_serve(card: str, cfg, params, preset: str) -> dict:
+    """``ContinuousBatcher`` over MOE_PROMPTS, every batched expert launch
+    held to its plain version on its own inputs; events, exact launches,
+    then a profile of one decode quantum and one prefill chunk."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ContinuousBatcher, Request
+    max_len = ContinuousBatcher.required_len(len(MOE_PROMPTS), 4, max(MOE_PROMPTS),
+                                             MOE_MAX_NEW)
+    cb = ContinuousBatcher(params, cfg, slots=4, max_len=max_len, block_size=16,
+                           prefill_chunk=256)
+    reqs = _lm_requests(Request, MOE_PROMPTS, cfg.vocab_size, MOE_MAX_NEW, 0,
+                        torch.Generator(device="cuda").manual_seed(SEED + 35))
+    for r in reqs:
+        cb.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _CheckedExperts() as oracle:
+        cb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    label = f"full_moe weights={preset} serve"
+    _check_events(label, cb, len(reqs))
+    fwd = cb.prefill_launches + cb.decode_launches
+    oracle.check(f"weights={preset} serve", MOE_EXPERT_LAUNCHES[preset] * cfg.num_layers * fwd)
+    want = _moe_want(params, cfg.num_layers, fwd, {
+        "flash_prefill_paged": cfg.num_layers * cb.prefill_launches,
+        "flash_decode_paged": cfg.num_layers * cb.decode_launches})
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    outs = [t for r in cb.finished for t in r.out]
+    if len(outs) != len(reqs) * MOE_MAX_NEW or not all(0 <= t < cfg.vocab_size for t in outs):
+        raise AssertionError(f"{label}: {len(outs)} tokens, not {MOE_MAX_NEW} vocabulary "
+                             "tokens per request")
+    log(f"[full_moe] weights={preset} serve: {len(outs)} tokens for {len(reqs)} requests "
+        f"in {wall:.2f} s with every expert launch checked; quanta {cb.prefill_quanta} "
+        f"prefill / {cb.decode_quanta} decode; launches {counts}; {card}")
+    _profile_lm(cb, f"deepseek-moe-16b weights={preset}")
+    del cb
+    return counts
+
+
+def phase_full_moe(card: str) -> dict[str, int]:
+    """deepseek-moe-16b at full width with seeded synthetic weights made on
+    the card, under q8_0 and q3_k: greedy_generate with its replays, then
+    ContinuousBatcher; each quantized copy is freed before the next."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qlinear import param_bytes, param_count, quantize_params
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    _tiny_moe()
+    cfg = get_config("deepseek-moe-16b")
+    assert cfg.num_layers == MOE_LAYERS and cfg.moe.num_experts == 64
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    log(f"[full_moe] init deepseek-moe-16b {time.perf_counter() - t0:.1f} s, "
+        f"{param_count(base) / 1e9:.2f} B parameters, {param_bytes(base) / 2**30:.2f} GiB")
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+    for preset in MOE_PRESETS:
+        t0 = time.perf_counter()
+        params = quantize_params(base, get_policy(preset))
+        torch.cuda.synchronize()
+        layer = params["layers"][0]["moe"]
+        if (_matmul_launches(params["layers"][0]) != MOE_LAYER_LAUNCHES[preset]
+                or sum(_matmul_launches([layer[k] for k in ("w_up", "w_gate", "w_down")])
+                       .values()) != MOE_EXPERT_LAUNCHES[preset]):
+            raise AssertionError(f"full_moe {preset}: layer 0 takes kernels "
+                                 f"{_matmul_launches(params['layers'][0])}, expected "
+                                 f"{MOE_LAYER_LAUNCHES[preset]}")
+        log(f"[full_moe] weights={preset}: quantized in {time.perf_counter() - t0:.1f} s, "
+            f"{param_bytes(params) / 2**30:.2f} GiB; expert weights "
+            + ", ".join(f"{k} {type(layer[k].w).__name__}" for k in ("w_up", "w_gate", "w_down")))
+        torch.cuda.reset_peak_memory_stats()
+        for counts in (_moe_gen(card, cfg, params, preset), _moe_serve(card, cfg, params, preset)):
+            for name, n in counts.items():
+                totals[name] += n
+        log(f"[full_moe] weights={preset}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del params, layer
+        gc.collect()
+        torch.cuda.empty_cache()
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def phase_full_serving(card: str) -> dict[str, int]:
     """Phases full_router and full_fleet on one pair of weight trees."""
     sd, lm, cfg = _serving_bases()
@@ -2554,7 +3041,7 @@ def main() -> int:
     phase_tiny_gen()
     for phase in (lambda: phase_full(rows["flash_attention"]),
                   lambda: phase_full_lm(card), lambda: phase_full_gen(card),
-                  lambda: phase_full_serving(card)):
+                  lambda: phase_full_serving(card), lambda: phase_full_moe(card)):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
     for name in KERNEL_META:

@@ -1,8 +1,8 @@
 """Configs of the port and the architecture registry.
 
-:func:`get_config` serves the dense attention-only LMs, whose configs
-are copied here from ``repro.configs``; every other architecture of the
-reference (MoE, SSM, hybrid, enc-dec, VLM) raises
+:func:`get_config` serves the dense attention-only LMs and the MoE
+family, whose configs are copied here from ``repro.configs``; every
+other architecture of the reference (SSM, hybrid, enc-dec, VLM) raises
 ``NotImplementedError`` until its slice is ported.
 """
 from __future__ import annotations
@@ -22,11 +22,13 @@ ARCH_MODULES = {
     "h2o-danube-3-4b": "h2o_danube3_4b",
     "granite-8b": "granite_8b",
     "qwen1.5-110b": "qwen1_5_110b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b",
 }
 
 # Architectures of the reference that need blocks this port lacks.
-NOT_PORTED = ("xlstm-1.3b", "whisper-large-v3", "deepseek-moe-16b",
-              "moonshot-v1-16b-a3b", "jamba-1.5-large-398b", "qwen2-vl-72b")
+NOT_PORTED = ("xlstm-1.3b", "whisper-large-v3", "jamba-1.5-large-398b",
+              "qwen2-vl-72b")
 
 ARCHS = tuple(ARCH_MODULES)
 
@@ -34,7 +36,7 @@ ARCHS = tuple(ARCH_MODULES)
 def get_config(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"{name}: only the dense attention-only LMs are ported "
+            f"{name}: only the dense attention-only and MoE LMs are ported "
             f"({', '.join(ARCHS)})")
     if name not in ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list(ARCH_MODULES)}")

@@ -4,10 +4,18 @@ A :class:`Linear` holds a weight stored output-major ``(N, K)`` (a dense
 tensor or a ``Q8_0Tensor``/``Q4_0Tensor``/``Q3KTensor`` after
 quantization), an optional bias, and the tensor *role* the offload
 policy keys on — the counterpart of ``repro.core.qlinear.Linear``.
+
+The matmul recorder is the reference's too: a callback installed with
+:func:`set_recorder` sees every dot-product site ``(name, role, m, n,
+k, count, act_act)`` that ``apply_linear`` and the attention sites
+report (the basis of the paper's Table I accounting,
+:mod:`repro_torch.core.accounting`); with none installed it costs one
+``is None`` test per call.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -17,6 +25,21 @@ from repro_torch.core.policy import OffloadPolicy
 from repro_torch.core.quant import QTYPES
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ops
+
+_RECORDER = None
+
+
+def set_recorder(fn) -> None:
+    """Install ``fn(**site)`` as the matmul recorder (``None`` removes it)."""
+    global _RECORDER
+    _RECORDER = fn
+
+
+def record_matmul(name: str, role: str, m: int, n: int, k: int,
+                  count: int = 1, act_act: bool = False) -> None:
+    if _RECORDER is not None:
+        _RECORDER(name=name, role=role, m=m, n=n, k=k, count=count,
+                  act_act=act_act)
 
 
 @dataclasses.dataclass
@@ -60,6 +83,11 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def apply_linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     w = p.w
+    if _RECORDER is not None:
+        m = 1
+        for d in x.shape[:-1]:
+            m *= int(d)
+        record_matmul("linear", p.role, m, int(w.shape[-2]), int(w.shape[-1]))
     if isinstance(w, QTYPES):
         y = ops.quantized_matmul(x, w)
     else:
@@ -109,4 +137,16 @@ def param_bytes(params: Any) -> int:
             total += leaf.nbytes()
         else:
             total += leaf.numel() * leaf.element_size()
+    return total
+
+
+def param_count(params: Any) -> int:
+    """Logical parameter count (quantized tensors count their logical
+    size)."""
+    total = 0
+    for leaf in tree_leaves(params, is_leaf=_is_qtensor):
+        if isinstance(leaf, QTYPES):
+            total += math.prod(leaf.shape)
+        else:
+            total += leaf.numel()
     return total

@@ -1,6 +1,6 @@
-"""GGML-semantic blocked quantization: Q8_0, Q4_0 and Q3_K in PyTorch.
+"""GGML-semantic blocked quantization: Q8_0, Q4_0, Q8_K and Q3_K in PyTorch.
 
-A port of the Q8_0, Q4_0 and Q3_K parts of ``repro.core.quant`` that
+A port of ``repro.core.quant`` that
 gives the same bytes for the same input: every step keeps the
 reference's float32 arithmetic and order, and ``torch.round`` rounds
 half to even like ``jnp.round``.
@@ -9,6 +9,8 @@ half to even like ``jnp.round``.
 * **Q4_0** — blocks of 32; fp16 scale ``d = amax/7``; 4-bit codes
   ``q`` in [0, 15] (clipped before packing), two per byte with the even
   element in the low nibble; ``w = d*(q-8)``.
+* **Q8_K** — activation blocks of 256; f32 scale ``d = amax/127``; int8
+  quants (the activation side of the Q3_K integer path; no model path).
 * **Q3_K** — super-blocks of 256 = 16 sub-blocks of 16; 3-bit quants in
   [-4, 3] as 2-bit ``ql`` plus 1-bit ``qh``; 6-bit sub-block codes with
   offset 32 packed 4 per 3 bytes; fp16 super-scale; ``w = d*(sc-32)*q``.
@@ -35,6 +37,7 @@ BPW = {
     "q8_0": (32 * 8 + 16) / 32,
     "q4_0": (16 * 8 + 16) / 32,
     "q3_k": (64 * 8 + 32 * 8 + 12 * 8 + 16) / 256,
+    "q8_k": (256 * 8 + 32) / 256,
 }
 
 F16_MAX = 65504.0
@@ -118,6 +121,20 @@ class Q3KTensor:
                 + 2 * self.d.numel())
 
 
+@dataclasses.dataclass
+class Q8KTensor:
+    """Q8_K activation blocks: int8 quants + f32 per-256 scales."""
+    qs: torch.Tensor       # int8 (..., K)
+    d: torch.Tensor        # f32  (..., K // 256)
+
+    @property
+    def shape(self):
+        return tuple(self.qs.shape)
+
+    def nbytes(self) -> int:
+        return self.qs.numel() + 4 * self.d.numel()
+
+
 QTYPES = (Q8_0Tensor, Q4_0Tensor, Q3KTensor)
 
 
@@ -180,6 +197,22 @@ def dequantize_q4_0(t: Q4_0Tensor, dtype=torch.float32) -> torch.Tensor:
     if t.logical is not None:
         w = w[..., :t.logical]
     return w.to(dtype)
+
+
+# ---------------------------------------------------------------- Q8_K
+
+def quantize_q8_k(x: torch.Tensor) -> Q8KTensor:
+    _check_last_divisible(x, QK_K)
+    xb = _blocks(x.float(), QK_K)
+    d = xb.abs().amax(dim=-1) / 127.0
+    inv = torch.where(d > 0, 1.0 / d, torch.zeros_like(d))
+    q = torch.round(xb * inv[..., None]).clamp(-127, 127).to(torch.int8)
+    return Q8KTensor(qs=q.reshape(x.shape), d=d)
+
+
+def dequantize_q8_k(t: Q8KTensor, dtype=torch.float32) -> torch.Tensor:
+    w = _blocks(t.qs, QK_K).float() * t.d[..., None]
+    return w.reshape(t.qs.shape).to(dtype)
 
 
 # ---------------------------------------------------------------- Q3_K

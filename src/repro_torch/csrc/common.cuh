@@ -536,7 +536,9 @@ struct TileScales {
 // warpgroups split the tile's rows (BM >= 128: WGM m64 blocks each, all BN
 // columns) or, at BM = 64, its columns (BN / 2 each).
 // The format supplies raw_bytes(BN) (raw bytes of one slot), extra_bytes(BN)
-// (shared memory of its own past the ring) and Producer<BN, NP>(fmt, n0, N,
+// (shared memory of its own past the ring), expert(e) (the format of expert
+// e of a batched call: its arrays moved on by their per-expert strides, as
+// aligned as expert 0's) and Producer<BN, NP>(fmt, n0, N,
 // K, t, extra), producer t's addresses worked out once, with load(raw, k)
 // issuing its share of the cp.async copies of step k's weight bytes and
 // scales and unpack(raw, wt, k) writing its units of the bf16 tile (unit
@@ -660,13 +662,26 @@ __device__ __forceinline__ void setmaxnreg_dec() {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N) : "memory");
 }
 
+// The experts of a batched matmul (one launch for E products of the same
+// M, N and K): E, and the elements from one expert's x and y to the
+// next's.  The weight's strides ride in the format (Fmt::expert).  E = 1
+// is the plain two-dimensional call.
+struct Batch {
+    int E = 1;
+    size_t sx = 0, sy = 0;
+};
+
 template <class Fmt, class T>
 __global__ void __launch_bounds__(T::THREADS, 1)
 tile_kernel(const bf16* __restrict__ x, const Fmt fmt, float* __restrict__ y,
-            int M, int N, int K) {
+            int M, int N, int K, size_t sx, size_t sy) {
     constexpr int STAGES = T::STAGES, THREADS = T::THREADS;
     constexpr int FULL = 1, EMPTY = 1 + STAGES, PROD = 1 + 2 * STAGES;
     extern __shared__ __align__(1024) unsigned char smem[];
+    // Expert blockIdx.z of a batched call (0 otherwise): its x, weight
+    // and y, sx, the format's and sy elements on per expert.
+    x += blockIdx.z * sx;
+    y += blockIdx.z * sy;
     const int n0 = blockIdx.x * T::BN, m0 = blockIdx.y * T::BM;
     const int nsteps = (K + TILE_BK - 1) / TILE_BK;
     auto xs = [&](int k) { return reinterpret_cast<bf16*>(smem + (k % STAGES) * T::SLOT); };
@@ -676,8 +691,8 @@ tile_kernel(const bf16* __restrict__ x, const Fmt fmt, float* __restrict__ y,
     if (threadIdx.x >= TILE_MMA_WARPS * 32) {              // producers
         if constexpr (T::MMA_REGS > 0) setmaxnreg_dec<T::PROD_REGS>();
         const int t = threadIdx.x - TILE_MMA_WARPS * 32;
-        const typename Fmt::template Producer<T::BN, T::NP> prod(fmt, n0, N, K, t,
-                                                                 smem + STAGES * T::SLOT);
+        const typename Fmt::template Producer<T::BN, T::NP> prod(fmt.expert(blockIdx.z), n0, N,
+                                                                 K, t, smem + STAGES * T::SLOT);
         // This thread's x chunks: chunk xc of rows xr + XROWS * it.
         constexpr int XIT = T::BM * 8 / T::NP, XROWS = T::NP / 8;
         const int xr = t >> 3, xc = t & 7;
@@ -772,16 +787,20 @@ cudaError_t tile_setup() {
                                 T::SMEM);
 }
 
+// Grid (N tiles, M tiles, E experts): a batched call is one launch whose
+// experts are its z blocks, each a whole (M, N, K) product.
 template <class Fmt, class T>
-void tile_run(const bf16* x, const Fmt& fmt, float* y, int M, int N, int K, cudaStream_t st) {
-    const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
-    tile_kernel<Fmt, T><<<grid, T::THREADS, T::SMEM, st>>>(x, fmt, y, M, N, K);
+void tile_run(const bf16* x, const Fmt& fmt, float* y, int M, int N, int K, const Batch& b,
+              cudaStream_t st) {
+    const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, b.E);
+    tile_kernel<Fmt, T><<<grid, T::THREADS, T::SMEM, st>>>(x, fmt, y, M, N, K, b.sx, b.sy);
 }
 
-// CTA rule (see above); the SM count and the shared-memory limits are set
-// up once per device.
+// CTA rule (see above), over the CTAs of all E experts; the SM count and
+// the shared-memory limits are set up once per device.
 template <class Fmt>
-int tile_launch(const bf16* x, const Fmt& fmt, float* y, int M, int N, int K, cudaStream_t st) {
+int tile_launch(const bf16* x, const Fmt& fmt, float* y, int M, int N, int K, cudaStream_t st,
+                const Batch& b = Batch{}) {
     using T256 = Tile<Fmt, 256, 128, 256, 176>;   // 2 x 64 sums of m64n128: 176 registers
     using T128 = Tile<Fmt, 128, 128, 256>;
     using T128x64 = Tile<Fmt, 128, 64, 256>;
@@ -801,7 +820,7 @@ int tile_launch(const bf16* x, const Fmt& fmt, float* y, int M, int N, int K, cu
     // wave's time; ties go to the larger tile.
     const int sms = dev_sms[0];
     auto cost = [&](int bm, int bn, int rate) {
-        const long long ctas = (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+        const long long ctas = (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn) * b.E;
         return (ctas + sms - 1) / sms * (bm * bn * 100000LL / rate);
     };
     const long long c256 = M > 128 ? cost(256, 128, TILE_RATE_256x128) : LLONG_MAX;
@@ -809,13 +828,13 @@ int tile_launch(const bf16* x, const Fmt& fmt, float* y, int M, int N, int K, cu
     const long long c128x64 = M > 64 ? cost(128, 64, TILE_RATE_128x64) : LLONG_MAX;
     const long long c64 = cost(64, 64, TILE_RATE_64x64);
     if (c256 <= c128 && c256 <= c128x64 && c256 <= c64)
-        tile_run<Fmt, T256>(x, fmt, y, M, N, K, st);
+        tile_run<Fmt, T256>(x, fmt, y, M, N, K, b, st);
     else if (c128 <= c128x64 && c128 <= c64)
-        tile_run<Fmt, T128>(x, fmt, y, M, N, K, st);
+        tile_run<Fmt, T128>(x, fmt, y, M, N, K, b, st);
     else if (c128x64 <= c64)
-        tile_run<Fmt, T128x64>(x, fmt, y, M, N, K, st);
+        tile_run<Fmt, T128x64>(x, fmt, y, M, N, K, b, st);
     else
-        tile_run<Fmt, T64>(x, fmt, y, M, N, K, st);
+        tile_run<Fmt, T64>(x, fmt, y, M, N, K, b, st);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -133,6 +133,13 @@ struct Codes {
     __half d[2];
 };
 
+// Elements from one expert's x, ql, qh, scale bytes, d and y to the
+// next's in a batched call (csrc/common.cuh's Batch; all 0 for a
+// two-dimensional one).
+struct ExpertStrides {
+    size_t x, ql, qh, sc, d, y;
+};
+
 // NT column groups of 8 tokens (M <= 8 * NT).  Two CTAs per SM at least:
 // left to itself ptxas may take ~160 registers and halve the warps per SM.
 template <int NT>
@@ -140,8 +147,15 @@ __global__ void __launch_bounds__(GEMV_WARPS * 32, 2)
 q3k_gemv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ ql,
                 const uint8_t* __restrict__ qh, const uint8_t* __restrict__ scales,
                 const __half* __restrict__ d, float* __restrict__ y,
-                int M, int N, int K) {
+                int M, int N, int K, ExpertStrides es) {
     __shared__ float red[GEMV_WARPS][GEMV_ROWS * 8 * NT];
+    // Expert blockIdx.z of a batched call (0 otherwise).
+    x += blockIdx.z * es.x;
+    ql += blockIdx.z * es.ql;
+    qh += blockIdx.z * es.qh;
+    scales += blockIdx.z * es.sc;
+    d += blockIdx.z * es.d;
+    y += blockIdx.z * es.y;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nwarp = blockDim.x >> 5;
     const int gid = lane >> 2, tig = lane & 3;
@@ -300,6 +314,10 @@ struct Q3KTile {
     const uint8_t* qh;
     const uint8_t* sc;
     const __half* d;
+    size_t sql = 0, sqh = 0, ssc = 0, sd = 0;   // per-expert strides of a batched call
+    __device__ Q3KTile expert(size_t e) const {
+        return {ql + e * sql, qh + e * sqh, sc + e * ssc, d + e * sd, sql, sqh, ssc, sd};
+    }
     __host__ __device__ static constexpr int raw_bytes(int BN) { return BN * 24; }
     __host__ __device__ static constexpr int extra_bytes(int BN) { return 2 * BN * 16; }
 
@@ -426,13 +444,11 @@ struct Q3KTile {
 
 }  // namespace
 
-// x: (M,K) bf16; ql: (N,K/4) u8; qh: (N,K/8) u8; scales: (N,K/256,12) u8
-// packed codes; d: (N,K/256) fp16; y: (M,N) f32.  K % 256 == 0; x, ql, qh,
-// scales and d 16-byte aligned (the wrapper makes them so).
-extern "C" int q3k_matmul_bf16(const void* x, const void* ql, const void* qh,
-                               const void* scales, const void* d, void* y,
-                               int M, int N, int K, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+int q3k_launch(const void* x, const void* ql, const void* qh, const void* scales,
+               const void* d, void* y, int M, int N, int K, const ExpertStrides& es, int E,
+               cudaStream_t st) {
     const bf16* xb = static_cast<const bf16*>(x);
     const uint8_t* lo = static_cast<const uint8_t*>(ql);
     const uint8_t* hi = static_cast<const uint8_t*>(qh);
@@ -442,12 +458,39 @@ extern "C" int q3k_matmul_bf16(const void* x, const void* ql, const void* qh,
     if (M <= M_GEMV) {
         const int steps = K / 256;
         const int threads = 32 * (steps < GEMV_WARPS ? (steps > 0 ? steps : 1) : GEMV_WARPS);
-        const dim3 grid((N + GEMV_ROWS - 1) / GEMV_ROWS);
+        const dim3 grid((N + GEMV_ROWS - 1) / GEMV_ROWS, 1, E);
         if (M <= 8)
-            q3k_gemv_kernel<1><<<grid, threads, 0, st>>>(xb, lo, hi, sc, dd, out, M, N, K);
+            q3k_gemv_kernel<1><<<grid, threads, 0, st>>>(xb, lo, hi, sc, dd, out, M, N, K, es);
         else
-            q3k_gemv_kernel<2><<<grid, threads, 0, st>>>(xb, lo, hi, sc, dd, out, M, N, K);
+            q3k_gemv_kernel<2><<<grid, threads, 0, st>>>(xb, lo, hi, sc, dd, out, M, N, K, es);
         return static_cast<int>(cudaGetLastError());
     }
-    return tile_launch(xb, Q3KTile{lo, hi, sc, dd}, out, M, N, K, st);
+    return tile_launch(xb, Q3KTile{lo, hi, sc, dd, es.ql, es.qh, es.sc, es.d}, out, M, N, K, st,
+                       Batch{E, es.x, es.y});
+}
+
+}  // namespace
+
+// x: (M,K) bf16; ql: (N,K/4) u8; qh: (N,K/8) u8; scales: (N,K/256,12) u8
+// packed codes; d: (N,K/256) fp16; y: (M,N) f32.  K % 256 == 0; x, ql, qh,
+// scales and d 16-byte aligned (the wrapper makes them so).
+extern "C" int q3k_matmul_bf16(const void* x, const void* ql, const void* qh,
+                               const void* scales, const void* d, void* y,
+                               int M, int N, int K, void* stream) {
+    return q3k_launch(x, ql, qh, scales, d, y, M, N, K, ExpertStrides{0, 0, 0, 0, 0, 0}, 1,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// E experts in one launch (the reference's vmap of the kernel over an MoE
+// layer's experts): expert e's x, ql, qh, scale bytes, d and y start s*
+// elements on from expert e - 1's.  Each expert's arrays are aligned as
+// the two-dimensional entry's (the wrapper makes them so).
+extern "C" int q3k_matmul_bf16_experts(const void* x, const void* ql, const void* qh,
+                                       const void* scales, const void* d, void* y, int E, int M,
+                                       int N, int K, long long sx, long long sql, long long sqh,
+                                       long long ssc, long long sd, long long sy, void* stream) {
+    return q3k_launch(x, ql, qh, scales, d, y, M, N, K,
+                      ExpertStrides{(size_t)sx, (size_t)sql, (size_t)sqh, (size_t)ssc,
+                                    (size_t)sd, (size_t)sy},
+                      E, static_cast<cudaStream_t>(stream));
 }

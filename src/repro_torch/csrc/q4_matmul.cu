@@ -214,6 +214,9 @@ q4_gemv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
 struct Q4Tile {
     const uint8_t* qs;
     const __half* wd;
+    // q4_matmul has no batched entry (the expert matmul does not take Q4_0,
+    // as in the reference): every call is expert 0.
+    __device__ Q4Tile expert(size_t) const { return *this; }
     __host__ __device__ static constexpr int raw_bytes(int BN) { return BN * (TILE_BK / 2 + 8); }
     __host__ __device__ static constexpr int extra_bytes(int) { return 0; }
 

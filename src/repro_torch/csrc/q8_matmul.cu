@@ -75,13 +75,24 @@ struct Codes {
     __half d[2];
 };
 
+// Elements from one expert's x, codes, scales and y to the next's in a
+// batched call (csrc/common.cuh's Batch; all 0 for a two-dimensional one).
+struct ExpertStrides {
+    size_t x, q, d, y;
+};
+
 // NT column groups of 8 tokens (M <= 8 * NT).
 template <int NT>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 q8_gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
                const __half* __restrict__ wd, float* __restrict__ y,
-               int M, int N, int K) {
+               int M, int N, int K, ExpertStrides es) {
     __shared__ float red[GEMV_WARPS][GEMV_ROWS * 8 * NT];
+    // Expert blockIdx.z of a batched call (0 otherwise).
+    x += blockIdx.z * es.x;
+    wq += blockIdx.z * es.q;
+    wd += blockIdx.z * es.d;
+    y += blockIdx.z * es.y;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nwarp = blockDim.x >> 5;
     const int gid = lane >> 2, tig = lane & 3;
@@ -164,6 +175,8 @@ q8_gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
 struct Q8Tile {
     const int8_t* wq;
     const __half* wd;
+    size_t sq = 0, sd = 0;      // per-expert strides of a batched call
+    __device__ Q8Tile expert(size_t e) const { return {wq + e * sq, wd + e * sd, sq, sd}; }
     __host__ __device__ static constexpr int raw_bytes(int BN) { return BN * (TILE_BK + 8); }
     __host__ __device__ static constexpr int extra_bytes(int) { return 0; }
 
@@ -221,11 +234,10 @@ struct Q8Tile {
 
 }  // namespace
 
-// x: (M,K) bf16, wq: (N,K) int8, wd: (N,K/32) fp16, y: (M,N) f32.
-// K % 32 == 0; x, wq and wd 16-byte aligned (the wrapper makes them so).
-extern "C" int q8_matmul_bf16(const void* x, const void* wq, const void* wd, void* y,
-                              int M, int N, int K, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+int q8_launch(const void* x, const void* wq, const void* wd, void* y, int M, int N, int K,
+              const ExpertStrides& es, int E, cudaStream_t st) {
     const bf16* xb = static_cast<const bf16*>(x);
     const int8_t* q = static_cast<const int8_t*>(wq);
     const __half* d = static_cast<const __half*>(wd);
@@ -233,12 +245,35 @@ extern "C" int q8_matmul_bf16(const void* x, const void* wq, const void* wd, voi
     if (M <= M_GEMV) {
         const int steps = (K / 32 + 3) / 4;
         const int threads = 32 * (steps < GEMV_WARPS ? (steps > 0 ? steps : 1) : GEMV_WARPS);
-        const dim3 grid((N + GEMV_ROWS - 1) / GEMV_ROWS);
+        const dim3 grid((N + GEMV_ROWS - 1) / GEMV_ROWS, 1, E);
         if (M <= 8)
-            q8_gemv_kernel<1><<<grid, threads, 0, st>>>(xb, q, d, out, M, N, K);
+            q8_gemv_kernel<1><<<grid, threads, 0, st>>>(xb, q, d, out, M, N, K, es);
         else
-            q8_gemv_kernel<2><<<grid, threads, 0, st>>>(xb, q, d, out, M, N, K);
+            q8_gemv_kernel<2><<<grid, threads, 0, st>>>(xb, q, d, out, M, N, K, es);
         return static_cast<int>(cudaGetLastError());
     }
-    return tile_launch(xb, Q8Tile{q, d}, out, M, N, K, st);
+    return tile_launch(xb, Q8Tile{q, d, es.q, es.d}, out, M, N, K, st, Batch{E, es.x, es.y});
+}
+
+}  // namespace
+
+// x: (M,K) bf16, wq: (N,K) int8, wd: (N,K/32) fp16, y: (M,N) f32.
+// K % 32 == 0; x, wq and wd 16-byte aligned (the wrapper makes them so).
+extern "C" int q8_matmul_bf16(const void* x, const void* wq, const void* wd, void* y,
+                              int M, int N, int K, void* stream) {
+    return q8_launch(x, wq, wd, y, M, N, K, ExpertStrides{0, 0, 0, 0}, 1,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// E experts in one launch (the reference's vmap of the kernel over an MoE
+// layer's experts): expert e multiplies x + e sx (M,K) by the weight at
+// wq + e sq, wd + e sd (N,K) into y + e sy (M,N); strides in elements.
+// Each expert's arrays are aligned as the two-dimensional entry's (the
+// wrapper makes them so).
+extern "C" int q8_matmul_bf16_experts(const void* x, const void* wq, const void* wd, void* y,
+                                      int E, int M, int N, int K, long long sx, long long sq,
+                                      long long sd, long long sy, void* stream) {
+    return q8_launch(x, wq, wd, y, M, N, K,
+                     ExpertStrides{(size_t)sx, (size_t)sq, (size_t)sd, (size_t)sy}, E,
+                     static_cast<cudaStream_t>(stream));
 }

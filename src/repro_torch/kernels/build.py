@@ -154,3 +154,19 @@ def aligned16(t):
     and cp.async copies), copying only when needed."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def expert_rows(t, align: int) -> tuple[torch.Tensor, int]:
+    """An expert-major tensor (E, ...) as a 16-byte aligned buffer whose
+    experts start ``stride`` elements apart, ``stride`` a multiple of
+    ``align`` elements (16 bytes): ``(buffer, stride)``.  Copies into a
+    padded buffer only when one expert's elements are not such a
+    multiple."""
+    t = aligned16(t)
+    per = t[0].numel() if t.shape[0] else 0
+    if per % align == 0:
+        return t, per
+    stride = -(-per // align) * align
+    buf = torch.zeros((t.shape[0], stride), dtype=t.dtype, device=t.device)
+    buf[:, :per] = t.reshape(t.shape[0], per)
+    return buf, stride

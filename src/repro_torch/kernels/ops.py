@@ -14,6 +14,10 @@ version:
   does and launches the integer kernel on the card;
 * a Q3_K weight goes to its kernel as stored: the kernel unpacks the
   6-bit scale codes itself (the reference unpacks them in ``ops``);
+* a Q8_0 or Q3_K weight with a leading expert axis (an MoE layer's
+  stacked experts) takes x of shape (E, M, K) through one launch of the
+  kernel's batched entry, the counterpart of the reference's ``vmap`` of
+  the kernel over experts;
 * attention launches its kernel for every Sq on the card (the
   reference's ``Sq >= 8`` rule comes from the TPU's tiles; the CUDA
   kernel masks rows past Sq), and GQA is folded outside the kernel by
@@ -61,9 +65,51 @@ def reset_launch_counts() -> None:
         setattr(mod, _COUNTERS.get(name, "launches"), 0)
 
 
+def _expert_axis(w) -> bool:
+    """True for a quantized weight with a leading expert axis (E, N, K)."""
+    return isinstance(w, (Q8_0Tensor, Q4_0Tensor)) and w.qs.dim() == 3 \
+        or isinstance(w, Q3KTensor) and w.ql.dim() == 3
+
+
+def _experts_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x (E, M, K) against a Q8_0 or Q3_K weight (E, N, K) -> (E, M, N)
+    f32: one launch of the kernel's batched entry on the card (the
+    reference's ``vmap`` of the kernel over experts), the plain version
+    expert by expert on the CPU."""
+    e = w.qs.shape[0] if isinstance(w, (Q8_0Tensor, Q4_0Tensor)) else w.ql.shape[0]
+    if x.dim() != 3 or x.shape[0] != e:
+        raise ValueError(f"quantized_matmul: x{tuple(x.shape)} against a weight of "
+                         f"{e} experts needs x of shape (E, M, K)")
+    if not x.is_cuda:
+        return _experts_plain(x, w)
+    if isinstance(w, Q8_0Tensor):
+        if w.logical is not None:
+            x = F.pad(x, (0, w.qs.shape[-1] - w.logical))
+        return _q8.q8_matmul_experts(x, w.qs, w.d)
+    if isinstance(w, Q3KTensor):
+        return _q3k.q3k_matmul_experts(x, w.ql, w.qh, w.scales, w.d)
+    raise TypeError(f"quantized_matmul: no expert-batched kernel for {type(w).__name__}")
+
+
+def _experts_plain(x: torch.Tensor, w) -> torch.Tensor:
+    """The batched entries' plain version: the 2-D plain version expert
+    by expert, stacked, (E, M, N) f32."""
+    if isinstance(w, Q8_0Tensor):
+        return torch.stack([ref.q8_matmul_ref(x[i], Q8_0Tensor(w.qs[i], w.d[i], w.logical))
+                            for i in range(x.shape[0])])
+    if isinstance(w, Q3KTensor):
+        return torch.stack([ref.q3k_matmul_ref(x[i], Q3KTensor(
+            w.ql[i], w.qh[i], w.scales[i], w.d[i], w.scale_bits)) for i in range(x.shape[0])])
+    raise TypeError(f"quantized_matmul: no expert-batched kernel for {type(w).__name__}")
+
+
 def quantized_matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
-    """y[..., n] = x[..., k] @ dequant(w)[n, k] for quantized weights."""
+    """y[..., n] = x[..., k] @ dequant(w)[n, k] for quantized weights.  A
+    weight with a leading expert axis (E, N, K) takes x (E, M, K) and
+    gives (E, M, N): one batched launch on the card."""
     out_dtype = out_dtype or x.dtype
+    if _expert_axis(w):
+        return _experts_matmul(x, w).to(out_dtype)
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
     on_card = xf.is_cuda
@@ -113,9 +159,15 @@ def quantized_matmul_w8a8(x: torch.Tensor, w: Q8_0Tensor, *,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None,
               scale: float | None = None) -> torch.Tensor:
-    """Attention with GQA folding. q: (B,Hq,Sq,D), k/v: (B,Hkv,Sk,D)."""
-    hq = q.shape[1]
+    """Attention with GQA folding. q: (B,Hq,Sq,D), k/v: (B,Hkv,Sk,D).
+    Reports its score and P.V products to the matmul recorder."""
+    from repro_torch.core import qlinear as _ql
+    b, hq, sq, d = q.shape
     hkv = k.shape[1]
+    _ql.record_matmul("attn_scores", "activation", sq, k.shape[2], d,
+                      count=b * hq, act_act=True)
+    _ql.record_matmul("attn_pv", "activation", sq, d, k.shape[2],
+                      count=b * hq, act_act=True)
     if hq != hkv:
         assert hq % hkv == 0, (hq, hkv)
         rep = hq // hkv

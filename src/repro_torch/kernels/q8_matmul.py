@@ -3,8 +3,9 @@ kernel (``csrc/q8_matmul.cu``) and the integer w8a8 kernel
 (``csrc/q8_matmul_w8a8.cu``).
 
 Replace ``repro.kernels.q8_matmul.q8_matmul`` and ``q8_matmul_w8a8`` on
-the card.  Their plain versions are
-:func:`repro_torch.kernels.ref.q8_matmul_ref` and
+the card; :func:`q8_matmul_experts` is one launch of the first over the
+experts of an MoE layer (the reference's ``vmap`` of it).  Their plain
+versions are :func:`repro_torch.kernels.ref.q8_matmul_ref` and
 :func:`~repro_torch.kernels.ref.q8_matmul_w8a8_ref`.
 """
 from __future__ import annotations
@@ -20,6 +21,8 @@ launches = 0          # q8_matmul launches since the last reset
 launches_w8a8 = 0     # q8_matmul_w8a8 launches since the last reset
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS_EXPERTS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
 _ARGS_W8A8 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
@@ -45,6 +48,37 @@ def q8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tens
         return y
     build.launch("q8_matmul", "q8_matmul_bf16", _ARGS, x.device, x.data_ptr(),
                  wq.data_ptr(), ws.data_ptr(), y.data_ptr(), m, n, kdim)
+    launches += 1
+    return y
+
+
+def q8_matmul_experts(x: torch.Tensor, wq: torch.Tensor,
+                      ws: torch.Tensor) -> torch.Tensor:
+    """y[e] = x[e] @ dequant(w[e]).T for every expert e in one launch.
+    x: (E,M,K); wq: (E,N,K) int8; ws: (E,N,K/32) fp16.  Returns (E, M, N)
+    f32.  K % 32 == 0.  Each expert's scales start 16-byte aligned, as the
+    two-dimensional entry's do (copied into a padded buffer when N * K / 32
+    is not a multiple of 8)."""
+    global launches
+    e, m, kdim = x.shape
+    n = wq.shape[1]
+    if not (x.is_cuda and wq.is_cuda and ws.is_cuda):
+        raise ValueError("q8_matmul_experts: all operands must be CUDA tensors")
+    if wq.dtype != torch.int8 or wq.shape != (e, n, kdim) or kdim % QK8_0:
+        raise ValueError(f"q8_matmul_experts: wq {wq.dtype}{tuple(wq.shape)} does not "
+                         f"match x{tuple(x.shape)} (K % 32 == 0 required)")
+    if ws.shape != (e, n, kdim // QK8_0) or ws.dtype != torch.float16:
+        raise ValueError(f"q8_matmul_experts: ws {ws.dtype}{tuple(ws.shape)}, "
+                         f"expected float16{(e, n, kdim // QK8_0)}")
+    x = build.aligned16(x.to(torch.bfloat16))
+    wq = build.aligned16(wq)
+    ws, sd = build.expert_rows(ws, 8)
+    y = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+    if e == 0 or m == 0 or n == 0:
+        return y
+    build.launch("q8_matmul", "q8_matmul_bf16_experts", _ARGS_EXPERTS, x.device,
+                 x.data_ptr(), wq.data_ptr(), ws.data_ptr(), y.data_ptr(), e, m, n, kdim,
+                 m * kdim, n * kdim, sd, m * n)
     launches += 1
     return y
 

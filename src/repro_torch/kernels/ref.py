@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.quant import QK8_0, Q3KTensor, Q4_0Tensor, Q8_0Tensor
+from repro_torch.core.quant import (QK8_0, Q3K_SUB, Q3KTensor, Q4_0Tensor,
+                                    Q8_0Tensor)
 
 
 def _bf16_product(x: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
@@ -51,6 +52,28 @@ def q4_matmul_ref(x: torch.Tensor, w: Q4_0Tensor) -> torch.Tensor:
 
 def q3k_matmul_ref(x: torch.Tensor, w: Q3KTensor) -> torch.Tensor:
     return _bf16_product(x, quant.dequantize_q3_k(w, torch.bfloat16))
+
+
+def q3k_matmul_w8a8_ref(xq: torch.Tensor, xs: torch.Tensor,
+                        w: Q3KTensor) -> torch.Tensor:
+    """Integer-path Q3_K x Q8-activation matmul (no kernel, no model path,
+    as in the reference).
+
+    xq: (M, K) int8; xs: (M, K/16) f32 per-sub-block activation scales
+    (Q8_K activations, scales broadcast to 16-granularity); w: Q3_K (N, K).
+    Each sub-block dot is an exact integer (|dot| <= 16 * 127 * 4), so an
+    f32 product of the int8 values computes it exactly; it is scaled as
+    ``(dot * xs) * eff`` and summed over the sub-blocks in f32."""
+    m, k = xq.shape
+    qw = quant.unpack_q3(w.ql, w.qh)                          # (N, K) in [-4, 3]
+    n = qw.shape[0]
+    eff = quant.q3k_effective_scales(w)                       # (N, K/16)
+    nsb = k // Q3K_SUB
+    a = xq.reshape(m, nsb, Q3K_SUB).float().transpose(0, 1)   # (nsb, M, 16)
+    b = qw.reshape(n, nsb, Q3K_SUB).float().transpose(0, 1)   # (nsb, N, 16)
+    ints = torch.bmm(a, b.transpose(1, 2))                    # (nsb, M, N)
+    scaled = ints * xs.float().t()[:, :, None] * eff.t()[:, None, :]
+    return scaled.sum(dim=0)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -19,7 +19,7 @@ def clip_encode(params: dict, cfg: ModelConfig,
     s = tokens.shape[1]
     x = L.apply_embedding(params["embed"], tokens)
     x = x + T._sinusoidal(s, cfg.d_model, device=x.device)[None]
-    x = T._stack_fwd(params["layers"], cfg, x, causal=True)
+    x, _ = T._stack_fwd(params["layers"], cfg, x, causal=True)
     return T._apply_norm(cfg, params["final_norm"], x)
 
 

@@ -1,7 +1,7 @@
-"""The dense attention-only LM stack (``repro.models.transformer``):
-parameters, the full-sequence forward, one-token decode on a contiguous
-or a paged cache, and the paged serving paths (fused chunk prefill and
-its decode-step scan).
+"""The attention-only LM stack (``repro.models.transformer``), dense or
+MoE: parameters, the full-sequence forward, one-token decode on a
+contiguous or a paged cache, and the paged serving paths (fused chunk
+prefill and its decode-step scan).
 
 The reference stacks layer parameters over a leading period axis for
 ``lax.scan``; here ``params["layers"]`` is a plain list with one dict
@@ -9,8 +9,16 @@ per layer, walked by a Python loop (``weights.from_reference`` unstacks
 the reference's layout).  Likewise the cache is a list with one
 :class:`~repro_torch.models.attention.KVCache` per layer (contiguous
 rows, or a paged pool), with no recurrent or cross-attention fields,
-updated in place.  MoE, SSM, hybrid and enc-dec stacks come with later
+updated in place.  SSM, hybrid and enc-dec stacks come with later
 slices.
+
+Each layer's FFN tail is an MLP or an MoE layer (``_ffn_kind``, the
+reference's rule with ``moe_every``).  The MoE layer's capacity is per
+group (batch row), so its routing depends on how tokens are grouped:
+``lm_forward`` groups a row's S tokens, the fused chunk prefill the
+chunk's T tokens, and a decode step (and so the scan prefill and the
+scan verify) one token per row, which never drops.  Each path matches
+the same path of the reference, not another path.
 """
 from __future__ import annotations
 
@@ -22,13 +30,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qlinear import Linear, init_linear
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if set(cfg.block_pattern) != {"attn"} or cfg.moe is not None \
-            or cfg.is_enc_dec:
+    if set(cfg.block_pattern) != {"attn"} or cfg.is_enc_dec:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention-only stacks are ported")
+            f"{cfg.name}: only attention-only stacks (dense or MoE) are ported")
+
+
+def _ffn_kind(cfg: ModelConfig, j: int) -> str:
+    """FFN flavour of position j within a period of the block pattern."""
+    if cfg.moe is not None and j % cfg.moe_every == 0:
+        return "moe"
+    if cfg.d_ff > 0:
+        return "mlp"
+    return "none"
 
 
 def _norm(cfg: ModelConfig):
@@ -42,13 +59,17 @@ def _apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return f(p, x, cfg.norm_eps)
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, i: int) -> dict:
     init_n, _ = _norm(cfg)
     p: dict[str, Any] = {"norm1": init_n(cfg.d_model, gen.device),
                          "attn": attn_mod.init_attention(gen, cfg)}
-    if cfg.d_ff > 0:
+    fk = _ffn_kind(cfg, i % len(cfg.block_pattern))
+    if fk != "none":
         p["norm2"] = init_n(cfg.d_model, gen.device)
+    if fk == "mlp":
         p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation)
+    elif fk == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg)
     return p
 
 
@@ -58,7 +79,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     init_n, _ = _norm(cfg)
     p: dict[str, Any] = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model),
-        "layers": [_init_layer(gen, cfg) for _ in range(cfg.num_layers)],
+        "layers": [_init_layer(gen, cfg, i) for i in range(cfg.num_layers)],
         "final_norm": init_n(cfg.d_model, gen.device),
     }
     if not cfg.tie_embeddings:
@@ -81,17 +102,23 @@ def _block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, positions, *,
                                       rope=cfg.pos_embed == "rope")
 
 
-def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """norm2 + MLP residual tail of one layer (position-wise, so the same
-    for full sequences, chunks and single tokens)."""
-    if "mlp" not in p:
-        return x
-    h = _apply_norm(cfg, p["norm2"], x)
-    return x + L.apply_mlp(p["mlp"], h, cfg.activation)
+def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor | float]:
+    """norm2 + MLP or MoE residual tail of one layer -> (x, MoE aux loss,
+    0.0 for an MLP).  An MLP is position-wise; an MoE layer routes each
+    batch row of x as one group (see the module docstring)."""
+    if "moe" in p:
+        h = _apply_norm(cfg, p["norm2"], x)
+        y, aux = moe_mod.apply_moe(p["moe"], cfg, h)
+        return x + y, aux
+    if "mlp" in p:
+        h = _apply_norm(cfg, p["norm2"], x)
+        x = x + L.apply_mlp(p["mlp"], h, cfg.activation)
+    return x, 0.0
 
 
 def _layer_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, positions=None,
-               *, causal: bool) -> torch.Tensor:
+               *, causal: bool) -> tuple[torch.Tensor, torch.Tensor | float]:
     return _apply_ffn(p, cfg, _block_fwd(p, cfg, x, positions, causal=causal))
 
 
@@ -105,28 +132,34 @@ def _sinusoidal(seq: int, d: int, offset: int = 0,
 
 
 def _stack_fwd(layers: list, cfg: ModelConfig, x: torch.Tensor,
-               positions=None, *, causal: bool) -> torch.Tensor:
+               positions=None, *, causal: bool
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layers in order -> (x, the MoE aux losses summed over layers,
+    f32)."""
     _check_supported(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in layers:
-        x = _layer_fwd(p, cfg, x, positions, causal=causal)
-    return x
+        x, a = _layer_fwd(p, cfg, x, positions, causal=causal)
+        if isinstance(a, torch.Tensor):
+            aux = aux + a
+    return x, aux
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) -> (logits (B, S, V) f32, aux loss 0.0).  Attention
-    goes through ``ops.attention`` (the flash-attention kernel on the
-    card).  ``last_only`` unembeds only the final position."""
+    """tokens: (B, S) -> (logits (B, S, V) f32, MoE aux loss summed over
+    layers, 0.0 for a dense stack).  Attention goes through
+    ``ops.attention`` (the flash-attention kernel on the card).
+    ``last_only`` unembeds only the final position."""
     b, s = tokens.shape
     x = L.apply_embedding(params["embed"], tokens)
     if cfg.pos_embed == "sinusoidal":
         x = x + _sinusoidal(s, cfg.d_model, device=x.device)[None]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    x = _stack_fwd(params["layers"], cfg, x, positions, causal=True)
+    x, aux = _stack_fwd(params["layers"], cfg, x, positions, causal=True)
     x = _apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.apply_unembed(_head(params), x), aux
 
 
@@ -190,7 +223,7 @@ def lm_decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                                          block_tables=block_tables,
                                          pos_tensors=pos_tensors)
         new.append(c)
-        x = _apply_ffn(p, cfg, x + y)
+        x, _ = _apply_ffn(p, cfg, x + y)
     x = _apply_norm(cfg, params["final_norm"], x)
     return L.apply_unembed(_head(params), x), new
 
@@ -220,7 +253,8 @@ def _lm_prefill_chunk_fused(params: dict, cfg: ModelConfig,
                             last_only: bool = True
                             ) -> tuple[torch.Tensor, list]:
     """The whole chunk as one forward over the paged pool per layer
-    (``attention_prefill_paged``); MLPs are position-wise.  Returns the
+    (``attention_prefill_paged``); an MoE layer routes the chunk as one
+    group of T tokens.  Returns the
     last position's logits (1, 1, V), or every position's (1, C, V) with
     ``last_only=False`` (verification needs the target's choice after
     each proposed token)."""
@@ -236,7 +270,7 @@ def _lm_prefill_chunk_fused(params: dict, cfg: ModelConfig,
         y, c = attn_mod.attention_prefill_paged(p["attn"], cfg, h, pos0, c,
                                                 block_tables, rope=rope)
         new.append(c)
-        x = _apply_ffn(p, cfg, x + y)
+        x, _ = _apply_ffn(p, cfg, x + y)
     x = _apply_norm(cfg, params["final_norm"], x[:, -1:] if last_only else x)
     return L.apply_unembed(_head(params), x), new
 

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import SD15_VAE, TINY_VAE, VAEConfig  # noqa: F401
-from repro_torch.core.qlinear import apply_linear, init_linear
+from repro_torch.core.qlinear import apply_linear, init_linear, record_matmul
 from repro_torch.models import layers as L
 from repro_torch.models.unet import (apply_conv, groupnorm, init_conv,
                                      init_groupnorm, upsample2x)
@@ -65,6 +65,10 @@ def apply_vae_decoder(p: dict, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:
     b, hh, ww, c = h.shape
     xn = groupnorm(p["mid_norm"], h, cfg.groups).reshape(b, hh * ww, c)
     q, k, v = apply_linear(p["mid_qkv"], xn).chunk(3, dim=-1)
+    record_matmul("vae_attn_scores", "activation", hh * ww, hh * ww, c,
+                  count=b, act_act=True)
+    record_matmul("vae_attn_pv", "activation", hh * ww, c, hh * ww,
+                  count=b, act_act=True)
     att = torch.softmax(
         torch.einsum("bqc,bkc->bqk", q.float(), k.float()) * c ** -0.5, -1)
     xn = torch.einsum("bqk,bkc->bqc", att, v.float())

@@ -86,7 +86,7 @@ def test_clip_layer_matches(preset):
     pos = jnp.broadcast_to(jnp.arange(77)[None], (2, 77))
     layer = jax.tree.map(lambda a: a[0], jp["layers"][0])
     want, _ = jT._layer_fwd(layer, jcfg, 0, jx, pos, causal=True)
-    got = tT._layer_fwd(tp["layers"][0], tcfg, tx, causal=True)
+    got, _ = tT._layer_fwd(tp["layers"][0], tcfg, tx, causal=True)
     _close(want, got, corr=0.99999, max_abs=1e-2, max_frac=0.01)
 
 

@@ -396,17 +396,17 @@ def test_lm_forward_matches(granite):
 
 def test_unported_stacks_raise():
     with pytest.raises(NotImplementedError):
-        tget_config("deepseek-moe-16b")
-    moe = tbase.reduced(tbase.ModelConfig(
-        name="m", family="moe", num_layers=2, d_model=64, num_heads=4,
-        num_kv_heads=2, d_ff=128, vocab_size=96,
-        moe=tbase.MoEConfig(num_experts=4, top_k=2)))
+        tget_config("xlstm-1.3b")
+    hybrid = tbase.reduced(tbase.ModelConfig(
+        name="h", family="hybrid", num_layers=2, d_model=64, num_heads=4,
+        num_kv_heads=2, d_ff=128, vocab_size=96, block_pattern=("attn", "mamba")))
     with pytest.raises(NotImplementedError):
-        tT.init_cache({}, moe, 1, 8, block_size=4, num_blocks=4, device="cpu")
+        tT.init_cache({}, hybrid, 1, 8, block_size=4, num_blocks=4, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "llama3-405b", "h2o-danube-3-4b",
-                                  "qwen1.5-110b"])
+                                  "qwen1.5-110b", "deepseek-moe-16b",
+                                  "moonshot-v1-16b-a3b"])
 def test_configs_copied(arch):
     import dataclasses
     assert dataclasses.asdict(tget_config(arch)) == {
