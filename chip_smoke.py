@@ -53,6 +53,16 @@ caught and passed over):
              version (the 2-D plain version expert by expert), the same
              bits twice, and every expert the 2-D entry's bits on its
              operands; cuBLAS bmm on the dequantized weights beside.
+             whisper-large-v3's shapes follow each kernel's earlier cases:
+             flash_attention at (1, 20, 1500, 1500, 64) and (2, 20, 4, 1500,
+             64), non-causal, and (2, 20, 4, 4, 64) causal; flash_decode at
+             (2, 20, 1, 64) on a 20-slot cache at 1, 4 and 19 keys (the
+             few-key rule); q8_matmul at its encoder and cross-KV linears
+             (M = 1500), its 4-slot decode linears and untied head (N =
+             51866) and the head on the tile path; the bf16 pool's paged
+             prefill and the paged decode at Hkv 20, G 1, hd 64 (every row
+             of at most FEW_KEYS keys: the contiguous decode's few-key rule,
+             row by row).
 4. tiny    — TINY_SD with the same seeded weights and noise on the CPU
              (plain versions) and on the card (kernels); images must agree,
              on the fused path and on the segmented preview path (euler,
@@ -157,12 +167,37 @@ caught and passed over):
              the tile path) with every batched launch held to its plain
              version on its own inputs, events, exact launches, and a
              profile of one decode quantum and one prefill chunk.
+11. full_asr — whisper-large-v3 at full width and depth (32 + 32 layers,
+             d 1280, 20 heads of 64, 1500 encoder frames, vocab 51866) with
+             seeded synthetic weights and audio made on the card, after
+             full_moe's weights are freed.  Under q8_0 and none, the
+             streaming ``AsrEngine(slots=4, block 16, cross block 16,
+             audio_chunk=500, prefill_chunk=4)`` over 5 requests of a
+             4-token prompt and 32 new tokens, the fifth with the first
+             one's audio and prompt.  Gates: request 0's cross blocks after
+             its third encode quantum hold a one-shot encode's bits; one
+             audio hit, 12 encode quanta, the fifth transcript the first's;
+             one Admitted and Finished per rid, Progress per encode quantum,
+             a TokenDelta per token; a consistent runtime holding only the
+             published audio chains; exact launches; tokens against
+             ``lm_forward(enc_embeds=...)`` and a replay of the engine's
+             path (logits within GEN_LOGIT_TOL, argmax above
+             GEN_TIE_MARGIN), the replay against a plain one with every
+             flash_decode_paged call held to its plain version.  Logged: ms
+             per synchronised encode quantum, prompt chunk and 4-slot
+             decode step, a profile of each, peak memory.  Under q8_0 also
+             ``greedy_generate(enc_embeds=...)`` at 2 rows, 16 new tokens
+             (exact launches, make_prefill, tokens against lm_forward, every
+             flash_decode call of a plain replay held to its plain version) and
+             an ``EngineRouter`` with only ``asr=`` and a calibrated
+             ``CostModel``: a 1 ms request Rejected at submit, another with
+             the bare engine's transcript.
 
 Progress goes to stderr.  Standard output gets three lines at the end of
 a run that passed: the card's name and power limit as ``nvidia-smi``
 gives them, a JSON object ``{"kernels": [...]}`` (per kernel: launches
 on the main paths, phases full, full_lm, full_gen, full_router,
-full_fleet and full_moe, and for
+full_fleet, full_moe and full_asr, and for
 ``q8_matmul_w8a8`` through its entry point; worst error; the headline
 shape's times and bound), and ``{"ok": true, "device": {...}}``.
 """
@@ -228,6 +263,13 @@ UNET_ATTN_PER_EVAL = {shape: 1 if shape[2] == 64 else 5 for shape in ATTN_SHAPES
 # make_prefill on 128-token prompts, and its check over 159 tokens.
 ATTN_LM_SHAPES = [(4, 32, 128, 128, 128, True, None),
                   (4, 32, 159, 159, 128, True, None)]
+# whisper-large-v3 (phase full_asr): the encoder's non-causal
+# self-attention over 1500 frames (a ragged last key tile), and
+# make_prefill's cross-attention and causal decoder self-attention of a
+# 4-token prompt at 2 rows (the latter with the LM shapes' allowance).
+ATTN_ASR_SHAPES = [(1, 20, 1500, 1500, 64, False, None),
+                   (2, 20, 4, 1500, 64, False, None),
+                   (2, 20, 4, 4, 64, True, None)]
 ATTN_EDGE = [
     (1, 2, 100, 300, 48, True, 50),        # Sq < Sk, causal + window
     (1, 2, 130, 70, 16, True, None),       # Sq > Sk: rows with no key -> 0
@@ -266,6 +308,16 @@ Q8_EDGE = [(3, 70, 96), (3, 70, 100),            # K = 100: tail-padded weight
            (9, 70, 96), (16, 70, 100),           # decode path, two token groups
            (17, 70, 96), (129, 100, 100),        # tile path: a half K step; tail-padded
            (255, 70, 1152)]                      # ragged M and N, 18 K steps
+# whisper-large-v3's linears under q8_0 (phase full_asr): one slot's
+# encoder pass and write_cross_kv at M = 1500 (q, k, v, o and the cross
+# k and v; up; down), the 4-slot decode step and 4-token prompt chunk
+# (the same, and the untied 51866-row head, no multiple of any tile); an
+# edge: the head on the tile path (lm_forward over one request's 35
+# positions).
+ASR_Q8_SHAPES = [(1500, 1280, 1280), (1500, 5120, 1280), (1500, 1280, 5120),
+                 (4, 1280, 1280), (4, 5120, 1280), (4, 1280, 5120),
+                 (4, 51866, 1280)]
+ASR_Q8_EDGE = [(35, 51866, 1280)]
 Q3K_SHAPES = [(4096, 320, 1280), (256, 1280, 1280), (154, 768, 768),
               (64, 1280, 5120)] + LM_MATMUL_SHAPES + LM_DECODE_SHAPES + LM_CHUNK_SHAPES
 Q3K_EDGE = [(5, 100, 512), (3, 70, 256),         # one super-block, one warp
@@ -308,6 +360,10 @@ FLASH_DECODE_EDGE = [(4, 8, 4, 128, 2048, 1), (4, 8, 4, 128, 2048, 2048),
                      (4, 8, 4, 120, 2048, 1500),      # h2o-danube-3-4b's hd
                      (2, 2, 1, 256, 300, 7),          # G = 1, hd 256, kv_len < 8 CTAs
                      (1, 2, 16, 128, 9000, 8999)]     # G = 16: logits recomputed
+# whisper-large-v3's greedy_generate (phase full_asr): 2 rows, 20 KV heads
+# of 64, G = 1, a 20-slot cache (4-token prompt + 16 new) read at 1, 4 and
+# 19 keys; every case of at most FEW_KEYS keys.
+ASR_FLASH_DECODE = [(2, 20, 1, 64, 20, n) for n in (19, 1, 4)]
 
 # Paged attention at Granite-8B's widths (Hkv 8, G 4, hd 128, bs 16).
 # Prefill: (T, pos0, MB, window, poison); the first two are the main path's
@@ -340,6 +396,14 @@ DECODE_EDGE = [((5, 17, 130, 2100), 132, None, True),
                ((2000, 700, 40, 1), 132, 300, True),
                ((15, 16, 31, 0), 4, None, True)]
 PAGED_HKV, PAGED_G, PAGED_HD, PAGED_BS = 8, 4, 128, 16
+PAGED_WIDTHS = (PAGED_HKV, PAGED_G, PAGED_HD, PAGED_BS)
+# whisper-large-v3's decoder (phase full_asr): 20 KV heads of 64, G = 1,
+# block 16, 35 positions per slot (3 blocks).  Prefill: its 4-token prompt
+# chunk, and a chunk in the last block; decode: 4 slots with an idle row,
+# and positions at both ends of a block.
+ASR_WIDTHS = (20, 1, 64, 16)
+ASR_PREFILL = [(4, 0, 3, None, True), (4, 30, 3, None, True)]
+ASR_DECODE = [((34, 20, 5, 0), 3, None, True), ((3, 15, 16, 33), 3, None, True)]
 
 # Launches per batch (one CLIP pass, one UNet eval, one VAE pass), worked
 # out from the code: CLIP 12 layers x (1 attention, 6 linears); UNet 16
@@ -469,8 +533,8 @@ def _attn_case(shape, gen, timed: bool) -> dict:
     torch.cuda.synchronize()
     diff = (out.float() - want.float()).abs()
     err = diff.max().item()
-    atol = ATTN_ABS + (ATTN_P_ROUND * v.float().abs().max().item()
-                       if shape in ATTN_LM_SHAPES else 0.0)
+    lm_rows = shape in ATTN_LM_SHAPES or (causal and shape in ATTN_ASR_SHAPES)
+    atol = ATTN_ABS + (ATTN_P_ROUND * v.float().abs().max().item() if lm_rows else 0.0)
     excess = (diff - atol - ATTN_REL * want.float().abs()).max().item()
     if not excess <= 0:
         raise AssertionError(f"flash_attention {shape}: max|err| {err}; some "
@@ -642,18 +706,44 @@ def flash_decode_inputs(case, gen):
     return q, k, v, kv_len, hd ** -0.5     # the scale passed, as the model passes it
 
 
-def flash_decode_f64(q, k, v, n: int, scale: float) -> torch.Tensor:
-    """Attention of one contiguous decode case in f64 over the first ``n``
-    keys of the same bf16 q, k, v: the yardstick of the few-key check."""
-    lg = torch.einsum("bhgd,bhcd->bhgc", q.double(), k[:, :, :n].double()) * scale
-    return torch.einsum("bhgc,bhcd->bhgd", torch.softmax(lg, -1), v[:, :, :n].double())
+def few_key_rule(q, k, v, n, scale=None):
+    """The few-key rule of a decode call on contiguous rows: q (B, Hkv, G,
+    hd), k and v (B, Hkv, C, hd), n (B,) keys of each row.  Returns per row
+    (B,) the ATTN_P_ROUND * max|v| allowance over its keys when they are at
+    most FEW_KEYS (else 0), and the attention of the same bf16 inputs in
+    f64 over those keys (B, Hkv, G, hd): the yardstick of the one-sided
+    check (``few_key_excess``)."""
+    n = n.long().to(q.device)
+    valid = torch.arange(k.shape[2], device=q.device)[None, :] < n[:, None]
+    zero = torch.zeros((), dtype=torch.float64, device=q.device)
+    vals = torch.where(valid[:, None, :, None], v.double(), zero)
+    lg = torch.einsum("bhgd,bhcd->bhgc", q.double(), k.double()) * (scale or q.shape[-1] ** -0.5)
+    lg = lg.masked_fill(~valid[:, None, None, :], float("-inf"))
+    exact = torch.einsum("bhgc,bhcd->bhgd", torch.softmax(lg, -1), vals)
+    p_round = ATTN_P_ROUND * vals.abs().amax(dim=(1, 2, 3)).float() * (n <= FEW_KEYS)
+    return p_round, exact
 
 
-def flash_decode_p_round(case, v) -> float:
-    """The ATTN_P_ROUND allowance of a contiguous decode case: 2^-9 *
-    max|v| over its keys when it has at most FEW_KEYS of them, else 0."""
-    n = case[-1]
-    return ATTN_P_ROUND * v[:, :, :n].float().abs().max().item() if n <= FEW_KEYS else 0.0
+def few_key_excess(got, want, exact) -> tuple:
+    """The one-sided few-key check: the kernel's output ``got`` may be no
+    more than ATTN_ABS further from the f64 attention ``exact`` than the
+    plain version's ``want``.  -> (excess, kernel distance, plain distance)
+    as 0-dim tensors; the check holds when excess <= 0."""
+    kern = (got.double() - exact).abs().amax()
+    plain = (want.double() - exact).abs().amax()
+    return (kern - plain - ATTN_ABS).float(), kern, plain
+
+
+def _check_few_keys(name: str, case, out, want, p_round, exact) -> None:
+    """Log a few-key case's allowance per row and its f64 distances, and
+    raise if the one-sided check fails."""
+    excess, kern, plain = few_key_excess(out, want, exact)
+    log(f"[kernels] {name} {case}: limit + {p_round.tolist()} per row (ATTN_P_ROUND * "
+        f"max|v|); from an f64 softmax: kernel {kern.item():.3e}, plain {plain.item():.3e}")
+    if not excess.item() <= 0:
+        raise AssertionError(f"{name} {case}: the kernel is {kern.item()} from an f64 "
+                             f"softmax, the plain version {plain.item()}: more than "
+                             f"{ATTN_ABS} further")
 
 
 def _flash_decode_case(case, gen, timed: bool) -> dict:
@@ -668,20 +758,13 @@ def _flash_decode_case(case, gen, timed: bool) -> dict:
         return fd.flash_decode_ref(q, k, v, kv_len, scale=scale)
     out, want = kern(), plain()
     torch.cuda.synchronize()
-    p_round = flash_decode_p_round(case, v)
+    p_round = 0.0
+    if n <= FEW_KEYS:
+        p_round, exact = few_key_rule(q, k, v, kv_len.expand(b), scale)
+        _check_few_keys("flash_decode", case, out, want, p_round, exact)
+        p_round = p_round[:, None, None, None]
     row = {"shape": case,
            "max_abs_err": _check_attn("flash_decode", case, out, want, p_round)}
-    if n <= FEW_KEYS:
-        exact = flash_decode_f64(q, k, v, n, scale)
-        kern_f64 = (out.double() - exact).abs().max().item()
-        plain_f64 = (want.double() - exact).abs().max().item()
-        log(f"[kernels] flash_decode {case}: {n} keys, limit + {p_round:.3e} "
-            f"(ATTN_P_ROUND * max|v|); from an f64 softmax: kernel {kern_f64:.3e}, "
-            f"plain {plain_f64:.3e}")
-        if not kern_f64 <= plain_f64 + ATTN_ABS:
-            raise AssertionError(f"flash_decode {case}: the kernel is {kern_f64} from an "
-                                 f"f64 softmax, the plain version {plain_f64}: more "
-                                 f"than {ATTN_ABS} further")
     if not torch.equal(kern(), out):
         raise AssertionError(f"flash_decode {case}: a second call gave other bits")
     if timed:
@@ -712,18 +795,23 @@ def phase_kernels() -> dict[str, list[dict]]:
     gens = {kind: torch.Generator(device="cuda").manual_seed(SEED + off)
             for kind, off in KERNEL_SEED_OFFSET.items()}
     rows = {kind: [] for kind in KERNEL_SEED_OFFSET}
-    for shape in ATTN_SHAPES + ATTN_LM_SHAPES + ATTN_EDGE:
+    # Each kernel's later slices' cases follow its earlier ones, so that
+    # they change none of the earlier cases' inputs.
+    for shape in ATTN_SHAPES + ATTN_LM_SHAPES + ATTN_EDGE + ATTN_ASR_SHAPES:
         rows["flash_attention"].append(
             _attn_case(shape, gens["flash_attention"], timed=shape not in ATTN_EDGE))
-    for kind, shapes, edges in (("q8_matmul", Q8_SHAPES, Q8_EDGE),
-                                ("q3k_matmul", Q3K_SHAPES, Q3K_EDGE),
-                                ("q4_matmul", Q4_SHAPES, Q4_EDGE),
-                                ("q8_matmul_w8a8", W8A8_SHAPES, W8A8_EDGE)):
-        for shape in shapes + edges:
-            rows[kind].append(_matmul_case(kind, shape, gens[kind], timed=shape in shapes))
-    for case in FLASH_DECODE_SHAPES + FLASH_DECODE_EDGE:
+    for kind, shapes, edges, later in (
+            ("q8_matmul", Q8_SHAPES, Q8_EDGE, ASR_Q8_SHAPES + ASR_Q8_EDGE),
+            ("q3k_matmul", Q3K_SHAPES, Q3K_EDGE, []),
+            ("q4_matmul", Q4_SHAPES, Q4_EDGE, []),
+            ("q8_matmul_w8a8", W8A8_SHAPES, W8A8_EDGE, [])):
+        for shape in shapes + edges + later:
+            timed = shape in shapes or shape in ASR_Q8_SHAPES
+            rows[kind].append(_matmul_case(kind, shape, gens[kind], timed=timed))
+    for case in FLASH_DECODE_SHAPES + FLASH_DECODE_EDGE + ASR_FLASH_DECODE:
         rows["flash_decode"].append(_flash_decode_case(
-            case, gens["flash_decode"], timed=case in FLASH_DECODE_SHAPES))
+            case, gens["flash_decode"],
+            timed=case in FLASH_DECODE_SHAPES or case == ASR_FLASH_DECODE[0]))
     for kind, shapes, edges in (("q8_matmul", Q8_EXPERT_SHAPES, Q8_EXPERT_EDGE),
                                 ("q3k_matmul", Q3K_EXPERT_SHAPES, Q3K_EXPERT_EDGE)):
         gen = torch.Generator(device="cuda").manual_seed(SEED + EXPERT_SEED_OFFSET[kind])
@@ -851,8 +939,9 @@ def _check_attn(name: str, case, out, want, p_round: float = 0.0) -> float:
     return err
 
 
-def _paged_pools(gen, nb: int, q8: bool) -> list:
-    shape = (nb, PAGED_HKV, PAGED_BS, PAGED_HD)
+def _paged_pools(gen, nb: int, q8: bool, widths=PAGED_WIDTHS) -> list:
+    hkv, _, hd, bs = widths
+    shape = (nb, hkv, bs, hd)
     kv = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
           for _ in range(2)]
     if not q8:
@@ -902,26 +991,28 @@ def prefill_plan(t: int, hkv: int, g: int, pos0: int, window, fit) -> tuple[int,
     return nrb, prefill_split_rule(nrb * hkv, nt, fit)
 
 
-def _prefill_plan(t: int, pos0: int, window, q8: bool) -> dict:
-    """The attend launch's plan on this card at Granite-8B's widths: the
-    clusters of 1, 2, 4 and 8 CTAs that run at once (the kernel's own
-    query, ``flash_prefill_fit``), and the CTAs per cluster they give."""
+def _prefill_plan(t: int, pos0: int, window, q8: bool, widths=PAGED_WIDTHS) -> dict:
+    """The attend launch's plan on this card at ``widths`` (Hkv, G, hd,
+    bs; Granite-8B's by default): the clusters of 1, 2, 4 and 8 CTAs that
+    run at once (the kernel's own query, ``flash_prefill_fit``), and the
+    CTAs per cluster they give."""
     import ctypes
 
     from repro_torch.kernels import build
     lib, fn = build.entry("flash_prefill", "flash_prefill_fit",
                           [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fit = (ctypes.c_int * 4)()
-    build.check(lib, "flash_prefill_fit", fn(PAGED_HD, int(q8), ctypes.addressof(fit)))
-    split = prefill_plan(t, PAGED_HKV, PAGED_G, pos0, window, list(fit))[1]
+    hkv, g, hd, _ = widths
+    build.check(lib, "flash_prefill_fit", fn(hd, int(q8), ctypes.addressof(fit)))
+    split = prefill_plan(t, hkv, g, pos0, window, list(fit))[1]
     return {"fit": list(fit), "split": split}
 
 
-def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
+def _prefill_case(q8: bool, case, gen, timed: bool, widths=PAGED_WIDTHS) -> dict:
     from repro_torch.core import quant
     from repro_torch.kernels import flash_prefill as fp
     t, pos0, mb, window, poison = case
-    hkv, g, hd, bs = PAGED_HKV, PAGED_G, PAGED_HD, PAGED_BS
+    hkv, g, hd, bs = widths
     nb = mb + 40
     stale = VERIFY_STALE if case in VERIFY_EDGE else 0
     used = -(-(pos0 + t + stale) // bs)
@@ -930,7 +1021,7 @@ def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
     q = torch.randn((t, hkv, g, hd), generator=gen, device="cuda").to(torch.bfloat16)
     kn = torch.randn((t, hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
     vn = torch.randn((t, hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    pools = _paged_pools(gen, nb, q8)
+    pools = _paged_pools(gen, nb, q8, widths)
     if poison:
         listed = set(table.tolist())
         unlisted = [b for b in range(1, nb) if b not in listed][:4]
@@ -969,7 +1060,8 @@ def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
         if not torch.equal(_bits(a), _bits(b)):
             raise AssertionError(f"{name} {case}: pools differ from the plain "
                                  "version's, bit for bit")
-    row = {"shape": case, "max_abs_err": err, "plan": _prefill_plan(t, pos0, window, q8)}
+    row = {"shape": case, "max_abs_err": err,
+           "plan": _prefill_plan(t, pos0, window, q8, widths)}
     if timed:
         tbl = table.long()
         qpos = torch.arange(pos0, pos0 + t, device="cuda")[:, None]
@@ -1024,11 +1116,21 @@ def _prefill_case(q8: bool, case, gen, timed: bool) -> dict:
     return row
 
 
-def _decode_case(case, gen, timed: bool) -> dict:
+def paged_few_keys(q, kpool, vpool, tables, pos, scale=None):
+    """``few_key_rule`` of a paged decode call without a window: each row's
+    blocks gathered to contiguous (B, Hkv, MB * bs, hd), pos + 1 keys."""
+    def rows(pool):
+        g = pool[tables.long()].transpose(1, 2)        # (B, Hkv, MB, bs, hd)
+        return g.reshape(*g.shape[:2], -1, g.shape[-1])
+    return few_key_rule(q, rows(kpool), rows(vpool), pos.long() + 1, scale)
+
+
+def _decode_case(case, gen, timed: bool, widths=PAGED_WIDTHS,
+                 few_keys: bool = False) -> dict:
     from repro_torch.kernels import flash_decode as fd
     positions, mb, window, poison = case
     b = len(positions)
-    hkv, g, hd, bs = PAGED_HKV, PAGED_G, PAGED_HD, PAGED_BS
+    hkv, g, hd, bs = widths
     nb = b * mb + 8
     perm = torch.randperm(nb - 1, generator=gen, device="cuda")[:b * mb] + 1
     tables = perm.to(torch.int32).reshape(b, mb)
@@ -1038,7 +1140,7 @@ def _decode_case(case, gen, timed: bool) -> dict:
         tables[-1] = 0                                 # an idle row
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     q = torch.randn((b, hkv, g, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    kpool, vpool = _paged_pools(gen, nb, False)
+    kpool, vpool = _paged_pools(gen, nb, False, widths)
     if poison:
         listed = set(tables.flatten().tolist())
         unlisted = [x for x in range(1, nb) if x not in listed][:4]
@@ -1056,8 +1158,16 @@ def _decode_case(case, gen, timed: bool) -> dict:
         return fd.flash_decode_paged_ref(q, kpool, vpool, tables, pos, window=window)
     out, want = kern(), plain()
     torch.cuda.synchronize()
+    p_round = 0.0
+    if few_keys:
+        # Every row of whisper's decoder has at most FEW_KEYS keys: the
+        # contiguous decode's few-key rule, row by row.
+        assert window is None
+        p_round, exact = paged_few_keys(q, kpool, vpool, tables, pos)
+        _check_few_keys("flash_decode_paged", case, out, want, p_round, exact)
+        p_round = p_round[:, None, None, None]
     row = {"shape": case, "max_abs_err": _check_attn("flash_decode_paged", case,
-                                                     out, want)}
+                                                     out, want, p_round)}
     if not torch.equal(_bits(kern()), _bits(out)):
         raise AssertionError(f"flash_decode_paged {case}: a second call gave other bits")
     if timed:
@@ -1084,7 +1194,9 @@ def _decode_case(case, gen, timed: bool) -> dict:
 
 def phase_paged_kernels() -> dict[str, list[dict]]:
     """The paged attention kernels against their plain versions at
-    Granite-8B's main-path shapes and at edge shapes."""
+    Granite-8B's main-path shapes and at edge shapes, then the bf16 pool's
+    prefill and the decode at whisper-large-v3's widths (Hkv 20, G 1, hd
+    64)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rows = {"flash_prefill_paged": [], "flash_prefill_paged_q8": [],
             "flash_decode_paged": []}
@@ -1096,6 +1208,12 @@ def phase_paged_kernels() -> dict[str, list[dict]]:
     for case in DECODE_SHAPES + DECODE_EDGE:
         rows["flash_decode_paged"].append(
             _decode_case(case, gen, timed=case in DECODE_SHAPES))
+    for case in ASR_PREFILL:
+        rows["flash_prefill_paged"].append(_prefill_case(
+            False, case, gen, timed=case == ASR_PREFILL[0], widths=ASR_WIDTHS))
+    for case in ASR_DECODE:
+        rows["flash_decode_paged"].append(_decode_case(
+            case, gen, timed=case == ASR_DECODE[0], widths=ASR_WIDTHS, few_keys=True))
     _log_rows(rows)
     return rows
 
@@ -2025,12 +2143,13 @@ GEN_LOGIT_TOL = 0.25
 GEN_TIE_MARGIN = 0.125
 
 
-def _replay(params, cfg, out, steps: int, max_len: int = GEN_MAX_LEN):
+def _replay(params, cfg, out, steps: int, max_len: int = GEN_MAX_LEN,
+            enc_embeds=None):
     """Feed ``out``'s tokens through ``make_cache`` + ``make_decode`` one
     synchronised step at a time: (logits (B, steps, V), seconds per step,
-    the cache)."""
+    the cache).  An encoder-decoder model takes ``enc_embeds``."""
     from repro_torch.train.serve_step import make_cache, make_decode
-    cache = make_cache(params, cfg, out.shape[0], max_len)
+    cache = make_cache(params, cfg, out.shape[0], max_len, enc_embeds=enc_embeds)
     decode = make_decode(cfg)
     logits, times = [], []
     with torch.no_grad():
@@ -2045,44 +2164,72 @@ def _replay(params, cfg, out, steps: int, max_len: int = GEN_MAX_LEN):
 
 
 class _PlainDecodeAttention:
-    """Route ``ops.decode_attention`` on the card to ``flash_decode_ref``,
-    and hold ``flash_decode`` on each call's inputs against it within the
-    attention limit: every main-path position of every layer."""
+    """Route ``ops.decode_attention`` on the card to ``flash_decode_ref``
+    (``paged=True``: ``ops.paged_decode_attention`` to
+    ``flash_decode_paged_ref``), and hold the kernel on each call's inputs
+    against it within the attention limit: every main-path position of
+    every layer.  ``few_keys`` applies the few-key rule (``few_key_rule``,
+    paged: ``paged_few_keys``) to rows of at most FEW_KEYS keys."""
+
+    def __init__(self, paged: bool = False, few_keys: bool = False):
+        self.paged, self.few_keys = paged, few_keys
 
     def __enter__(self):
         from repro_torch.kernels import flash_decode as fd
         from repro_torch.kernels import ops
-        self.kernel_path = ops.decode_attention
-        self.calls, self.err, self.excess = 0, None, None
+        self.name = "paged_decode_attention" if self.paged else "decode_attention"
+        kern, ref = ((fd.flash_decode_paged, fd.flash_decode_paged_ref) if self.paged
+                     else (fd.flash_decode, fd.flash_decode_ref))
+        self.kernel_path = getattr(ops, self.name)
+        self.calls, self.err, self.excess, self.bare = 0, None, None, None
 
-        def plain_and_check(q, k, v, kv_len, *, scale=None):
-            want = fd.flash_decode_ref(q, k, v, kv_len, scale=scale)
-            diff = (fd.flash_decode(q, k, v, kv_len, scale=scale).float()
-                    - want.float()).abs()
-            excess = (diff - ATTN_ABS - ATTN_REL * want.float().abs()).amax()
+        def plain_and_check(*args, **kw):
+            want = ref(*args, **kw)
+            got = kern(*args, **kw)
+            diff = (got.float() - want.float()).abs()
+            atol = ATTN_ABS
+            # The excess over the limit without the few-key allowance: how
+            # much of the limit that allowance carries (logged only).
+            bare = (diff - ATTN_ABS - ATTN_REL * want.float().abs()).amax()
+            self.bare = bare if self.bare is None else torch.maximum(self.bare, bare)
+            if self.few_keys:
+                if self.paged:
+                    p_round, exact = paged_few_keys(*args, scale=kw.get("scale"))
+                else:
+                    q, k, v, kv_len = args
+                    p_round, exact = few_key_rule(q, k, v, kv_len.expand(q.shape[0]),
+                                                  kw.get("scale"))
+                atol = atol + p_round[:, None, None, None]
+                # One-sided, folded into the same excess.
+                far = few_key_excess(got, want, exact)[0]
+                self.excess = far if self.excess is None else torch.maximum(
+                    self.excess, far)
+            excess = (diff - atol - ATTN_REL * want.float().abs()).amax()
             self.err = diff.amax() if self.err is None else torch.maximum(
                 self.err, diff.amax())
             self.excess = excess if self.excess is None else torch.maximum(
                 self.excess, excess)
             self.calls += 1
             return want
-        ops.decode_attention = plain_and_check
+        setattr(ops, self.name, plain_and_check)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.decode_attention = self.kernel_path
+        setattr(ops, self.name, self.kernel_path)
 
 
-def _check_gen_against_plain(preset: str, dec, plain, oracle) -> None:
-    """``flash_decode`` within the attention limit of its plain version at
-    every call of the plain replay (``oracle``), and the kernel replay
+def _check_gen_against_plain(preset: str, dec, plain, oracle,
+                             label: str = "full_gen") -> None:
+    """The decode kernel within the attention limit of its plain version
+    at every call of the plain replay (``oracle``), and the kernel replay
     ``dec`` against the plain replay ``plain`` on the same tokens: every
     logit within GEN_LOGIT_TOL, and the same argmax at every position
     where the plain replay's top-2 margin exceeds GEN_TIE_MARGIN."""
     err, excess = oracle.err.item(), oracle.excess.item()
+    kernel = "flash_decode_paged" if oracle.paged else "flash_decode"
     if not excess <= 0:
-        raise AssertionError(f"full_gen {preset}: flash_decode exceeds {ATTN_ABS} + "
+        raise AssertionError(f"{label} {preset}: {kernel} exceeds {ATTN_ABS} + "
                              f"{ATTN_REL}*|ref| by {excess} on the main path")
     diff = (dec - plain).abs()
     worst = diff.max().item()
@@ -2090,51 +2237,55 @@ def _check_gen_against_plain(preset: str, dec, plain, oracle) -> None:
     top = plain.topk(2, dim=-1)
     margin = (top.values[..., 0] - top.values[..., 1]).cpu()
     flips = (dec.argmax(-1) != plain.argmax(-1)).cpu()
-    log(f"[full_gen] weights={preset}: flash_decode at {oracle.calls} calls of the "
-        f"plain replay: max|err| {err:.3e} against its plain version; replays' "
+    bare = (f" (excess over {ATTN_ABS} + {ATTN_REL}*|ref| without the few-key "
+            f"allowance {oracle.bare.item():.3e})" if oracle.few_keys else "")
+    log(f"[{label}] weights={preset}: {kernel} at {oracle.calls} calls of the "
+        f"plain replay: max|err| {err:.3e} against its plain version{bare}; replays' "
         f"logits within {worst:.4f} ({100 * same:.3f}% bit-equal), "
         f"{int(flips.sum())} of {flips.numel()} argmax differ"
         + "".join(f"; row {r} position {i} (margin {float(margin[r, i]):.4f})"
                   for r, i in flips.nonzero().tolist()))
     if not worst <= GEN_LOGIT_TOL or (flips & (margin > GEN_TIE_MARGIN)).any():
-        raise AssertionError(f"full_gen {preset}: the flash_decode replay's logits "
+        raise AssertionError(f"{label} {preset}: the {kernel} replay's logits "
                              f"differ from the plain replay's by {worst} (limit "
                              f"{GEN_LOGIT_TOL}), or its argmax where the margin "
                              f"exceeds {GEN_TIE_MARGIN}")
 
 
-def _check_gen_against_forward(params, cfg, out, dec, first) -> None:
+def _check_gen_against_forward(params, cfg, out, dec, first, prompt: int = GEN_PROMPT,
+                               enc_embeds=None, label: str = "full_gen") -> None:
     """``dec`` (B, S+steps-1, V): the decode path's logits at every
     position.  Every logit is within GEN_LOGIT_TOL of ``lm_forward``'s, and
     every generated token whose top-2 margin in ``lm_forward`` exceeds
     GEN_TIE_MARGIN is its argmax (``first``, ``make_prefill``'s argmax,
-    likewise for the first generated token)."""
+    likewise for the first generated token).  ``prompt``: the prompt's
+    length; an encoder-decoder model takes ``enc_embeds``."""
     from repro_torch.models.transformer import lm_forward
     with torch.no_grad():
-        fwd = lm_forward(params, cfg, out[:, :-1])[0]
+        fwd = lm_forward(params, cfg, out[:, :-1], enc_embeds=enc_embeds)[0]
         diff = (dec - fwd).abs()
         worst = diff.max().item()
-        top = fwd[:, GEN_PROMPT - 1:].topk(2, dim=-1)
-        at_top = diff[:, GEN_PROMPT - 1:].gather(-1, top.indices).max().item()
+        top = fwd[:, prompt - 1:].topk(2, dim=-1)
+        at_top = diff[:, prompt - 1:].gather(-1, top.indices).max().item()
         margin = (top.values[..., 0] - top.values[..., 1]).cpu()
         best = top.indices[..., 0].cpu()
     del fwd, diff
     if not worst <= GEN_LOGIT_TOL:
-        raise AssertionError(f"full_gen: decode-path logits differ from lm_forward's "
+        raise AssertionError(f"{label}: decode-path logits differ from lm_forward's "
                              f"by {worst} > {GEN_LOGIT_TOL}")
-    gen = out[:, GEN_PROMPT:].cpu()
+    gen = out[:, prompt:].cpu()
     near = margin <= GEN_TIE_MARGIN
     bad = (~near) & (best != gen)
     if bad.any():
         r, i = (int(t) for t in bad.nonzero()[0])
-        raise AssertionError(f"full_gen row {r} token {i}: generated {int(gen[r, i])}, "
+        raise AssertionError(f"{label} row {r} token {i}: generated {int(gen[r, i])}, "
                              f"lm_forward argmax {int(best[r, i])} margin "
                              f"{float(margin[r, i]):.4f} > {GEN_TIE_MARGIN}")
     wrong_first = (margin[:, 0] > GEN_TIE_MARGIN) & (first != gen[:, 0])
     if wrong_first.any():
-        raise AssertionError(f"full_gen: make_prefill's first tokens {first.tolist()} "
+        raise AssertionError(f"{label}: make_prefill's first tokens {first.tolist()} "
                              f"differ from the generated {gen[:, 0].tolist()}")
-    log(f"[full_gen] logits within {worst:.4f} of lm_forward's ({at_top:.4f} at its "
+    log(f"[{label}] logits within {worst:.4f} of lm_forward's ({at_top:.4f} at its "
         f"top two); {int((~near).sum())} generated tokens equal its argmax, "
         f"{int(near.sum())} near-ties (margin <= {GEN_TIE_MARGIN}) not compared")
 
@@ -3007,6 +3158,419 @@ def phase_full_moe(card: str) -> dict[str, int]:
     return totals
 
 
+# ----------------------------------------------------- whisper-large-v3
+# phase full_asr: whisper-large-v3 at full width and depth through the
+# streaming AsrEngine: 5 requests of ASR_PROMPT prompt tokens and ASR_NEW
+# new ones, the fifth with the first one's audio; audio_chunk 500 is this
+# traffic's choice (3 encode quanta per request; the engine's default is
+# 16, 94 quanta of a whole encoder pass each).
+ASR_LAYERS = 32
+ASR_PRESETS = ("q8_0", "none")
+ASR_PROMPT, ASR_NEW, ASR_REQUESTS = 4, 32, 5
+ASR_KW = dict(slots=4, max_len=ASR_PROMPT + ASR_NEW - 1, block_size=16,
+              cross_block_size=16, audio_chunk=500, prefill_chunk=ASR_PROMPT)
+ASR_GEN_BATCH, ASR_GEN_NEW = 2, 16
+ASR_CALIB_NEW = 4
+
+
+def _asr_inputs(cfg) -> tuple[list, list]:
+    """ASR_REQUESTS audios of (encoder_seq, d_model) bf16 made on the card
+    from seeds and a prompt of ASR_PROMPT tokens per request; the last
+    request repeats the first one's audio (the same tensor) and prompt."""
+    from repro_torch.models.frontend import synthetic_audio
+    audios = [synthetic_audio(torch.Generator(device="cuda").manual_seed(SEED + 40 + i), cfg)
+              for i in range(ASR_REQUESTS - 1)]
+    prompts = torch.randint(1, cfg.vocab_size, (ASR_REQUESTS - 1, ASR_PROMPT),
+                            generator=torch.Generator(device="cuda").manual_seed(SEED + 45),
+                            device="cuda").tolist()
+    return audios + audios[:1], prompts + prompts[:1]
+
+
+def _asr_requests(audios, prompts, max_new: int = ASR_NEW, rid0: int = 0, **kw) -> list:
+    from repro_torch.engine import TranscribeRequest
+    return [TranscribeRequest(rid=rid0 + i, audio=a, prompt=p, max_new=max_new, **kw)
+            for i, (a, p) in enumerate(zip(audios, prompts))]
+
+
+def _asr_want(params, cfg, encodes: int, chunks: int, steps: int,
+              contiguous: bool = False) -> dict:
+    """Launches of an encoder-decoder path, worked out from the code and
+    the weights.  Per encode (an encode quantum, or ``make_cache``'s
+    encoder pass): one flash_attention and the quantized linears of each
+    encoder layer, and each decoder layer's cross wk and wv (its cross
+    K/V).  Per fused prompt chunk and per decode step: one paged prefill
+    or decode launch per decoder layer (``contiguous``: flash_decode), the
+    quantized linears of each decoder layer but its cross wk and wv (cross
+    attention itself is plain PyTorch, as the reference's einsums), and
+    the head."""
+    from repro_torch.kernels import ops
+    want = {name: 0 for name in ops.KERNEL_MODULES}
+    layer = params["layers"][0]
+    kv = _matmul_launches([layer["cross"]["wk"], layer["cross"]["wv"]])
+    dec = _matmul_launches(layer)
+    enc = _matmul_launches(params["encoder"]["layers"][0])
+    head = _matmul_launches(params["lm_head"])
+    nl, ne = cfg.num_layers, cfg.encoder_layers
+    for name in set(dec) | set(enc) | set(head):
+        want[name] += (enc.get(name, 0) * ne + kv.get(name, 0) * nl) * encodes
+        want[name] += ((dec.get(name, 0) - kv.get(name, 0)) * nl
+                       + head.get(name, 0)) * (chunks + steps)
+    want["flash_attention"] += ne * encodes
+    want["flash_prefill_paged"] += nl * chunks
+    want["flash_decode" if contiguous else "flash_decode_paged"] += nl * steps
+    return want
+
+
+def _asr_prefill_want(params, cfg) -> dict:
+    """Launches of one ``make_prefill`` call (``lm_forward``, head on the
+    last position): the encoder as in ``_asr_want``, then per decoder
+    layer two flash_attention (self and cross) and all its quantized
+    linears, and the head."""
+    from repro_torch.kernels import ops
+    want = {name: 0 for name in ops.KERNEL_MODULES}
+    nl, ne = cfg.num_layers, cfg.encoder_layers
+    for tree, n in ((params["encoder"]["layers"][0], ne), (params["layers"][0], nl),
+                    (params["lm_head"], 1)):
+        for name, k in _matmul_launches(tree).items():
+            want[name] += k * n
+    want["flash_attention"] = ne + 2 * nl
+    return want
+
+
+def _asr_replay(params, cfg, reqs, audios):
+    """The engine's model path for every request at once, with its logits:
+    a one-shot encode of each request's audio into a paged cross pool (a
+    slot per request), its prompt as one fused chunk, then paged decode
+    steps of all rows fed its transcript.  -> logits (R, ASR_NEW, V) f32 at
+    the positions that chose each transcript token."""
+    from repro_torch.models.transformer import (encoder_forward, init_cache,
+                                                lm_decode_step, lm_prefill_chunk,
+                                                write_cross_kv)
+    r, bs = len(reqs), ASR_KW["block_size"]
+    mb, cmb = -(-ASR_KW["max_len"] // bs), -(-cfg.encoder_seq // bs)
+    cache = init_cache(params, cfg, r, ASR_KW["max_len"], block_size=bs,
+                       num_blocks=r * mb + 1, cross_block_size=bs,
+                       cross_num_blocks=r * cmb + 1, device="cuda")
+    tables = (torch.arange(r * mb, dtype=torch.int32, device="cuda") + 1).reshape(r, mb)
+    ctables = (torch.arange(r * cmb, dtype=torch.int32, device="cuda") + 1).reshape(r, cmb)
+    out = []
+    with torch.no_grad():
+        for i, a in enumerate(audios):
+            write_cross_kv(params, cfg, encoder_forward(params, cfg, a[None]), ctables[i],
+                           cache)
+        first = [lm_prefill_chunk(params, cfg, torch.tensor([q.prompt], device="cuda"), 0,
+                                  cache, block_tables=tables[i:i + 1],
+                                  cross_tables=ctables[i:i + 1])[0][0, -1]
+                 for i, q in enumerate(reqs)]
+        out.append(torch.stack(first))
+        toks = torch.tensor([q.out for q in reqs], device="cuda")
+        for t in range(ASR_NEW - 1):
+            pos = torch.full((r,), ASR_PROMPT + t, dtype=torch.int32, device="cuda")
+            lg, _ = lm_decode_step(params, cfg, toks[:, t:t + 1], pos, cache,
+                                   block_tables=tables, cross_tables=ctables)
+            out.append(lg[:, 0])
+    del cache
+    return torch.stack(out, dim=1)
+
+
+def _check_asr_tokens(label: str, params, cfg, reqs, audios, dec) -> None:
+    """The served transcripts against ``lm_forward(enc_embeds=...)`` on the
+    card and against the replay ``dec`` (R, ASR_NEW, V): every replay logit
+    within GEN_LOGIT_TOL of lm_forward's; every served token whose top-2
+    margin exceeds GEN_TIE_MARGIN, in lm_forward and in the replay, is
+    their argmax."""
+    from repro_torch.models.transformer import lm_forward
+    served = torch.tensor([r.out for r in reqs])
+    with torch.no_grad():
+        seq = torch.tensor([r.prompt + r.out[:-1] for r in reqs], device="cuda")
+        fwd = lm_forward(params, cfg, seq, enc_embeds=torch.stack(audios))[0][:, ASR_PROMPT - 1:]
+    worst = (dec - fwd).abs().max().item()
+    if not (worst <= GEN_LOGIT_TOL and torch.isfinite(dec).all()):
+        raise AssertionError(f"{label}: replay logits differ from lm_forward's by {worst} "
+                             f"> {GEN_LOGIT_TOL}")
+    near = {}
+    for name, lg in (("lm_forward", fwd), ("replay", dec)):
+        top = lg.topk(2, dim=-1)
+        margin = (top.values[..., 0] - top.values[..., 1]).cpu()
+        bad = (margin > GEN_TIE_MARGIN) & (top.indices[..., 0].cpu() != served)
+        if bad.any():
+            r, i = (int(t) for t in bad.nonzero()[0])
+            raise AssertionError(f"{label} rid {reqs[r].rid} token {i}: served "
+                                 f"{int(served[r, i])}, {name} argmax "
+                                 f"{int(top.indices[r, i, 0])} margin {float(margin[r, i]):.4f}")
+        near[name] = int((margin <= GEN_TIE_MARGIN).sum())
+    log(f"[full_asr] {label}: replay logits within {worst:.4f} of lm_forward's; "
+        f"{served.numel()} served tokens equal both argmaxes above {GEN_TIE_MARGIN} "
+        f"(near-ties not compared: lm_forward {near['lm_forward']}, replay {near['replay']})")
+
+
+def _cross_bits(cache, blocks) -> list:
+    return [(_bits(c.cross_k[blocks]).clone(), _bits(c.cross_v[blocks]).clone())
+            for c in cache]
+
+
+def _asr_profile(eng, label: str, audio) -> None:
+    """torch.profiler over one encode quantum (the last 500 frames of a
+    slot's row, written to free cross blocks), one 4-token prompt chunk and
+    one 4-slot decode step at the table's end, on scratch blocks."""
+    rt = eng.runtime
+    cmb, mb, bs = rt.cross_blocks_per_slot, rt.blocks_per_slot, rt.block_size
+    free = torch.tensor(rt.free_cross_block_ids()[:4 * cmb], dtype=torch.int32,
+                        device="cuda").reshape(4, cmb)
+    tables = (torch.arange(4 * mb, dtype=torch.int32, device="cuda")
+              % (rt.num_blocks - 1) + 1).reshape(4, mb)
+    frames = audio[None, -ASR_KW["audio_chunk"]:]
+    f0 = audio.shape[0] - frames.shape[1]
+    toks = torch.ones((4, 1), dtype=torch.int64, device="cuda")
+    pos = torch.full((4,), ASR_KW["max_len"] - 1, dtype=torch.int32, device="cuda")
+    chunk = torch.ones((1, ASR_PROMPT), dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        _profile(f"{label} encode quantum", lambda: eng._encode_fn(
+            eng.params, frames, f0, 0, free[0], eng._frame_buf, eng.cache))
+        _profile(f"{label} prefill chunk", lambda: eng._prefill_raw(
+            eng.params, chunk, torch.full((1,), 0, dtype=torch.int32), 0, tables[:1],
+            free[:1], eng.cache))
+        _profile(f"{label} decode step", lambda: eng.step_fn(
+            eng.params, toks, pos, tables, free, eng.cache))
+
+
+def _asr_serve(card: str, cfg, params, preset: str, audios, prompts) -> tuple[dict, dict]:
+    """The AsrEngine over the 5 requests, each quantum synchronised and
+    timed; its gates (chunked = one-shot, audio sharing, events, pools,
+    launches, tokens against lm_forward and against a plain replay).
+    Returns (launches, transcripts)."""
+    from repro_torch.engine import AsrEngine
+    from repro_torch.engine import events as ev
+    from repro_torch.kernels import ops
+    label = f"weights={preset}"
+    eng = AsrEngine(params, cfg, device="cuda", **ASR_KW)
+    reqs = _asr_requests(audios, prompts)
+    for r in reqs:
+        eng.submit(r)
+    encodes_per_request = -(-cfg.encoder_seq // ASR_KW["audio_chunk"])
+    times: dict[str, list] = {"encode": [], "prefill": [], "decode": []}
+    snap = None
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        while eng.has_work():
+            s0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            times[eng.last_quantum[0]].append(time.perf_counter() - s0)
+            if snap is None and eng.encode_quanta == encodes_per_request:
+                snap = _cross_bits(eng.cache, eng.runtime.cross_tables[0])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = _asr_want(params, cfg, eng.encode_quanta, eng.prefill_launches, eng.decode_quanta)
+    if counts != want:
+        raise AssertionError(f"full_asr {label}: launches {counts}, expected {want}")
+    # Events, pools, audio sharing.
+    _check_events(f"full_asr {label}", eng, ASR_REQUESTS)
+    outs = {r.rid: list(r.out) for r in eng.finished}
+    for r in reqs:
+        evs = [e for e in eng.bus.log if e.rid == r.rid]
+        steps = [e.step for e in evs if isinstance(e, ev.Progress) and e.phase == "encode"]
+        chunk = ASR_KW["audio_chunk"]
+        want_steps = ([] if r.rid == ASR_REQUESTS - 1 else
+                      [min(f, cfg.encoder_seq) for f in range(chunk, cfg.encoder_seq + chunk,
+                                                              chunk)])
+        toks = [e.token for e in evs if isinstance(e, ev.TokenDelta)]
+        if steps != want_steps or toks != outs[r.rid] or len(toks) != ASR_NEW \
+                or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"full_asr {label} rid {r.rid}: encode progress {steps}, "
+                                 f"{len(toks)} tokens {toks}")
+    rt = eng.runtime
+    chains = (ASR_REQUESTS - 1) * rt.cross_blocks_per_slot
+    if rt.allocated_cross_blocks != len(rt.cross_prefix) or len(rt.cross_prefix) != chains:
+        raise AssertionError(f"full_asr {label}: {rt.allocated_cross_blocks} cross blocks "
+                             f"held, {len(rt.cross_prefix)} in the audio cache, expected "
+                             f"{chains} (the published chains)")
+    if (eng.audio_hits, eng.encode_quanta) != (1, (ASR_REQUESTS - 1) * encodes_per_request) \
+            or reqs[-1].encode_steps or outs[ASR_REQUESTS - 1] != outs[0]:
+        raise AssertionError(f"full_asr {label}: audio hits {eng.audio_hits}, encode quanta "
+                             f"{eng.encode_quanta}; rid 4 {outs[ASR_REQUESTS - 1]} vs rid 0 "
+                             f"{outs[0]}")
+    # Chunked = one-shot: request 0's cross blocks after its last quantum
+    # against one encode quantum of all 1500 frames.
+    one = AsrEngine(params, cfg, device="cuda", **dict(
+        ASR_KW, slots=1, audio_chunk=cfg.encoder_seq, audio_share=False))
+    one.submit(_asr_requests(audios[:1], prompts[:1])[0])
+    with torch.no_grad():
+        one.step()
+    torch.cuda.synchronize()
+    whole = _cross_bits(one.cache, one.runtime.cross_tables[0])
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(snap, whole))
+    del one, whole, snap
+    if not same:
+        raise AssertionError(f"full_asr {label}: request 0's cross blocks after its "
+                             f"{encodes_per_request} encode quanta differ from a one-shot "
+                             "encode's bits")
+    mean = {k: 1e3 * sum(v[1:]) / max(1, len(v) - 1) for k, v in times.items()}
+    log(f"[full_asr] {label}: {ASR_REQUESTS} requests, {sum(map(len, outs.values()))} "
+        f"tokens in {wall:.2f} s synchronised per quantum; quanta {eng.encode_quanta} "
+        f"encode / {eng.prefill_quanta} prefill / {eng.decode_quanta} decode; ms per "
+        f"encode quantum {mean['encode']:.2f}, prefill chunk {mean['prefill']:.2f}, "
+        f"4-slot decode step {mean['decode']:.2f} (first of each left out); audio hits "
+        f"{eng.audio_hits}; chunked = one-shot cross bits; launches {counts}; {card}")
+    _asr_profile(eng, f"whisper-large-v3 {label}", audios[0])
+    # Tokens: a replay with its logits, against lm_forward and the plain
+    # paged decode (held to the kernel at every call).
+    done = sorted(eng.finished, key=lambda r: r.rid)
+    dec = _asr_replay(params, cfg, done, audios)
+    _check_asr_tokens(label, params, cfg, done, audios, dec)
+    with _PlainDecodeAttention(paged=True, few_keys=True) as oracle:
+        plain = _asr_replay(params, cfg, done, audios)
+    if oracle.calls != cfg.num_layers * (ASR_NEW - 1):
+        raise AssertionError(f"full_asr {label}: {oracle.calls} plain decode reads, "
+                             f"expected {cfg.num_layers * (ASR_NEW - 1)}")
+    _check_gen_against_plain(preset, dec, plain, oracle, label="full_asr")
+    del eng, dec, plain
+    return counts, outs
+
+
+def _asr_gen(card: str, cfg, params, audios, prompts) -> dict:
+    """``greedy_generate(enc_embeds=...)`` of ASR_GEN_NEW tokens at 2 rows
+    on contiguous self and cross rows (exact launches), ``make_prefill``,
+    and the replay's logits against lm_forward and against a plain replay
+    whose every flash_decode call is held to its plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.serve_step import greedy_generate, make_prefill
+    enc = torch.stack(audios[:ASR_GEN_BATCH])
+    prompt = torch.tensor(prompts[:ASR_GEN_BATCH], device="cuda")
+    steps = ASR_PROMPT + ASR_GEN_NEW - 1
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, prompt, ASR_GEN_NEW, enc_embeds=enc, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = _asr_want(params, cfg, 1, 0, steps, contiguous=True)
+    if counts != want:
+        raise AssertionError(f"full_asr greedy_generate: launches {counts}, expected {want}")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        first = make_prefill(cfg)(params, {"tokens": prompt, "enc_embeds": enc}).argmax(-1).cpu()
+    pre = ops.launch_counts()
+    if pre != _asr_prefill_want(params, cfg):
+        raise AssertionError(f"full_asr make_prefill: launches {pre}, expected "
+                             f"{_asr_prefill_want(params, cfg)}")
+    dec, times, _ = _replay(params, cfg, out, steps, ASR_PROMPT + ASR_GEN_NEW, enc_embeds=enc)
+    if not torch.equal(dec[:, ASR_PROMPT - 1:].argmax(-1).to(out.dtype), out[:, ASR_PROMPT:]):
+        raise AssertionError("full_asr greedy_generate: the make_decode replay does not "
+                             "reproduce its tokens")
+    _check_gen_against_forward(params, cfg, out, dec, first, prompt=ASR_PROMPT,
+                               enc_embeds=enc, label="full_asr greedy_generate")
+    # Every flash_decode call of a plain replay held to its plain version
+    # (every row of at most FEW_KEYS keys), and the replays' logits.
+    with _PlainDecodeAttention(few_keys=True) as oracle:
+        plain = _replay(params, cfg, out, steps, ASR_PROMPT + ASR_GEN_NEW,
+                        enc_embeds=enc)[0]
+    if oracle.calls != cfg.num_layers * steps:
+        raise AssertionError(f"full_asr greedy_generate: {oracle.calls} plain decode "
+                             f"reads, expected {cfg.num_layers * steps}")
+    _check_gen_against_plain("q8_0", dec, plain, oracle, label="full_asr greedy_generate")
+    del plain
+    log(f"[full_asr] greedy_generate: {steps} decode steps of {ASR_GEN_BATCH} rows in "
+        f"{wall:.2f} s; {1e3 * sum(times[2:]) / (steps - 2):.2f} ms per synchronised "
+        f"decode step; launches {counts}; make_prefill {pre}; {card}")
+    return {name: counts[name] + pre[name] for name in counts}
+
+
+def _asr_router(card: str, cfg, params, audios, prompts, bare: dict) -> dict:
+    """An ``EngineRouter`` with only ``asr=`` and a calibrated
+    ``CostModel``: a request with a SERVE_HOPELESS_MS budget ends Rejected
+    at submit, one without a deadline finishes with the bare engine's
+    transcript of the same audio and prompt."""
+    from repro_torch.engine import (AsrEngine, AsrEngineConfig, CostModel, EngineConfig,
+                                    EngineRouter, calibrate)
+    from repro_torch.engine import events as ev
+    from repro_torch.kernels import ops
+    cm = CostModel()
+    asr = AsrEngine(params, cfg, device="cuda", config=EngineConfig(
+        cost_model=cm, asr=AsrEngineConfig(**ASR_KW)))
+    router = EngineRouter(asr=asr)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    calibrate(router, _asr_requests(audios[1:3], prompts[1:3], ASR_CALIB_NEW, rid0=-10))
+    calib_s = time.perf_counter() - t0
+    costs = [cm.cost(key) for key in cm.asr_keys(asr)]
+    if None in costs:
+        raise AssertionError(f"full_asr router: calibration left a key unpriced: {costs}")
+    hopeless, served = _asr_requests(audios[:1] * 2, prompts[:1] * 2, rid0=100)
+    hopeless.deadline_ms = SERVE_HOPELESS_MS
+    router.submit(hopeless)
+    if not isinstance(router.bus.terminal(100), ev.Rejected):
+        raise AssertionError("full_asr router: the 1 ms request was not rejected at submit")
+    router.submit(served)
+    router.run()
+    counts = ops.launch_counts()
+    want = _asr_want(params, cfg, asr.encode_quanta, asr.prefill_launches, asr.decode_quanta)
+    kinds = [type(e).__name__ for e in router.bus.log if e.rid == 101]
+    if counts != want or served.out != bare[0] or kinds.count("Finished") != 1 \
+            or kinds.count("Admitted") != 1:
+        raise AssertionError(f"full_asr router: launches {counts} (expected {want}); "
+                             f"transcript {served.out} vs the bare run's {bare[0]}; {kinds}")
+    log(f"[full_asr] router: calibration of 2 requests ({ASR_CALIB_NEW} new) {calib_s:.2f} s; "
+        f"cost model encode {1e3 * costs[0]:.2f} ms, prefill {1e3 * costs[1]:.2f} ms, decode "
+        f"{1e3 * costs[2]:.2f} ms; rid 100 ({SERVE_HOPELESS_MS} ms) rejected at submit, "
+        f"estimated {router.bus.terminal(100).estimated_s * 1e3:.1f} ms; rid 101 has the bare "
+        f"run's transcript; launches {counts}; {card}")
+    del asr, router
+    return counts
+
+
+def phase_full_asr(card: str) -> dict[str, int]:
+    """whisper-large-v3 at full width and depth with seeded weights made on
+    the card, under q8_0 and none (the quantized copy freed before the
+    next): the AsrEngine run with its gates; under q8_0 also
+    greedy_generate and the router."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qlinear import param_bytes, param_count, quantize_params
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    cfg = get_config("whisper-large-v3")
+    assert cfg.num_layers == cfg.encoder_layers == ASR_LAYERS
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    base = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    audios, prompts = _asr_inputs(cfg)
+    torch.cuda.synchronize()
+    log(f"[full_asr] init whisper-large-v3 {time.perf_counter() - t_phase:.1f} s, "
+        f"{param_count(base) / 1e9:.3f} B parameters, {param_bytes(base) / 2**30:.2f} GiB")
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+
+    def add(counts):
+        for name, n in counts.items():
+            totals[name] += n
+
+    for preset in ASR_PRESETS:
+        params = base if preset == "none" else quantize_params(base, get_policy(preset))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts, outs = _asr_serve(card, cfg, params, preset, audios, prompts)
+        add(counts)
+        if preset == "q8_0":
+            add(_asr_gen(card, cfg, params, audios, prompts))
+            add(_asr_router(card, cfg, params, audios, prompts, outs))
+        log(f"[full_asr] weights={preset}: {param_bytes(params) / 2**30:.2f} GiB of weights; "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[full_asr] phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return totals
+
+
 def phase_full_serving(card: str) -> dict[str, int]:
     """Phases full_router and full_fleet on one pair of weight trees."""
     sd, lm, cfg = _serving_bases()
@@ -3041,7 +3605,8 @@ def main() -> int:
     phase_tiny_gen()
     for phase in (lambda: phase_full(rows["flash_attention"]),
                   lambda: phase_full_lm(card), lambda: phase_full_gen(card),
-                  lambda: phase_full_serving(card), lambda: phase_full_moe(card)):
+                  lambda: phase_full_serving(card), lambda: phase_full_moe(card),
+                  lambda: phase_full_asr(card)):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
     for name in KERNEL_META:

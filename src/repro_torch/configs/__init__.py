@@ -1,9 +1,9 @@
 """Configs of the port and the architecture registry.
 
-:func:`get_config` serves the dense attention-only LMs and the MoE
-family, whose configs are copied here from ``repro.configs``; every
-other architecture of the reference (SSM, hybrid, enc-dec, VLM) raises
-``NotImplementedError`` until its slice is ported.
+:func:`get_config` serves the dense attention-only LMs, the MoE family
+and whisper-large-v3 (encoder-decoder), whose configs are copied here
+from ``repro.configs``; every other architecture of the reference (SSM,
+hybrid, VLM) raises ``NotImplementedError`` until its slice is ported.
 """
 from __future__ import annotations
 
@@ -16,8 +16,10 @@ from repro_torch.configs.base import (SD15_UNET, SD15_VAE, SD_TURBO,  # noqa: F4
                                       TINY_VAE, ModelConfig, MoEConfig,
                                       SDConfig, UNetConfig, VAEConfig,
                                       clip_config, reduced)
+from repro_torch.models import frontend
 
 ARCH_MODULES = {
+    "whisper-large-v3": "whisper_large_v3",
     "llama3-405b": "llama3_405b",
     "h2o-danube-3-4b": "h2o_danube3_4b",
     "granite-8b": "granite_8b",
@@ -27,8 +29,7 @@ ARCH_MODULES = {
 }
 
 # Architectures of the reference that need blocks this port lacks.
-NOT_PORTED = ("xlstm-1.3b", "whisper-large-v3", "jamba-1.5-large-398b",
-              "qwen2-vl-72b")
+NOT_PORTED = ("xlstm-1.3b", "jamba-1.5-large-398b", "qwen2-vl-72b")
 
 ARCHS = tuple(ARCH_MODULES)
 
@@ -36,7 +37,7 @@ ARCHS = tuple(ARCH_MODULES)
 def get_config(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"{name}: only the dense attention-only and MoE LMs are ported "
+            f"{name}: only the attention-only LMs (dense, MoE, enc-dec) are ported "
             f"({', '.join(ARCHS)})")
     if name not in ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list(ARCH_MODULES)}")
@@ -47,10 +48,15 @@ def get_config(name: str) -> ModelConfig:
 def smoke_inputs(seed: int, cfg: ModelConfig, *, batch: int = 2,
                  seq: int = 16, device="cpu") -> dict:
     """Small concrete inputs: ``tokens`` and ``labels`` of shape ``(batch,
-    seq)``, drawn from a ``torch.Generator`` seeded ``seed`` on
-    ``device`` (the reference's ``smoke_inputs`` for the dense LMs; the
-    audio and vision prefixes come with their slices)."""
+    seq)``, and for an audio config ``enc_embeds`` ``(batch, encoder_seq,
+    d_model)`` bf16, drawn from a ``torch.Generator`` seeded ``seed`` on
+    ``device`` (the reference's ``smoke_inputs``; the vision prefix comes
+    with its slice)."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    return {name: torch.randint(0, cfg.vocab_size, (batch, seq),
-                                generator=gen, device=device)
-            for name in ("tokens", "labels")}
+    out = {name: torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device=device)
+           for name in ("tokens", "labels")}
+    if cfg.family == "audio":
+        out["enc_embeds"] = frontend.synthetic_frontend(
+            gen, frontend.audio_frontend_shape(cfg, batch))
+    return out

@@ -1,9 +1,10 @@
 """Serving engines of the port: the diffusion engine (fused and segmented
-preview paths), the shared ``EngineConfig``, the cost model, the router
-and the replica fleet."""
+preview paths), the streaming ASR engine, the shared ``EngineConfig``,
+the cost model, the router and the replica fleet."""
 from repro_torch.engine.api import (Engine, GenerateRequest,  # noqa: F401
-                                    GenerateResult, default_sampler,
-                                    is_transcribe, uses_cfg)
+                                    GenerateResult, TranscribeRequest,
+                                    default_sampler, is_transcribe, uses_cfg)
+from repro_torch.engine.asr_engine import AsrEngine  # noqa: F401
 from repro_torch.engine.config import (AsrEngineConfig,  # noqa: F401
                                        DiffusionEngineConfig, EngineConfig,
                                        LMEngineConfig, SpecDecodeConfig,

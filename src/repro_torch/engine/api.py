@@ -1,8 +1,8 @@
 """Request-based generation API (``repro.engine.api``): the typed
-text-to-image request and result, and the structural ``Engine``
-protocol that ``DiffusionEngine``, ``ContinuousBatcher`` and
-``EngineRouter`` satisfy without a common base.  The LM request lives in
-``serving.scheduler``; ``TranscribeRequest`` comes with the ASR slice."""
+text-to-image and transcription requests, the image result, and the
+structural ``Engine`` protocol that ``DiffusionEngine``,
+``ContinuousBatcher``, ``AsrEngine`` and ``EngineRouter`` satisfy without
+a common base.  The LM request lives in ``serving.scheduler``."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,11 +22,10 @@ def uses_cfg(neg_tokens, guidance_scale: float) -> bool:
 
 
 def is_transcribe(request: Any) -> bool:
-    """Whether ``request`` is an ASR ``TranscribeRequest``.  The port has
-    no ASR engine yet, so the class is matched by name: routers and
-    fleets send such a request to their ASR engine, and raise when they
-    have none, as the reference does."""
-    return type(request).__name__ == "TranscribeRequest"
+    """Whether ``request`` is an ASR :class:`TranscribeRequest`: routers
+    and fleets send it to their ASR engine, and raise when they have
+    none."""
+    return isinstance(request, TranscribeRequest)
 
 
 @dataclasses.dataclass
@@ -52,6 +51,41 @@ class GenerateRequest:
     deadline_ms: float | None = None
     priority: int = 0
     _deadline: float = dataclasses.field(default=float("inf"), repr=False)
+
+
+@dataclasses.dataclass
+class TranscribeRequest:
+    """One streaming speech-transcription request.  ``audio`` is the
+    frame-embedding tensor ``(cfg.encoder_seq, cfg.d_model)`` that the
+    stub frontend would produce (``models.frontend``); the engine ingests
+    it in ``audio_chunk``-frame quanta.  ``prompt`` is the decoder's token
+    prefix (Whisper's language/task tags); the transcript accumulates in
+    ``out`` and the request is its own ``Finished`` result, like the LM
+    path's ``serving.scheduler.Request``.  ``group`` co-schedules
+    round-robin; ``deadline_ms``/``priority`` feed EDF and cost-model
+    admission; ``encode_steps``/``prefill_steps``/``decode_steps`` count
+    the quanta the request consumed, per phase."""
+    rid: int
+    audio: Any                       # (encoder_seq, d_model) tensor
+    prompt: Sequence[int] = ()
+    max_new: int = 16
+    eos: int | None = None
+    group: int = 0
+    deadline_ms: float | None = None
+    priority: int = 0
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    encode_steps: int = 0
+    prefill_steps: int = 0
+    decode_steps: int = 0
+    _seq: int = dataclasses.field(default=0, repr=False)
+    _deadline: float = dataclasses.field(default=float("inf"), repr=False)
+    # Tokens still to ingest: the prompt at first admission, prompt + out
+    # after a preemption (as ``serving.Request._feed``).
+    _feed: list = dataclasses.field(default_factory=list, repr=False)
+    # Per-frame content fingerprints of ``audio`` (computed once, at
+    # submit): the cross pool's prefix-cache key chain.
+    _audio_key: list = dataclasses.field(default_factory=list, repr=False)
 
 
 @dataclasses.dataclass

@@ -74,12 +74,13 @@ class SpecDecodeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LMEngineConfig:
-    """Section consumed by ``serving.scheduler.ContinuousBatcher``.  The
-    reference's ``enc_embeds`` is left out until encoder inputs are
-    ported (ROADMAP section 1, the enc-dec item)."""
+    """Section consumed by ``serving.scheduler.ContinuousBatcher``.
+    ``enc_embeds`` (slots, S_enc, d) feeds an encoder-decoder model's
+    contiguous cross rows, one row per slot."""
 
     slots: int = 4
     max_len: Optional[int] = None
+    enc_embeds: Any = None
     decode_fn: Optional[Callable] = None
     quantized_kv: bool = False
     block_size: int = 16
@@ -93,8 +94,7 @@ class LMEngineConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AsrEngineConfig:
-    """Section of the ASR engine (not ported yet; kept so one config
-    describes every engine, as in the reference)."""
+    """Section consumed by ``engine.asr_engine.AsrEngine``."""
 
     slots: int = 4
     max_len: Optional[int] = None
@@ -173,8 +173,8 @@ def build_engine(kind: str, params: Any, model_cfg: Any,
         from repro_torch.serving.scheduler import ContinuousBatcher
         return ContinuousBatcher(params, model_cfg, config=config, **kwargs)
     if kind == "asr":
-        raise NotImplementedError(
-            "the ASR engine is not ported yet (ROADMAP section 1)")
+        from repro_torch.engine.asr_engine import AsrEngine
+        return AsrEngine(params, model_cfg, config=config, **kwargs)
     if kind == "diffusion":
         from repro_torch.engine.diffusion_engine import DiffusionEngine
         return DiffusionEngine(params, model_cfg, config=config, **kwargs)

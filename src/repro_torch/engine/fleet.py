@@ -77,6 +77,7 @@ from repro_torch.distributed.fault_tolerance import (DRAINING, EVICTED,
                                                      ReplicaHealth, Watchdog)
 from repro_torch.engine import events as ev
 from repro_torch.engine.api import GenerateRequest, is_transcribe
+from repro_torch.engine.asr_engine import AsrEngine
 from repro_torch.engine.diffusion_engine import DiffusionEngine
 from repro_torch.engine.router import EngineRouter
 
@@ -95,8 +96,8 @@ class ReplicaSpec:
     :class:`~repro_torch.engine.config.EngineConfig`) — ``params`` is
     the weight tree or a zero-arg callable returning one (lazy load per
     replica), ``model_cfg`` the model config, ``engine`` the kind
-    (``"lm"`` | ``"diffusion"``; ``"asr"`` raises in ``build_engine``
-    until the ASR engine is ported), ``config`` the shared engine config
+    (``"lm"`` | ``"asr"`` | ``"diffusion"``), ``config`` the shared
+    engine config
     (a single instance may back every replica: replicas then share its
     cost model / metrics registry, while each still owns its cache and
     bus — the fleet rebinds the bus before any event is emitted), and
@@ -253,8 +254,9 @@ class FleetManager(ev.EventStreamMixin):
         if isinstance(request, GenerateRequest):
             return engine if isinstance(engine, DiffusionEngine) else None
         if is_transcribe(request):
-            return None              # no ASR engine in the port yet
-        return None if isinstance(engine, DiffusionEngine) else engine
+            return engine if isinstance(engine, AsrEngine) else None
+        return (None if isinstance(engine, (DiffusionEngine, AsrEngine))
+                else engine)
 
     def _estimate(self, rep: _Replica, request: Any) -> float | None:
         sub = self._serving_engine(rep.engine, request)

@@ -2,15 +2,14 @@
 port of ``repro.engine.router``).
 
 :class:`EngineRouter` puts a :class:`repro_torch.engine.DiffusionEngine`,
-an LM ``serving.ContinuousBatcher`` and, once it is ported, an ASR engine
+an LM ``serving.ContinuousBatcher`` and an ``engine.asr_engine.AsrEngine``
 (any object with the structural ``Engine`` protocol plus
 ``has_work()``/``next_deadline()``/``bus``) behind one
 ``submit()/step()/stream()/cancel()`` surface in one host loop:
 
 * **Dispatch** — a ``GenerateRequest`` goes to the diffusion engine, a
-  ``TranscribeRequest`` to the ASR engine (``api.is_transcribe``; the
-  port has none yet, so such a request raises unless one is given),
-  anything else (``serving.Request``) to the LM engine; rids are unique
+  ``TranscribeRequest`` to the ASR engine (``api.is_transcribe``; a
+  router without one raises on it), anything else (``serving.Request``) to the LM engine; rids are unique
   across the router.
 * **One event bus** — at construction the router rebinds every engine
   onto one :class:`~repro_torch.engine.events.EventBus` (they must not

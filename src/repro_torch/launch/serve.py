@@ -1,15 +1,20 @@
-"""Serving launcher of the port: LM or diffusion serving through the
-engine API (the twin of ``repro.launch.serve``).
+"""Serving launcher of the port: LM, transcription or diffusion serving
+through the engine API (the twin of ``repro.launch.serve``).
 
   python -m repro_torch.launch.serve --arch granite-8b [--policy q8_0] \
       [--slots 4] [--requests 8] [--gen 16] [--deadline-ms 500] \
       [--admission] [--replicas 2] [--cost-model-path cm.json] \
       [--metrics-out m.json] [--trace-out t.json] [--device cuda]
+  python -m repro_torch.launch.serve --arch whisper-large-v3 --asr \
+      [--slots 4] [--requests 8] [--gen 16] [--admission] [--replicas 2]
   python -m repro_torch.launch.serve --arch sd-turbo [--steps 1] \
       [--batch 2] [--requests 4] [--deadline-ms 2000] [--admission]
 
 An LM ``--arch`` is served by ``ContinuousBatcher`` (paged KV pool,
-chunked-prefill admission, ``--spec-draft`` speculation); ``sd-turbo``
+chunked-prefill admission, ``--spec-draft`` speculation; an
+encoder-decoder arch gets synthetic ``enc_embeds``, one row per slot);
+``--asr`` serves ``TranscribeRequest``s of synthetic audio through the
+streaming ``AsrEngine`` (an encoder-decoder arch); ``sd-turbo``
 by ``DiffusionEngine`` (``--steps 1`` runs the turbo sampler, more steps
 DDIM; ``--preview-every`` streams decoded previews).  The host loop
 consumes the typed event stream and reports time to first token (or
@@ -26,8 +31,6 @@ for a ``.prom`` path) and a Chrome trace.
 
 Everything runs on ``--device`` (``cuda`` by default; ``cpu`` runs the
 plain kernels at the reduced config, TINY_SD for ``sd-turbo``).
-``--asr`` raises: the ASR engine is not ported yet (ROADMAP section 1,
-item 6).
 """
 from __future__ import annotations
 
@@ -41,12 +44,14 @@ from repro_torch.configs import (SD_TURBO, TINY_SD, get_config, reduced,
                                  smoke_inputs)
 from repro_torch.core.policy import get_policy
 from repro_torch.core.qlinear import param_bytes, quantize_params
-from repro_torch.engine import (CostModel, DiffusionEngineConfig,
-                                EngineConfig, Finished, FleetManager,
-                                GenerateRequest, LMEngineConfig, PreviewLatent,
-                                Rejected, ReplicaSpec, SpecDecodeConfig,
-                                TokenDelta, calibrate, default_sampler,
+from repro_torch.engine import (AsrEngine, AsrEngineConfig, CostModel,
+                                DiffusionEngineConfig, EngineConfig, Finished,
+                                FleetManager, GenerateRequest, LMEngineConfig,
+                                PreviewLatent, Rejected, ReplicaSpec,
+                                SpecDecodeConfig, TokenDelta,
+                                TranscribeRequest, calibrate, default_sampler,
                                 init_pipeline)
+from repro_torch.models.frontend import synthetic_audio
 from repro_torch.models.transformer import init_lm
 from repro_torch.serving import ContinuousBatcher, Request
 
@@ -77,7 +82,8 @@ def _args() -> argparse.Namespace:
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-request SLO budget (EDF admission)")
     ap.add_argument("--asr", action="store_true",
-                    help="streaming transcription (not ported yet: raises)")
+                    help="streaming transcription (AsrEngine) of synthetic "
+                         "audio; needs an encoder-decoder arch")
     ap.add_argument("--spec-draft", default=None, metavar="ARCH",
                     help="draft-model speculative decoding with this arch "
                          "(same vocabulary as --arch; LM only)")
@@ -101,10 +107,6 @@ def _args() -> argparse.Namespace:
 
 def main() -> None:
     args = _args()
-    if args.asr:
-        raise NotImplementedError(
-            "--asr: the ASR engine is not ported yet (ROADMAP section 1, "
-            "item 6)")
     device = torch.device(args.device)
     diffusion = args.arch in DIFFUSION_ARCHS
     n_requests = args.requests or (args.batch if diffusion else args.slots)
@@ -154,8 +156,14 @@ def main() -> None:
         params = init_lm(torch.Generator(device=device).manual_seed(0), cfg)
         params = quantize_params(params, policy)
         print(f"{cfg.name} [{policy.name}]: {param_bytes(params) / 1e6:.1f} MB")
+        if args.asr and not cfg.is_enc_dec:
+            raise SystemExit(f"--asr needs an encoder-decoder arch; "
+                             f"{cfg.name} is decoder-only")
         spec_decode = None
         if args.spec_draft:
+            if args.asr:
+                raise SystemExit("--spec-draft is decoder-only LM serving; "
+                                 "it cannot combine with --asr")
             dcfg = get_config(args.spec_draft)
             if device.type == "cpu":
                 dcfg = reduced(dcfg)
@@ -168,15 +176,32 @@ def main() -> None:
             print(f"speculative draft {dcfg.name}: k={args.spec_k}")
             spec_decode = SpecDecodeConfig(draft_params=dparams,
                                            draft_cfg=dcfg, k=args.spec_k)
-        max_len = ContinuousBatcher.required_len(n_requests, args.slots,
-                                                 args.prompt_len, args.gen)
-        kind = "lm"
-        econf = EngineConfig(cost_model=cm, metrics=tele, lm=LMEngineConfig(
-            slots=args.slots, max_len=max_len, spec_decode=spec_decode))
-        prompts = smoke_inputs(1, cfg, batch=args.slots,
-                               seq=args.prompt_len)["tokens"].tolist()
+        inp = smoke_inputs(1, cfg, batch=args.slots, seq=args.prompt_len)
+        prompts = inp["tokens"].tolist()
+        if args.asr:
+            kind = "asr"
+            max_len = AsrEngine.required_len(args.prompt_len, args.gen)
+            audios = [synthetic_audio(
+                torch.Generator(device=device).manual_seed(100 + i), cfg)
+                for i in range(args.slots)]
+        else:
+            kind = "lm"
+            max_len = ContinuousBatcher.required_len(
+                n_requests, args.slots, args.prompt_len, args.gen)
+        econf = EngineConfig(
+            cost_model=cm, metrics=tele,
+            lm=LMEngineConfig(slots=args.slots, max_len=max_len,
+                              enc_embeds=(None if args.asr
+                                          else inp.get("enc_embeds")),
+                              spec_decode=spec_decode),
+            asr=AsrEngineConfig(slots=args.slots, max_len=max_len))
 
         def make_req(rid, i, deadline_ms=None):
+            if args.asr:
+                return TranscribeRequest(
+                    rid=rid, audio=audios[i % args.slots],
+                    prompt=prompts[i % args.slots], max_new=args.gen,
+                    deadline_ms=deadline_ms)
             return Request(rid=rid, prompt=prompts[i % args.slots],
                            max_new=args.gen, deadline_ms=deadline_ms)
 
@@ -208,12 +233,20 @@ def main() -> None:
             print("calibrated: " + ", ".join(
                 f"{name} {(cm.cost(keys[name]) or 0) * 1e3:.1f} ms"
                 for name in ("fused", "clip", "unet", "vae")))
+        elif args.asr:
+            ke, kp, kd = cm.asr_keys(engines[0])
+            print(f"calibrated: encode chunk {(cm.cost(ke) or 0) * 1e3:.1f} "
+                  f"ms, prefill chunk {(cm.cost(kp) or 0) * 1e3:.1f} ms, "
+                  f"decode token {(cm.cost(kd) or 0) * 1e3:.1f} ms")
         else:
             kp, kd = cm.lm_keys(engines[0])
             print(f"calibrated: prefill chunk {(cm.cost(kp) or 0) * 1e3:.1f}"
                   f" ms, decode token {(cm.cost(kd) or 0) * 1e3:.1f} ms")
-    q0 = sum(getattr(e, "quanta", 0) + getattr(e, "prefill_quanta", 0)
-             + getattr(e, "decode_quanta", 0) for e in engines)
+
+    def quanta_of(e):
+        return sum(getattr(e, k, 0) for k in ("quanta", "encode_quanta",
+                                              "prefill_quanta", "decode_quanta"))
+    q0 = sum(quanta_of(e) for e in engines)
     submit_ts = {}
     for r in range(n_requests):
         submit_ts[r] = engine.bus.clock()
@@ -231,15 +264,17 @@ def main() -> None:
         elif isinstance(e, PreviewLatent):
             previews += 1
     dt = time.time() - t0
-    quanta = sum(getattr(e, "quanta", 0) + getattr(e, "prefill_quanta", 0)
-                 + getattr(e, "decode_quanta", 0) for e in engines) - q0
+    quanta = sum(quanta_of(e) for e in engines) - q0
     if diffusion:
         print(f"served {len(done)} images in {dt:.2f}s ({quanta} quanta, "
               f"{previews} previews, batch bucket {args.batch})")
     else:
         n_tok = sum(len(d.prompt) + len(d.out) for d in done)
+        what = "encode + prefill + decode" if args.asr else "prefill + decode"
+        hits = (f", {sum(e.audio_hits for e in engines)} audio-cache hits"
+                if args.asr else "")
         print(f"served {len(done)} requests / {n_tok} tokens in {dt:.2f}s "
-              f"({quanta} prefill + decode quanta)")
+              f"({quanta} {what} quanta{hits})")
         if args.spec_draft:
             prop = sum(b.spec_proposed for b in engines)
             acc = sum(b.spec_accepted for b in engines)

@@ -14,7 +14,11 @@ contiguous cache at a scalar ``pos``.  A Q8_0 cache, and a contiguous
 cache at per-row positions, keep the reference's (dequantize ->) einsum
 read in plain PyTorch: the reference has no kernel for those reads, and
 ``flash_decode``, like its Pallas kernel, reads bf16 and takes one
-``kv_len`` for all rows.  M-RoPE is not ported.
+``kv_len`` for all rows.  Cross attention of an encoder-decoder decoder
+(``cross_attention_decode`` on contiguous encoder rows,
+``cross_attention_paged`` through the paged cross pool) is the
+reference's einsum read in plain PyTorch too: the reference computes it
+in XLA, not in a Pallas kernel.  M-RoPE is not ported.
 """
 from __future__ import annotations
 
@@ -363,3 +367,67 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos,
             out = attend_decode(qg, keys, vals, valid[None, :], scale)
     out = out.reshape(b, 1, cfg.num_heads * cfg.hd).to(x.dtype)
     return apply_linear(p["wo"], out), cache
+
+
+# ------------------------------------------------------ cross attention
+
+def _cross_attend(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  keys: torch.Tensor, vals: torch.Tensor,
+                  valid: torch.Tensor | None) -> torch.Tensor:
+    """(B, T, d) queries against fixed encoder keys/vals (B, Hkv, C, hd),
+    optional validity mask (B, C).  Non-causal over a fixed KV set, so
+    every query position is independent (chunk-at-once equals per-token).
+    As the reference: q rounded to the keys' dtype, f32 logits and
+    softmax, P rounded to the values' dtype, f32 P.V; masked logits are
+    -inf and masked values an explicit 0 (recycled blocks may hold NaN,
+    and 0 * NaN = NaN)."""
+    b, t, _ = x.shape
+    g = cfg.num_heads // cfg.num_kv_heads
+    q = _split_heads(apply_linear(p["wq"], x), cfg.num_heads)
+    # (B, Hq, T, hd) -> (B, Hkv, G, T, hd): head kv*G + g, as in decode.
+    qg = q.reshape(b, cfg.num_kv_heads, g, t, cfg.hd)
+    logits = torch.einsum("bhgtd,bhcd->bhgtc", qg.to(keys.dtype).float(),
+                          keys.float()) * (cfg.hd ** -0.5)
+    if valid is not None:
+        vals = torch.where(valid[:, None, :, None], vals,
+                           torch.zeros((), dtype=vals.dtype, device=vals.device))
+        logits = logits.masked_fill(~valid[:, None, None, None, :],
+                                    float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgtc,bhcd->bhgtd", probs.to(vals.dtype).float(),
+                       vals.float())
+    out = out.reshape(b, cfg.num_heads, t, cfg.hd)
+    return apply_linear(p["wo"], _merge_heads(out).to(x.dtype))
+
+
+def cross_attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                           enc_k: torch.Tensor, enc_v: torch.Tensor,
+                           enc_valid: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Cross attention against precomputed contiguous encoder KV.  x: (B,
+    T, d), T = 1 in decode and the chunk in a fused prefill; enc_k/enc_v:
+    (B, Hkv, S_enc, hd); ``enc_valid`` (B, S_enc) masks a ragged tail."""
+    return _cross_attend(p, cfg, x, enc_k, enc_v, enc_valid)
+
+
+def cross_attention_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                          cross_tables: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, *, enc_len: int
+                          ) -> torch.Tensor:
+    """Cross attention reading encoder KV from the paged cross pool.  x:
+    (B, T, d); cross_tables: (B, MBc) int32 rows into the bf16 pools
+    (NBc, Hkv, cbs, hd) that ``write_cross_kv`` filled.  Positions at or
+    past ``enc_len`` in the gathered window (the tail block's padding) are
+    masked."""
+    b = x.shape[0]
+    cbs = k_pool.shape[2]
+    mb = cross_tables.shape[1]
+    tbl = cross_tables.long()
+
+    def gather(pool):
+        g = pool[tbl].transpose(1, 2)             # (B, Hkv, MBc, cbs, hd)
+        return g.reshape(b, g.shape[1], mb * cbs, g.shape[-1])
+
+    valid = (torch.arange(mb * cbs, device=x.device) < enc_len)[None, :]
+    return _cross_attend(p, cfg, x, gather(k_pool), gather(v_pool),
+                         valid.expand(b, mb * cbs))

@@ -1,16 +1,20 @@
-"""The attention-only LM stack (``repro.models.transformer``), dense or
-MoE: parameters, the full-sequence forward, one-token decode on a
-contiguous or a paged cache, and the paged serving paths (fused chunk
-prefill and its decode-step scan).
+"""The attention-only LM stack (``repro.models.transformer``), dense,
+MoE or encoder-decoder (whisper): parameters, the full-sequence
+forward, one-token decode on a contiguous or a paged cache, and the
+paged serving paths (fused chunk prefill and its decode-step scan).
 
 The reference stacks layer parameters over a leading period axis for
-``lax.scan``; here ``params["layers"]`` is a plain list with one dict
-per layer, walked by a Python loop (``weights.from_reference`` unstacks
-the reference's layout).  Likewise the cache is a list with one
-:class:`~repro_torch.models.attention.KVCache` per layer (contiguous
-rows, or a paged pool), with no recurrent or cross-attention fields,
-updated in place.  SSM, hybrid and enc-dec stacks come with later
-slices.
+``lax.scan``; here ``params["layers"]`` (and an encoder's
+``params["encoder"]["layers"]``) is a plain list with one dict per
+layer, walked by a Python loop (``weights.from_reference`` unstacks the
+reference's layout).  Likewise the cache is a list with one entry per
+layer, updated in place: a
+:class:`~repro_torch.models.attention.KVCache` (contiguous rows, or a
+paged pool), or for an encoder-decoder stack a :class:`LayerCache` that
+adds the layer's cross-attention keys and values, as contiguous rows
+precomputed from ``enc_embeds`` or as a paged bf16 cross pool that
+:func:`write_cross_kv` fills.  SSM and hybrid stacks come with a later
+slice.
 
 Each layer's FFN tail is an MLP or an MoE layer (``_ffn_kind``, the
 reference's rule with ``moe_every``).  The MoE layer's capacity is per
@@ -22,21 +26,24 @@ the same path of the reference, not another path.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.qlinear import Linear, init_linear
+from repro_torch.core.qlinear import Linear, apply_linear, init_linear
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if set(cfg.block_pattern) != {"attn"} or cfg.is_enc_dec:
+    if set(cfg.block_pattern) != {"attn"}:
         raise NotImplementedError(
-            f"{cfg.name}: only attention-only stacks (dense or MoE) are ported")
+            f"{cfg.name}: only attention-only stacks (dense, MoE or "
+            "encoder-decoder) are ported")
 
 
 def _ffn_kind(cfg: ModelConfig, j: int) -> str:
@@ -59,10 +66,14 @@ def _apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return f(p, x, cfg.norm_eps)
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, i: int) -> dict:
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, i: int, *,
+                cross: bool = False) -> dict:
     init_n, _ = _norm(cfg)
     p: dict[str, Any] = {"norm1": init_n(cfg.d_model, gen.device),
                          "attn": attn_mod.init_attention(gen, cfg)}
+    if cross:
+        p["norm_x"] = init_n(cfg.d_model, gen.device)
+        p["cross"] = attn_mod.init_attention(gen, cfg)
     fk = _ffn_kind(cfg, i % len(cfg.block_pattern))
     if fk != "none":
         p["norm2"] = init_n(cfg.d_model, gen.device)
@@ -79,12 +90,20 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     init_n, _ = _norm(cfg)
     p: dict[str, Any] = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model),
-        "layers": [_init_layer(gen, cfg, i) for i in range(cfg.num_layers)],
+        "layers": [_init_layer(gen, cfg, i, cross=cfg.is_enc_dec)
+                   for i in range(cfg.num_layers)],
         "final_norm": init_n(cfg.d_model, gen.device),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size,
                                    role="lm_head")
+    if cfg.is_enc_dec:
+        # The encoder's blocks are plain attention + MLP at the same width.
+        p["encoder"] = {
+            "layers": [_init_layer(gen, cfg, 0)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": init_n(cfg.d_model, gen.device),
+        }
     return p
 
 
@@ -95,11 +114,17 @@ def _head(params: dict) -> Linear:
 # ------------------------------------------------------------- forward
 
 def _block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, positions, *,
-               causal: bool) -> torch.Tensor:
+               causal: bool, enc_out: torch.Tensor | None = None
+               ) -> torch.Tensor:
     h = _apply_norm(cfg, p["norm1"], x)
-    return x + attn_mod.attention_fwd(p["attn"], cfg, h, positions,
-                                      causal=causal,
-                                      rope=cfg.pos_embed == "rope")
+    x = x + attn_mod.attention_fwd(p["attn"], cfg, h, positions,
+                                   causal=causal,
+                                   rope=cfg.pos_embed == "rope")
+    if enc_out is not None and "cross" in p:
+        h = _apply_norm(cfg, p["norm_x"], x)
+        x = x + attn_mod.attention_fwd(p["cross"], cfg, h, positions,
+                                       causal=False, kv_x=enc_out)
+    return x
 
 
 def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
@@ -118,45 +143,83 @@ def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
 
 
 def _layer_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, positions=None,
-               *, causal: bool) -> tuple[torch.Tensor, torch.Tensor | float]:
-    return _apply_ffn(p, cfg, _block_fwd(p, cfg, x, positions, causal=causal))
+               *, causal: bool, enc_out: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor | float]:
+    return _apply_ffn(p, cfg, _block_fwd(p, cfg, x, positions, causal=causal,
+                                         enc_out=enc_out))
+
+
+def _sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embeddings (..., d) bf16 of the positions ``pos`` (any
+    shape, any number type), computed in f32 as the reference does.  The
+    frequencies' power is taken in f64 and rounded once to f32, as XLA's
+    correctly rounded f32 power gives it (torch's f32 power is an ulp off
+    at a few exponents, which moves an embedding's bf16 bits at large
+    positions)."""
+    e = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device) / d
+    inv = 1.0 / (10_000.0 ** e.double()).float()
+    ang = pos.to(torch.float32)[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(torch.bfloat16)
 
 
 def _sinusoidal(seq: int, d: int, offset: int = 0,
                 device=None) -> torch.Tensor:
-    pos = torch.arange(seq, dtype=torch.float32, device=device) + offset
-    inv = 1.0 / (10_000.0 ** (torch.arange(0, d, 2, dtype=torch.float32,
-                                           device=device) / d))
-    ang = pos[:, None] * inv[None, :]
-    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(torch.bfloat16)
+    """(seq, d) embeddings of positions ``offset .. offset + seq - 1``."""
+    return _sinusoidal_at(torch.arange(seq, dtype=torch.float32,
+                                       device=device) + offset, d)
 
 
 def _stack_fwd(layers: list, cfg: ModelConfig, x: torch.Tensor,
-               positions=None, *, causal: bool
+               positions=None, *, causal: bool,
+               enc_out: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The layers in order -> (x, the MoE aux losses summed over layers,
     f32)."""
     _check_supported(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in layers:
-        x, a = _layer_fwd(p, cfg, x, positions, causal=causal)
+        x, a = _layer_fwd(p, cfg, x, positions, causal=causal,
+                          enc_out=enc_out)
         if isinstance(a, torch.Tensor):
             aux = aux + a
     return x, aux
 
 
+def encoder_forward(params: dict, cfg: ModelConfig,
+                    enc_embeds: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over precomputed frame embeddings (B, S_enc,
+    d) bf16 (the stub frontend's output): sinusoidal positions, non-causal
+    self-attention, the encoder's final norm."""
+    b, s, _ = enc_embeds.shape
+    x = enc_embeds + _sinusoidal(s, cfg.d_model, device=enc_embeds.device)[None]
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    x, _ = _stack_fwd(params["encoder"]["layers"], cfg, x, positions,
+                      causal=False)
+    return _apply_norm(cfg, params["encoder"]["final_norm"], x)
+
+
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+               enc_embeds: torch.Tensor | None = None,
                last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (logits (B, S, V) f32, MoE aux loss summed over
     layers, 0.0 for a dense stack).  Attention goes through
-    ``ops.attention`` (the flash-attention kernel on the card).
+    ``ops.attention`` (the flash-attention kernel on the card).  An
+    encoder-decoder stack needs ``enc_embeds`` (B, S_enc, d): each decoder
+    layer attends to the encoder's output after its self-attention.
     ``last_only`` unembeds only the final position."""
     b, s = tokens.shape
     x = L.apply_embedding(params["embed"], tokens)
     if cfg.pos_embed == "sinusoidal":
         x = x + _sinusoidal(s, cfg.d_model, device=x.device)[None]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    x, aux = _stack_fwd(params["layers"], cfg, x, positions, causal=True)
+    enc_out = None
+    if cfg.is_enc_dec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
+                             "enc_embeds")
+        enc_out = encoder_forward(params, cfg, enc_embeds)
+    x, aux = _stack_fwd(params["layers"], cfg, x, positions, causal=True,
+                        enc_out=enc_out)
     x = _apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
@@ -165,40 +228,142 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 # -------------------------------------------------------------- decode
 
+class LayerCache(NamedTuple):
+    """One decoder layer's cache of an encoder-decoder stack: the
+    self-attention ``kv`` and the cross-attention keys and values,
+    contiguous rows (B, Hkv, S_enc, hd) or a paged bf16 pool (NBc, Hkv,
+    cbs, hd).  The cross fields are read-only in decode and prefill."""
+    kv: attn_mod.KVCache
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+
+
+def _kv(c) -> attn_mod.KVCache:
+    """The self-attention KV cache of one layer's entry."""
+    return c.kv if isinstance(c, LayerCache) else c
+
+
 def init_cache(params: dict, cfg: ModelConfig, batch: int, max_len: int, *,
-               quantized_kv: bool = False, block_size: int | None = None,
-               num_blocks: int | None = None, device="cuda") -> list:
-    """One KV cache per layer: with ``block_size``/``num_blocks`` a paged
+               quantized_kv: bool = False,
+               enc_embeds: torch.Tensor | None = None,
+               block_size: int | None = None,
+               num_blocks: int | None = None,
+               cross_block_size: int | None = None,
+               cross_num_blocks: int | None = None, device="cuda") -> list:
+    """One cache per layer: with ``block_size``/``num_blocks`` a paged KV
     pool (num_blocks, Hkv, block_size, hd), whose slot -> block mapping
     lives host-side in ``serving.kvcache``; otherwise contiguous rows
-    (batch, Hkv, min(max_len, sliding_window), hd)."""
-    del params
+    (batch, Hkv, min(max_len, sliding_window), hd).
+
+    An encoder-decoder stack gets a :class:`LayerCache` per layer.  Its
+    cross KV is by default computed here from ``enc_embeds`` (B_enc,
+    S_enc, d): the encoder runs once and each layer's K/V projections
+    become contiguous rows.  With ``cross_block_size`` /
+    ``cross_num_blocks`` it is instead an empty paged bf16 pool
+    (cross_num_blocks, Hkv, cross_block_size, hd) per layer, which
+    :func:`write_cross_kv` fills (the ASR engine encodes incrementally)."""
     _check_supported(cfg)
     if (block_size is None) != (num_blocks is None):
         raise ValueError("paged cache needs both block_size and num_blocks")
+    if (cross_block_size is None) != (cross_num_blocks is None):
+        raise ValueError("paged cross cache needs both cross_block_size "
+                         "and cross_num_blocks")
+    paged_cross = cross_block_size is not None
+    if paged_cross and not cfg.is_enc_dec:
+        raise ValueError("cross pool requested for a non-enc-dec config")
+    device = resolve_device(device)
     if block_size is not None:
-        return [attn_mod.init_paged_kv_cache(num_blocks, cfg, block_size,
-                                             quantized=quantized_kv,
-                                             device=device)
-                for _ in range(cfg.num_layers)]
-    return [attn_mod.init_kv_cache(batch, cfg, max_len, quantized=quantized_kv,
-                                   device=device)
-            for _ in range(cfg.num_layers)]
+        kvs = [attn_mod.init_paged_kv_cache(num_blocks, cfg, block_size,
+                                            quantized=quantized_kv,
+                                            device=device)
+               for _ in range(cfg.num_layers)]
+    else:
+        kvs = [attn_mod.init_kv_cache(batch, cfg, max_len,
+                                      quantized=quantized_kv, device=device)
+               for _ in range(cfg.num_layers)]
+    if not cfg.is_enc_dec:
+        return kvs
+    if paged_cross:
+        shape = (cross_num_blocks, cfg.num_kv_heads, cross_block_size, cfg.hd)
+        return [LayerCache(kv, torch.zeros(shape, dtype=torch.bfloat16,
+                                           device=device),
+                           torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=device))
+                for kv in kvs]
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder cache needs "
+                         "enc_embeds (or a paged cross pool)")
+    enc_out = encoder_forward(params, cfg, torch.as_tensor(enc_embeds,
+                                                           device=device))
+
+    def rows(lin):
+        return _split(apply_linear(lin, enc_out), cfg)
+
+    return [LayerCache(kv, rows(p["cross"]["wk"]), rows(p["cross"]["wv"]))
+            for kv, p in zip(kvs, params["layers"])]
+
+
+def _split(y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, Hkv*hd) -> (B, Hkv, S, hd)."""
+    b, s, _ = y.shape
+    return y.reshape(b, s, cfg.num_kv_heads, cfg.hd).transpose(1, 2)
+
+
+def write_cross_kv(params: dict, cfg: ModelConfig, enc_out: torch.Tensor,
+                   cross_table: torch.Tensor, cache: list) -> list:
+    """Project one request's encoder output (1, S_enc, d) into its cross
+    blocks: for every decoder layer the K/V projections are scattered, in
+    place, into the blocks ``cross_table`` (MBc,) int32 lists of that
+    layer's paged cross pool; the tail block's padding is zero (readers
+    mask positions >= ``enc_len``)."""
+    se = enc_out.shape[1]
+    cbs = cache[0].cross_k.shape[2]
+    mb = cross_table.shape[0]
+    idx = cross_table.long()
+
+    def to_blocks(y, pool):
+        t = _split(y, cfg)[0]                              # (Hkv, S_enc, hd)
+        t = F.pad(t, (0, 0, 0, mb * cbs - se))
+        t = t.reshape(cfg.num_kv_heads, mb, cbs, cfg.hd).transpose(0, 1)
+        return t.to(pool.dtype)
+
+    for p, c in zip(params["layers"], cache):
+        c.cross_k[idx] = to_blocks(apply_linear(p["cross"]["wk"], enc_out),
+                                   c.cross_k)
+        c.cross_v[idx] = to_blocks(apply_linear(p["cross"]["wv"], enc_out),
+                                   c.cross_v)
+    return cache
+
+
+def _block_cross(p: dict, cfg: ModelConfig, x: torch.Tensor, c: LayerCache,
+                 cross_tables: torch.Tensor | None) -> torch.Tensor:
+    """Cross-attention residual of decode and the fused prefill: through
+    the paged cross pool when ``cross_tables`` is given, else the
+    contiguous rows."""
+    h = _apply_norm(cfg, p["norm_x"], x)
+    if cross_tables is not None:
+        return x + attn_mod.cross_attention_paged(
+            p["cross"], cfg, h, cross_tables, c.cross_k, c.cross_v,
+            enc_len=cfg.encoder_seq)
+    return x + attn_mod.cross_attention_decode(p["cross"], cfg, h,
+                                               c.cross_k, c.cross_v)
 
 
 def _is_quantized(cache: list) -> bool:
-    return any(c.k_scale is not None for c in cache)
+    return any(_kv(c).k_scale is not None for c in cache)
 
 
 def lm_decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                    pos, cache: list, *,
-                   block_tables: torch.Tensor | None = None
+                   block_tables: torch.Tensor | None = None,
+                   cross_tables: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, list]:
     """token: (B, 1); pos: a scalar shared by all rows (an int, or a 0-d
     tensor) or (B,) int32 per-slot positions; ``block_tables`` (B, MB)
     int32 selects the paged cache (per-slot positions required), else
-    the cache is contiguous.  -> (logits (B, 1, V) f32, cache updated in
-    place)."""
+    the cache is contiguous.  ``cross_tables`` (B, MBc) int32 selects an
+    encoder-decoder stack's paged cross pool, else its contiguous cross
+    rows are read.  -> (logits (B, 1, V) f32, cache updated in place)."""
     _check_supported(cfg)
     x = L.apply_embedding(params["embed"], token)
     per_row = isinstance(pos, torch.Tensor) and pos.dim() > 0
@@ -207,11 +372,10 @@ def lm_decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         pos = attn_mod._as_int(pos)
         if block_tables is None:       # shared by every layer's cache
             pos_tensors = attn_mod.scalar_pos_tensors(
-                cfg, pos, token.shape[0], cache[0].capacity, x.device)
+                cfg, pos, token.shape[0], _kv(cache[0]).capacity, x.device)
     if cfg.pos_embed == "sinusoidal":
-        if per_row:
-            x = x + torch.stack([_sinusoidal(1, cfg.d_model, offset=int(o),
-                                             device=x.device) for o in pos])
+        if per_row:                    # one computation over the rows
+            x = x + _sinusoidal_at(pos.to(x.device), cfg.d_model)[:, None]
         else:
             x = x + _sinusoidal(1, cfg.d_model, offset=pos,
                                 device=x.device)[None]
@@ -219,11 +383,14 @@ def lm_decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     new = []
     for p, c in zip(params["layers"], cache):
         h = _apply_norm(cfg, p["norm1"], x)
-        y, c = attn_mod.attention_decode(p["attn"], cfg, h, pos, c, rope=rope,
-                                         block_tables=block_tables,
+        y, _ = attn_mod.attention_decode(p["attn"], cfg, h, pos, _kv(c),
+                                         rope=rope, block_tables=block_tables,
                                          pos_tensors=pos_tensors)
         new.append(c)
-        x, _ = _apply_ffn(p, cfg, x + y)
+        x = x + y
+        if "cross" in p:
+            x = _block_cross(p, cfg, x, c, cross_tables)
+        x, _ = _apply_ffn(p, cfg, x)
     x = _apply_norm(cfg, params["final_norm"], x)
     return L.apply_unembed(_head(params), x), new
 
@@ -249,12 +416,14 @@ def prefill_path(cfg: ModelConfig, *, quantized_kv: bool = False,
 
 def _lm_prefill_chunk_fused(params: dict, cfg: ModelConfig,
                             tokens: torch.Tensor, pos0, cache: list,
-                            block_tables: torch.Tensor, *,
+                            block_tables: torch.Tensor,
+                            cross_tables: torch.Tensor | None = None, *,
                             last_only: bool = True
                             ) -> tuple[torch.Tensor, list]:
     """The whole chunk as one forward over the paged pool per layer
     (``attention_prefill_paged``); an MoE layer routes the chunk as one
-    group of T tokens.  Returns the
+    group of T tokens, and an encoder-decoder layer adds one
+    chunk-at-once cross-attention read.  Returns the
     last position's logits (1, 1, V), or every position's (1, C, V) with
     ``last_only=False`` (verification needs the target's choice after
     each proposed token)."""
@@ -267,10 +436,14 @@ def _lm_prefill_chunk_fused(params: dict, cfg: ModelConfig,
     new = []
     for p, c in zip(params["layers"], cache):
         h = _apply_norm(cfg, p["norm1"], x)
-        y, c = attn_mod.attention_prefill_paged(p["attn"], cfg, h, pos0, c,
-                                                block_tables, rope=rope)
+        y, _ = attn_mod.attention_prefill_paged(p["attn"], cfg, h, pos0,
+                                                _kv(c), block_tables,
+                                                rope=rope)
         new.append(c)
-        x, _ = _apply_ffn(p, cfg, x + y)
+        x = x + y
+        if "cross" in p:
+            x = _block_cross(p, cfg, x, c, cross_tables)
+        x, _ = _apply_ffn(p, cfg, x)
     x = _apply_norm(cfg, params["final_norm"], x[:, -1:] if last_only else x)
     return L.apply_unembed(_head(params), x), new
 
@@ -284,6 +457,7 @@ def _chunk_positions(pos0, b: int, device) -> torch.Tensor:
 
 def lm_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                      pos0, cache: list, *, block_tables: torch.Tensor,
+                     cross_tables: torch.Tensor | None = None,
                      fused: bool = True) -> tuple[torch.Tensor, list]:
     """Prefill of one chunk: tokens (B, C) at positions pos0 .. pos0+C-1
     (pos0: (B,) int tensor, or an int for B = 1); returns the last
@@ -292,24 +466,29 @@ def lm_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     * **fused** (default when eligible, batch 1): one fused paged-prefill
       kernel per layer, causal within the chunk, KV written in place.
     * **decode-step scan**: :func:`lm_decode_step` once per token, the
-      reference oracle and the ``fused=False`` path."""
+      reference oracle and the ``fused=False`` path.
+
+    ``cross_tables`` (1, MBc) selects an encoder-decoder stack's paged
+    cross pool, as in :func:`lm_decode_step`."""
     _check_supported(cfg)
     b, c = tokens.shape
     if prefill_path(cfg, quantized_kv=_is_quantized(cache), batch=b,
                     fused=fused) == "fused":
         return _lm_prefill_chunk_fused(params, cfg, tokens, pos0, cache,
-                                       block_tables)
+                                       block_tables, cross_tables)
     pos = _chunk_positions(pos0, b, tokens.device)
     logits = None
     for i in range(c):
         logits, cache = lm_decode_step(params, cfg, tokens[:, i:i + 1],
                                        pos + i, cache,
-                                       block_tables=block_tables)
+                                       block_tables=block_tables,
+                                       cross_tables=cross_tables)
     return logits, cache
 
 
 def lm_verify_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     pos0, cache: list, *, block_tables: torch.Tensor,
+                    cross_tables: torch.Tensor | None = None,
                     fused: bool = True) -> tuple[torch.Tensor, list]:
     """Verification launch for speculative decoding: tokens (B, C) at
     positions pos0 .. pos0+C-1 -> (logits (B, C, V), cache).
@@ -325,32 +504,45 @@ def lm_verify_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if prefill_path(cfg, quantized_kv=_is_quantized(cache), batch=b,
                     fused=fused) == "fused":
         return _lm_prefill_chunk_fused(params, cfg, tokens, pos0, cache,
-                                       block_tables, last_only=False)
+                                       block_tables, cross_tables,
+                                       last_only=False)
     pos = _chunk_positions(pos0, b, tokens.device)
     logits = []
     for i in range(c):
         lg, cache = lm_decode_step(params, cfg, tokens[:, i:i + 1], pos + i,
-                                   cache, block_tables=block_tables)
+                                   cache, block_tables=block_tables,
+                                   cross_tables=cross_tables)
         logits.append(lg[:, 0])
     return torch.stack(logits, dim=1), cache
 
 
 # ---------------------------------------------------- slot cache surgery
-# The reference carves a batch-1 view of recurrent and cross rows out of
-# the slot-batched cache for chunked prefill.  A pure-attention paged
-# cache has no per-slot rows (the block table isolates the slot), so
-# these are the identity.
+# Chunked prefill runs at batch 1 for the slot being admitted.  Paged KV
+# pools need no carving (the block table isolates the slot); contiguous
+# cross rows are sliced to the slot's row (a view); there are no
+# recurrent states to reset yet.
 
-def cache_slot_view(cache: list, slot) -> list:
-    del slot
+def cache_slot_view(cache: list, slot: int, *,
+                    paged_cross: bool = False) -> list:
+    """Batch-1 view of ``slot``'s rows.  ``paged_cross`` passes a paged
+    cross pool through (the slot's cross-table row isolates it)."""
+    if paged_cross:
+        return cache
+    return [c._replace(cross_k=c.cross_k[slot:slot + 1],
+                       cross_v=c.cross_v[slot:slot + 1])
+            if isinstance(c, LayerCache) else c for c in cache]
+
+
+def cache_slot_merge(cache: list, local: list, slot: int) -> list:
+    """Fold a batch-1 view back: the KV pools were updated in place and
+    cross KV is read-only, so the full cache is the result."""
+    del local, slot
     return cache
 
 
-def cache_slot_merge(cache: list, local: list, slot) -> list:
-    del cache, slot
-    return local
-
-
-def cache_slot_reset(cache: list, slot) -> list:
+def cache_slot_reset(cache: list, slot: int) -> list:
+    """A freshly admitted slot inherits nothing from its previous
+    occupant: paged KV is masked by position, and the port has no
+    recurrent states yet."""
     del slot
     return cache

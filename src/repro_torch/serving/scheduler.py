@@ -56,9 +56,10 @@ target's model programs (one per fused chunk or verify, one per scanned
 token, one per decode quantum) and ``draft_launches`` the draft's.
 
 Construction takes ``config=EngineConfig(lm=LMEngineConfig(...))`` or
-the loose kwargs; explicit kwargs win over the config.
-
-Not ported yet: encoder inputs (``enc_embeds``, the enc-dec slice).
+the loose kwargs; explicit kwargs win over the config.  An
+encoder-decoder model takes ``enc_embeds`` (slots, S_enc, d): the encoder
+runs once at construction into contiguous cross rows, one per slot (the
+streaming path with a paged cross pool is ``engine.asr_engine``).
 """
 from __future__ import annotations
 
@@ -196,6 +197,7 @@ class ContinuousBatcher(ev.EventStreamMixin):
     def __init__(self, params: Any, cfg: ModelConfig, *,
                  config: EngineConfig | None = None,
                  slots: int = UNSET, max_len: int = UNSET,
+                 enc_embeds=UNSET,
                  decode_fn: Callable | None = UNSET,
                  quantized_kv: bool = UNSET,
                  weight_quant: str | None = UNSET,
@@ -211,7 +213,8 @@ class ContinuousBatcher(ev.EventStreamMixin):
                  cost_model=UNSET, metrics=UNSET,
                  device="cuda"):
         self.config, lmc = resolve(config, "lm", dict(
-            slots=slots, max_len=max_len, decode_fn=decode_fn, quantized_kv=quantized_kv,
+            slots=slots, max_len=max_len, enc_embeds=enc_embeds,
+            decode_fn=decode_fn, quantized_kv=quantized_kv,
             weight_quant=weight_quant, block_size=block_size,
             prefill_chunk=prefill_chunk, prefix_share=prefix_share,
             extra_blocks=extra_blocks, fused_prefill=fused_prefill,
@@ -253,6 +256,7 @@ class ContinuousBatcher(ev.EventStreamMixin):
         self.runtime.copy_block = self._copy_block
         self.cache = init_cache(params, cfg, slots, max_len,
                                 quantized_kv=quantized_kv,
+                                enc_embeds=lmc.enc_embeds,
                                 block_size=block_size,
                                 num_blocks=self.runtime.num_blocks,
                                 device=self.device)

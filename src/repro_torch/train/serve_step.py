@@ -3,7 +3,10 @@ generation loop (``repro.train.serve_step``).
 
 The reference's plain generation path on a contiguous KV cache: the
 prompt is fed one token at a time through :func:`make_decode`'s step,
-then greedy tokens follow.  On the card each step's bf16-cache attention
+then greedy tokens follow.  An encoder-decoder model takes
+``enc_embeds`` (the stub frontend's frame embeddings): ``make_prefill``
+reads them from its batch, ``make_cache`` runs the encoder once into
+contiguous cross rows.  On the card each step's bf16-cache attention
 is the ``flash_decode`` kernel and a quantized linear its matmul kernel;
 the step position is a host int and the next token stays on the card, so
 the loop never waits on the device.  Every factory runs on the card
@@ -22,13 +25,18 @@ from repro_torch.models.transformer import init_cache, lm_decode_step, lm_forwar
 
 
 def make_prefill(cfg: ModelConfig, *, device="cuda"):
-    """``prefill(params, {"tokens": (B, S)}) -> (B, V)`` f32 logits of the
-    last position (the head runs on that position only)."""
+    """``prefill(params, {"tokens": (B, S)[, "enc_embeds": (B, S_enc, d)]})
+    -> (B, V)`` f32 logits of the last position (the head runs on that
+    position only)."""
     device = resolve_device(device)
 
     def prefill(params, batch: dict[str, Any]) -> torch.Tensor:
         tokens = torch.as_tensor(batch["tokens"], device=device)
-        logits, _ = lm_forward(params, cfg, tokens, last_only=True)
+        enc = batch.get("enc_embeds")
+        if enc is not None:
+            enc = torch.as_tensor(enc, device=device)
+        logits, _ = lm_forward(params, cfg, tokens, enc_embeds=enc,
+                               last_only=True)
         return logits[:, -1]
     return prefill
 
@@ -48,23 +56,27 @@ def make_decode(cfg: ModelConfig, *, device="cuda"):
 
 
 def make_cache(params, cfg: ModelConfig, batch: int, max_len: int, *,
-               quantized_kv: bool = False, device="cuda") -> list:
+               quantized_kv: bool = False, enc_embeds=None,
+               device="cuda") -> list:
     """One contiguous (bf16, or Q8_0 with ``quantized_kv``) KV cache per
-    layer, ``min(max_len, sliding_window)`` slots per row."""
+    layer, ``min(max_len, sliding_window)`` slots per row; with
+    ``enc_embeds`` each layer also holds its cross rows."""
     return init_cache(params, cfg, batch, max_len, quantized_kv=quantized_kv,
-                      device=device)
+                      enc_embeds=enc_embeds, device=device)
 
 
 def greedy_generate(params, cfg: ModelConfig, prompt, steps: int, *,
-                    max_len: int = 0, device="cuda") -> torch.Tensor:
+                    max_len: int = 0, enc_embeds=None,
+                    device="cuda") -> torch.Tensor:
     """Reference generation loop (prefill via repeated decode): returns
     (B, S + steps) int32 tokens, the prompt followed by ``steps`` greedy
-    tokens."""
+    tokens.  An encoder-decoder model needs ``enc_embeds``."""
     device = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=device).to(torch.int32)
     b, s = prompt.shape
     max_len = max_len or (s + steps)
-    cache = make_cache(params, cfg, b, max_len, device=device)
+    cache = make_cache(params, cfg, b, max_len, enc_embeds=enc_embeds,
+                       device=device)
     decode = make_decode(cfg, device=device)
     tok = prompt[:, :1]
     out = [tok]

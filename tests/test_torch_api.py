@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
 
-* Importing ``repro_torch`` and driving its engines, the router, a fleet
-  with a cost model and telemetry, and ``launch/serve.py`` leaves ``jax``
-  and ``repro`` out of ``sys.modules`` (checked in a fresh interpreter).
+* Importing ``repro_torch`` and driving its engines (the ASR engine and
+  the audio frontend too), the router, a fleet with a cost model and
+  telemetry, and ``launch/serve.py`` (``--asr`` too) leaves ``jax`` and
+  ``repro`` out of ``sys.modules`` (checked in a fresh interpreter).
 * Without a cost model and metrics the engines never synchronise the
   device; the observation sync is ``torch.cuda.synchronize`` on a card.
 * No file of the package, and not ``chip_smoke.py``, imports ``jax`` or
@@ -87,6 +88,18 @@ def test_import_and_engine_leave_jax_unloaded():
         "    '--slots', '2', '--requests', '2', '--gen', '2', '--admission',\n"
         "    '--replicas', '2', '--deadline-ms', '60000']\n"
         "S.main()\n"
+        "import repro_torch.engine.asr_engine, repro_torch.models.frontend as F\n"
+        "from repro_torch.engine import AsrEngine, TranscribeRequest\n"
+        "wcfg = reduced(get_config('whisper-large-v3'))\n"
+        "wp = T.init_lm(torch.Generator().manual_seed(0), wcfg)\n"
+        "asr = AsrEngine(wp, wcfg, slots=2, max_len=8, audio_chunk=32, device='cpu')\n"
+        "a = F.synthetic_audio(torch.Generator().manual_seed(1), wcfg)\n"
+        "for i in range(3):\n"
+        "    asr.submit(TranscribeRequest(rid=i, audio=a, prompt=[1, 2], max_new=3))\n"
+        "assert len(asr.run()) == 3 and asr.audio_hits == 1\n"
+        "sys.argv = ['serve', '--arch', 'whisper-large-v3', '--asr', '--device', 'cpu',\n"
+        "    '--slots', '2', '--requests', '3', '--gen', '2']\n"
+        "S.main()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n")
@@ -157,12 +170,14 @@ def test_modules_run_the_functions():
 
 def test_engines_add_no_device_sync_without_cost_model_or_metrics(monkeypatch):
     """``torch.cuda.synchronize`` patched with a counter: a router over
-    both engines and a fleet, run with ``cost_model=None, metrics=None``,
-    never call it; the engines' observation sync calls it on a CUDA
-    device and not on the CPU."""
+    the three engines and a fleet, run with ``cost_model=None,
+    metrics=None``, never call it; the engines' observation sync calls it
+    on a CUDA device and not on the CPU."""
     import repro_torch
     from repro_torch.configs import get_config, reduced
-    from repro_torch.engine import (EngineRouter, FleetManager, ReplicaSpec)
+    from repro_torch.engine import (AsrEngine, EngineRouter, FleetManager,
+                                    ReplicaSpec, TranscribeRequest)
+    from repro_torch.models.frontend import synthetic_audio
     from repro_torch.models.transformer import init_lm
     from repro_torch.serving import ContinuousBatcher, Request
     calls = []
@@ -171,14 +186,21 @@ def test_engines_add_no_device_sync_without_cost_model_or_metrics(monkeypatch):
     cfg = reduced(get_config("granite-8b"))
     lm = init_lm(torch.Generator().manual_seed(0), cfg)
     sd = init_pipeline(0, TINY_SD, device="cpu")
+    wcfg = reduced(get_config("whisper-large-v3"))
+    wp = init_lm(torch.Generator().manual_seed(0), wcfg)
     router = EngineRouter(
         diffusion=DiffusionEngine(sd, TINY_SD, device="cpu", max_batch=2),
-        lm=ContinuousBatcher(lm, cfg, max_len=16, device="cpu"))
+        lm=ContinuousBatcher(lm, cfg, max_len=16, device="cpu"),
+        asr=AsrEngine(wp, wcfg, slots=1, max_len=8, audio_chunk=24, device="cpu"))
     router.submit(GenerateRequest(rid=0, tokens=[1] * 77))
     router.submit(GenerateRequest(rid=1, tokens=[2] * 77, sampler="euler",
                                   steps=2, preview_every=1, preview_decode=True))
     router.submit(Request(rid=2, prompt=[3] * 9, max_new=3))
-    assert len(router.run()) == 3
+    audio = synthetic_audio(torch.Generator().manual_seed(1), wcfg)
+    for rid in (3, 4):
+        router.submit(TranscribeRequest(rid=rid, audio=audio, prompt=[1, 2],
+                                        max_new=3))
+    assert len(router.run()) == 5 and router.asr.audio_hits == 1
     fleet = FleetManager([ReplicaSpec(n, lambda: ContinuousBatcher(
         lm, cfg, max_len=16, device="cpu")) for n in "ab"],
         watchdog_threshold=1e9)

@@ -412,5 +412,16 @@ def test_replicas_share_one_weight_tree(weights):
     fleet.run()
     assert fleet.stats()["replacements"] == [("a", "a~0")]
     assert fleet._by_name("a~0").engine.params["embed"].w is tlm["embed"].w
-    with pytest.raises(NotImplementedError, match="ASR"):
-        ReplicaSpec("x", params=tlm, model_cfg=TCFG, engine="asr").make()
+    # The ASR engine builds from a spec; a decoder-only model is refused
+    # with the reference's ValueError.
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.engine import AsrEngine, AsrEngineConfig
+    from repro_torch.models.transformer import init_lm
+    wcfg = reduced(get_config("whisper-large-v3"))
+    aconf = EngineConfig(asr=AsrEngineConfig(slots=1, max_len=8))
+    asr = ReplicaSpec("x", params=init_lm(torch.Generator().manual_seed(0), wcfg),
+                      model_cfg=wcfg, engine="asr", config=aconf, device="cpu").make()
+    assert isinstance(asr, AsrEngine) and len(asr.slots) == 1
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        ReplicaSpec("x", params=tlm, model_cfg=TCFG, engine="asr", config=aconf,
+                    device="cpu").make()

@@ -261,16 +261,13 @@ def test_cancel_routes_to_the_owner_and_rids_are_unique(weights):
 
 
 def test_transcribe_without_asr_engine_raises(weights):
+    from repro_torch.engine import TranscribeRequest
     (_, _, _), (tr, _, _) = _routers(weights)
-
-    @dataclasses.dataclass
-    class TranscribeRequest:
-        rid: int
-
+    req = TranscribeRequest(rid=3, audio=torch.zeros((32, 64)), prompt=[1])
     with pytest.raises(ValueError, match="no engine for TranscribeRequest"):
-        tr.submit(TranscribeRequest(rid=3))
+        tr.submit(req)
     with pytest.raises(ValueError, match="no engine for adopted"):
-        tr.adopt(TranscribeRequest(rid=3))
+        tr.adopt(req)
 
 
 def test_engine_protocol_and_bus_rebinding(weights):

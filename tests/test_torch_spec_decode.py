@@ -363,7 +363,17 @@ def test_kwargs_and_engine_config_build_the_same_engine(weights):
     over = TCB(weights["target"][1], TCFG, device="cpu", slots=3,
                config=EngineConfig(lm=LMEngineConfig(slots=1, max_len=8)))
     assert len(over.slots) == 3 and over.max_len == 8
-    with pytest.raises(NotImplementedError, match="ASR"):
-        build_engine("asr", None, TCFG)
+    # build_engine("asr") builds the ASR engine; a decoder-only model is
+    # refused with the reference's ValueError.
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.engine import AsrEngine, AsrEngineConfig
+    from repro_torch.models.transformer import init_lm
+    wcfg = reduced(get_config("whisper-large-v3"))
+    aconf = EngineConfig(asr=AsrEngineConfig(max_len=8))
+    asr = build_engine("asr", init_lm(torch.Generator().manual_seed(0), wcfg), wcfg,
+                       aconf, device="cpu")
+    assert isinstance(asr, AsrEngine) and asr.max_len == 8
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        build_engine("asr", weights["target"][1], TCFG, aconf, device="cpu")
     with pytest.raises(ValueError, match="unknown engine kind"):
         build_engine("tts", None, TCFG)

@@ -4,16 +4,16 @@
     python3 tools/decode_limit_sweep.py [--seeds 0-39] [--shared]
 
 For each seed, a generator seeded with it draws ``chip_smoke``'s
-``FLASH_DECODE_SHAPES + FLASH_DECODE_EDGE`` in order, as ``phase_kernels``
+``FLASH_DECODE_SHAPES + FLASH_DECODE_EDGE + ASR_FLASH_DECODE`` in order, as ``phase_kernels``
 draws them from its ``flash_decode`` generator (whose seed is always among
 the seeds).  ``--shared`` also draws them from one generator seeded
 ``SEED`` after the inputs of the ``flash_attention`` and quantized-matmul
 cases, in ``phase_kernels``' order: the inputs of a run where all kernels
 shared one generator.  Each case is held as ``chip_smoke`` holds it: within
-ATTN_ABS + ATTN_REL * |plain|, plus ``ATTN_P_ROUND * max|v|`` for a case
-of at most ``FEW_KEYS`` keys, which must also be no more than ATTN_ABS
-further than the plain version from an f64 softmax of the same bf16 q, k,
-v.  For every case that fails either check it prints by how much, both
+ATTN_ABS + ATTN_REL * |plain|, plus ``ATTN_P_ROUND * max|v|`` of each row
+for a case of at most ``FEW_KEYS`` keys, which must also be no more than
+ATTN_ABS further than the plain version from an f64 softmax of the same
+bf16 q, k, v (``chip_smoke.few_key_rule`` and ``few_key_excess``).  For every case that fails either check it prints by how much, both
 versions' distances from the f64 softmax, and the excess the limit would
 have without the few-key allowance.  The last line is a JSON object with
 the cases checked and those that failed.  It needs one card.
@@ -75,30 +75,28 @@ def main() -> int:
         runs.append((f"shared seed {cs.SEED}", gen))
     checked, over, few = 0, [], 0
     for label, gen in runs:
-        for case in cs.FLASH_DECODE_SHAPES + cs.FLASH_DECODE_EDGE:
+        for case in cs.FLASH_DECODE_SHAPES + cs.FLASH_DECODE_EDGE + cs.ASR_FLASH_DECODE:
             q, k, v, kv_len, scale = cs.flash_decode_inputs(case, gen)
             out = fd.flash_decode(q, k, v, kv_len, scale=scale).float()
             ref = fd.flash_decode_ref(q, k, v, kv_len, scale=scale).float()
             checked += 1
-            n = case[-1]
-            p_round = cs.flash_decode_p_round(case, v)
+            p_round, exact = cs.few_key_rule(q, k, v, kv_len.expand(q.shape[0]), scale)
             diff = (out - ref).abs()
-            excess_plain = (diff - cs.ATTN_ABS - cs.ATTN_REL * ref.abs()).max().item()
-            excess = excess_plain - p_round
-            f64_excess = float("-inf")
-            if n <= cs.FEW_KEYS:
+            slack = diff - cs.ATTN_ABS - cs.ATTN_REL * ref.abs()
+            excess_plain = slack.max().item()
+            excess = (slack - p_round[:, None, None, None]).max().item()
+            f64_excess, kern_f64, plain_f64 = (
+                t.item() for t in cs.few_key_excess(out, ref, exact))
+            if case[-1] <= cs.FEW_KEYS:
                 few += 1
-                exact = cs.flash_decode_f64(q, k, v, n, scale)
-                f64_excess = ((out.double() - exact).abs().max().item()
-                              - (ref.double() - exact).abs().max().item() - cs.ATTN_ABS)
+            else:
+                f64_excess = float("-inf")
             if excess <= 0 and f64_excess <= 0:
                 continue
-            exact = cs.flash_decode_f64(q, k, v, n, scale)
             row = {"inputs": label, "case": case, "excess": excess,
                    "excess_without_p_round": excess_plain,
                    "f64_excess": f64_excess, "max_abs_err": diff.max().item(),
-                   "kernel_from_f64": (out.double() - exact).abs().max().item(),
-                   "plain_from_f64": (ref.double() - exact).abs().max().item()}
+                   "kernel_from_f64": kern_f64, "plain_from_f64": plain_f64}
             over.append(row)
             print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
