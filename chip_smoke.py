@@ -63,6 +63,16 @@ caught and passed over):
              prefill and the paged decode at Hkv 20, G 1, hd 64 (every row
              of at most FEW_KEYS keys: the contiguous decode's few-key rule,
              row by row).
+             full_ssm's shapes follow those: flash_attention at jamba's (2,
+             64, 39, 39, 128) and (1, 64, 55, 55, 128), causal; q8_matmul at
+             xlstm-1.3b's linears, (2048, 2048), the gates' N = 4 and the
+             head N = 50304, at M = 4 and 1 (decode path) and 188 (tile
+             path); q3k_matmul at jamba's Mamba, attention and MLP linears
+             (x_proj's N = 544, dt_proj's K = 512) at M = 2, 4 and 1 and 78;
+             the batched q3k entry at jamba's 16 experts of 24576 (M = 2, 4,
+             1 and 12 per expert); flash_decode at Hkv 8, G 8, hd 128 on a
+             40-slot cache and flash_decode_paged at the same widths, block
+             16 (every case of at most FEW_KEYS keys).
 4. tiny    — TINY_SD with the same seeded weights and noise on the CPU
              (plain versions) and on the card (kernels); images must agree,
              on the fused path and on the segmented preview path (euler,
@@ -193,11 +203,61 @@ caught and passed over):
              ``CostModel``: a 1 ms request Rejected at submit, another with
              the bare engine's transcript.
 
+12. full_ssm — after tiny_ssm (reduced(xlstm-1.3b) under q8_0 and
+             reduced(jamba-1.5-large) under q3_k on the CPU and the card:
+             greedy_generate and a 2-slot ContinuousBatcher give identical
+             tokens, with exact launches), xlstm-1.3b at full size (48 layers:
+             42 mLSTM + 6 sLSTM, d 2048, 4 heads of 512, vocab 50304) under
+             q8_0 and none: greedy_generate of 16 tokens after 32 at 4 rows
+             (exact launches: 325 q8_matmul per step under q8_0), its
+             synchronised make_decode replay (the same tokens, ms per step),
+             under q8_0 a plain replay with every q8_matmul routed to its
+             plain version and the kernel held to it on the last step's 325
+             calls, and an f32 replay (the same weights widened or
+             dequantized, f32 activations: the witness, itself within
+             GEN_LOGIT_TOL of lm_forward in f32); the kernel replay
+             against the plain one and the replay against lm_forward (the
+             parallel mLSTM form) are each held one-sided to the witness,
+             as the few-key rule is: the first no more than GEN_LOGIT_TOL
+             further from it in a logit than the second, and flipping no
+             argmax at a witness margin more than GEN_TIE_MARGIN wider than
+             the widest the second flips (at 48 layers two bf16 roundings
+             of one path differ by about 1 in a logit); every recurrent
+             layer's two forms on lm_forward's own inputs within
+             SSM_LAYER_REL of its largest output; then
+             ContinuousBatcher(4 slots, block 16, chunk 16) over 6 requests
+             of 24-64 prompt tokens and 16 new
+             (two in recycled slots): events, exact launches (the scan
+             prefill: one forward per prompt token), each request's tokens
+             and logits the bits of the same request alone in a fresh
+             batcher (the reset at full width), and each request against a
+             replay of it alone from a zeroed state (GEN_LOGIT_TOL,
+             GEN_TIE_MARGIN; the reference's reset: an sLSTM served this
+             way differs from greedy_generate by design).  Then
+             jamba-1.5-large at full width (d 8192, 64/8 heads of 128, 16
+             experts of 24576 top-2, vocab 65536) and one period of its 72
+             layers (attention + 7 Mamba, MoE on positions 0/2/4/6), weights
+             drawn and quantized to q3_k layer by layer on the card:
+             greedy_generate of 8 tokens after 32 at 2 rows (exact launches:
+             56 q3k_matmul, 1 q8_matmul and 1 flash_decode per step), the
+             replay with every batched expert launch of its last step held
+             to its plain version, tokens against lm_forward with a capacity
+             that drops nothing (``_no_drops``: lm_forward drops tokens by
+             design at 1.25) within JAMBA_LOGIT_TOL / GEN_TIE_MARGIN, and
+             the control, lm_forward at 1.25, beyond JAMBA_LOGIT_TOL; each
+             Mamba layer's two forms within SSM_LAYER_REL; then
+             ContinuousBatcher(4 slots) over 5
+             requests of 24-48 tokens and 8 new (events, exact launches,
+             tokens against lm_forward likewise).  Logged: ms per
+             synchronised decode step and decode quantum, ms per
+             scan-prefill token, a profile of one decode step and one decode
+             quantum, peak memory, the phase's seconds.
+
 Progress goes to stderr.  Standard output gets three lines at the end of
 a run that passed: the card's name and power limit as ``nvidia-smi``
 gives them, a JSON object ``{"kernels": [...]}`` (per kernel: launches
 on the main paths, phases full, full_lm, full_gen, full_router,
-full_fleet, full_moe and full_asr, and for
+full_fleet, full_moe, full_asr and full_ssm, and for
 ``q8_matmul_w8a8`` through its entry point; worst error; the headline
 shape's times and bound), and ``{"ok": true, "device": {...}}``.
 """
@@ -270,6 +330,11 @@ ATTN_LM_SHAPES = [(4, 32, 128, 128, 128, True, None),
 ATTN_ASR_SHAPES = [(1, 20, 1500, 1500, 64, False, None),
                    (2, 20, 4, 1500, 64, False, None),
                    (2, 20, 4, 4, 64, True, None)]
+# jamba-1.5-large (phase full_ssm): its one attention layer (64 heads of
+# 128, KV heads repeated from 8) through lm_forward over greedy_generate's
+# 2 rows of 39 tokens, and over one served request of 55 (the LM shapes'
+# allowance: the first causal rows see a handful of keys).
+ATTN_SSM_SHAPES = [(2, 64, 39, 39, 128, True, None), (1, 64, 55, 55, 128, True, None)]
 ATTN_EDGE = [
     (1, 2, 100, 300, 48, True, 50),        # Sq < Sk, causal + window
     (1, 2, 130, 70, 16, True, None),       # Sq > Sk: rows with no key -> 0
@@ -318,6 +383,25 @@ ASR_Q8_SHAPES = [(1500, 1280, 1280), (1500, 5120, 1280), (1500, 1280, 5120),
                  (4, 1280, 1280), (4, 5120, 1280), (4, 1280, 5120),
                  (4, 51866, 1280)]
 ASR_Q8_EDGE = [(35, 51866, 1280)]
+# xlstm-1.3b's linears under q8_0 (phase full_ssm): every linear of its
+# mLSTM and sLSTM blocks is (2048, 2048) but mLSTM's input and forget
+# gates, N = 4 (one row per head: the N tail's extreme); the untied head
+# N = 50304.  At 4 decode rows (greedy_generate, the 4-slot batcher), at 1
+# (the batcher's scan prefill), and on the tile path at lm_forward's 4 x 47
+# rows.
+SSM_Q8_SHAPES = [(4, 2048, 2048), (4, 4, 2048), (4, 50304, 2048)]
+SSM_Q8_EDGE = [(1, 2048, 2048), (1, 4, 2048), (188, 2048, 2048), (188, 4, 2048),
+               (188, 50304, 2048)]
+# jamba-1.5-large's linears under q3_k (phase full_ssm): Mamba's in_proj,
+# x_proj (N = dt_rank 512 + 2 x 16 = 544), dt_proj (K = 512) and out_proj;
+# attention's q/o and k/v; the MLP's up/gate and down.  At greedy_generate's
+# 2 decode rows, the batcher's 4 slots and its batch-1 scan prefill, and on
+# the tile path at lm_forward's 2 x 39 rows.
+JAMBA_NK = [(32768, 8192), (544, 16384), (16384, 512), (8192, 16384),
+            (8192, 8192), (1024, 8192), (24576, 8192), (8192, 24576)]
+SSM_Q3K_SHAPES = [(2, n, k) for n, k in JAMBA_NK]
+SSM_Q3K_EDGE = ([(4, n, k) for n, k in JAMBA_NK[:2]] + [(1, 544, 16384)]
+                + [(78, n, k) for n, k in JAMBA_NK])
 Q3K_SHAPES = [(4096, 320, 1280), (256, 1280, 1280), (154, 768, 768),
               (64, 1280, 5120)] + LM_MATMUL_SHAPES + LM_DECODE_SHAPES + LM_CHUNK_SHAPES
 Q3K_EDGE = [(5, 100, 512), (3, 70, 256),         # one super-block, one warp
@@ -349,6 +433,13 @@ Q8_EXPERT_SHAPES = [(64, 4, 1408, 2048), (64, 4, 2048, 1408),
 Q8_EXPERT_EDGE = [(4, 1, 70, 96), (4, 17, 70, 96)]
 Q3K_EXPERT_SHAPES = [(64, 4, 1408, 2048), (64, MOE_CHUNK_CAP, 1408, 2048)]
 Q3K_EXPERT_EDGE = [(4, 1, 70, 256), (4, 17, 70, 256)]
+# jamba-1.5-large's MoE layers (16 experts of 24576, top-2) under q3_k: up
+# and gate (N 24576, K 8192) and down (N 8192, K 24576) at greedy_generate's
+# 2 decode rows per expert, the batcher's 4 and 1, and lm_forward's capacity
+# of 2 groups x int(1.25 * 39 * 2 / 16) = 12 rows.
+JAMBA_EXPERT_SHAPES = [(16, 2, 24576, 8192), (16, 2, 8192, 24576)]
+JAMBA_EXPERT_EDGE = [(16, 4, 24576, 8192), (16, 1, 8192, 24576), (16, 12, 24576, 8192),
+                     (16, 12, 8192, 24576)]
 W8A8_EDGE = [(4, 1000, 4128), (5, 70, 96),   # K/32 = 129 and 3: a partial K stage
              (16, 70, 96), (17, 70, 96),     # the path cut
              (129, 100, 4128)]               # ragged tiles and a partial K stage
@@ -364,6 +455,10 @@ FLASH_DECODE_EDGE = [(4, 8, 4, 128, 2048, 1), (4, 8, 4, 128, 2048, 2048),
 # of 64, G = 1, a 20-slot cache (4-token prompt + 16 new) read at 1, 4 and
 # 19 keys; every case of at most FEW_KEYS keys.
 ASR_FLASH_DECODE = [(2, 20, 1, 64, 20, n) for n in (19, 1, 4)]
+# jamba-1.5-large's greedy_generate (phase full_ssm): 2 rows, 8 KV heads of
+# 128, G = 8, a 40-slot cache (32-token prompt + 8 new) read at 39, 1 and
+# 32 keys; every case of at most FEW_KEYS keys.
+SSM_FLASH_DECODE = [(2, 8, 8, 128, 40, n) for n in (39, 1, 32)]
 
 # Paged attention at Granite-8B's widths (Hkv 8, G 4, hd 128, bs 16).
 # Prefill: (T, pos0, MB, window, poison); the first two are the main path's
@@ -404,6 +499,11 @@ PAGED_WIDTHS = (PAGED_HKV, PAGED_G, PAGED_HD, PAGED_BS)
 ASR_WIDTHS = (20, 1, 64, 16)
 ASR_PREFILL = [(4, 0, 3, None, True), (4, 30, 3, None, True)]
 ASR_DECODE = [((34, 20, 5, 0), 3, None, True), ((3, 15, 16, 33), 3, None, True)]
+# jamba-1.5-large's attention layer in the batcher (phase full_ssm): 8 KV
+# heads of 128, G = 8, block 16, 55 positions per slot (4 blocks), 4 slots
+# with an idle row, positions at both ends of a block; at most FEW_KEYS keys.
+SSM_WIDTHS = (8, 8, 128, 16)
+SSM_DECODE = [((54, 30, 5, 0), 4, None, True), ((15, 16, 47, 31), 4, None, True)]
 
 # Launches per batch (one CLIP pass, one UNet eval, one VAE pass), worked
 # out from the code: CLIP 12 layers x (1 attention, 6 linears); UNet 16
@@ -533,7 +633,8 @@ def _attn_case(shape, gen, timed: bool) -> dict:
     torch.cuda.synchronize()
     diff = (out.float() - want.float()).abs()
     err = diff.max().item()
-    lm_rows = shape in ATTN_LM_SHAPES or (causal and shape in ATTN_ASR_SHAPES)
+    lm_rows = (shape in ATTN_LM_SHAPES + ATTN_SSM_SHAPES
+               or (causal and shape in ATTN_ASR_SHAPES))
     atol = ATTN_ABS + (ATTN_P_ROUND * v.float().abs().max().item() if lm_rows else 0.0)
     excess = (diff - atol - ATTN_REL * want.float().abs()).max().item()
     if not excess <= 0:
@@ -797,33 +898,44 @@ def phase_kernels() -> dict[str, list[dict]]:
     rows = {kind: [] for kind in KERNEL_SEED_OFFSET}
     # Each kernel's later slices' cases follow its earlier ones, so that
     # they change none of the earlier cases' inputs.
-    for shape in ATTN_SHAPES + ATTN_LM_SHAPES + ATTN_EDGE + ATTN_ASR_SHAPES:
+    for shape in (ATTN_SHAPES + ATTN_LM_SHAPES + ATTN_EDGE + ATTN_ASR_SHAPES
+                  + ATTN_SSM_SHAPES):
         rows["flash_attention"].append(
             _attn_case(shape, gens["flash_attention"], timed=shape not in ATTN_EDGE))
+    timed_later = ASR_Q8_SHAPES + SSM_Q8_SHAPES + SSM_Q3K_SHAPES
     for kind, shapes, edges, later in (
-            ("q8_matmul", Q8_SHAPES, Q8_EDGE, ASR_Q8_SHAPES + ASR_Q8_EDGE),
-            ("q3k_matmul", Q3K_SHAPES, Q3K_EDGE, []),
+            ("q8_matmul", Q8_SHAPES, Q8_EDGE,
+             ASR_Q8_SHAPES + ASR_Q8_EDGE + SSM_Q8_SHAPES + SSM_Q8_EDGE),
+            ("q3k_matmul", Q3K_SHAPES, Q3K_EDGE, SSM_Q3K_SHAPES + SSM_Q3K_EDGE),
             ("q4_matmul", Q4_SHAPES, Q4_EDGE, []),
             ("q8_matmul_w8a8", W8A8_SHAPES, W8A8_EDGE, [])):
         for shape in shapes + edges + later:
-            timed = shape in shapes or shape in ASR_Q8_SHAPES
+            timed = shape in shapes or shape in timed_later
             rows[kind].append(_matmul_case(kind, shape, gens[kind], timed=timed))
-    for case in FLASH_DECODE_SHAPES + FLASH_DECODE_EDGE + ASR_FLASH_DECODE:
+    for case in FLASH_DECODE_SHAPES + FLASH_DECODE_EDGE + ASR_FLASH_DECODE + SSM_FLASH_DECODE:
         rows["flash_decode"].append(_flash_decode_case(
             case, gens["flash_decode"],
-            timed=case in FLASH_DECODE_SHAPES or case == ASR_FLASH_DECODE[0]))
-    for kind, shapes, edges in (("q8_matmul", Q8_EXPERT_SHAPES, Q8_EXPERT_EDGE),
-                                ("q3k_matmul", Q3K_EXPERT_SHAPES, Q3K_EXPERT_EDGE)):
+            timed=case in FLASH_DECODE_SHAPES or case in (ASR_FLASH_DECODE[0],
+                                                          SSM_FLASH_DECODE[0])))
+    for kind, shapes, edges, later in (
+            ("q8_matmul", Q8_EXPERT_SHAPES, Q8_EXPERT_EDGE, []),
+            ("q3k_matmul", Q3K_EXPERT_SHAPES, Q3K_EXPERT_EDGE,
+             JAMBA_EXPERT_SHAPES + JAMBA_EXPERT_EDGE)):
         gen = torch.Generator(device="cuda").manual_seed(SEED + EXPERT_SEED_OFFSET[kind])
-        for shape in shapes + edges:
-            rows[kind].append(_experts_case(kind, shape, gen, timed=shape in shapes))
+        for shape in shapes + edges + later:
+            rows[kind].append(_experts_case(
+                kind, shape, gen, timed=shape in shapes + JAMBA_EXPERT_SHAPES))
     _log_rows(rows)
     return rows
 
 
 def _experts_weight(kind: str, w: torch.Tensor):
-    from repro_torch.core import quant
-    return quant.quantize_q8_0(w) if kind == "q8_matmul" else quant.quantize_q3_k(w)
+    """The experts' weight quantized expert by expert (the same bytes as
+    one call: blocks run along K), with one expert's temporaries."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qlinear import Linear, quantize_linear
+    pol = get_policy("q8_0" if kind == "q8_matmul" else "q3_k")
+    return quantize_linear(Linear(w, role="expert_up"), pol).w
 
 
 def _experts_case(kind: str, shape, gen, timed: bool) -> dict:
@@ -1214,6 +1326,9 @@ def phase_paged_kernels() -> dict[str, list[dict]]:
     for case in ASR_DECODE:
         rows["flash_decode_paged"].append(_decode_case(
             case, gen, timed=case == ASR_DECODE[0], widths=ASR_WIDTHS, few_keys=True))
+    for case in SSM_DECODE:
+        rows["flash_decode_paged"].append(_decode_case(
+            case, gen, timed=case == SSM_DECODE[0], widths=SSM_WIDTHS, few_keys=True))
     _log_rows(rows)
     return rows
 
@@ -2144,16 +2259,25 @@ GEN_TIE_MARGIN = 0.125
 
 
 def _replay(params, cfg, out, steps: int, max_len: int = GEN_MAX_LEN,
-            enc_embeds=None):
+            enc_embeds=None, zeroed: bool = False, check=None):
     """Feed ``out``'s tokens through ``make_cache`` + ``make_decode`` one
     synchronised step at a time: (logits (B, steps, V), seconds per step,
-    the cache).  An encoder-decoder model takes ``enc_embeds``."""
+    the cache).  An encoder-decoder model takes ``enc_embeds``; ``zeroed``
+    first zeroes every recurrent row (the batcher's reset); ``check`` (a
+    ``_PlainQ8`` or ``_CheckedExperts``) is active on the last step only."""
+    from repro_torch.models.transformer import cache_slot_reset
     from repro_torch.train.serve_step import make_cache, make_decode
-    cache = make_cache(params, cfg, out.shape[0], max_len, enc_embeds=enc_embeds)
-    decode = make_decode(cfg)
+    cache = make_cache(params, cfg, out.shape[0], max_len, enc_embeds=enc_embeds,
+                       device="cuda")
+    if zeroed:
+        for row in range(out.shape[0]):
+            cache_slot_reset(cache, row)
+    decode = make_decode(cfg, device="cuda")
     logits, times = [], []
     with torch.no_grad():
         for i in range(steps):
+            if check is not None:
+                check.active = i == steps - 1
             torch.cuda.synchronize()
             s0 = time.perf_counter()
             _, lg, cache = decode(params, out[:, i:i + 1], i, cache)
@@ -2252,17 +2376,86 @@ def _check_gen_against_plain(preset: str, dec, plain, oracle,
                              f"exceeds {GEN_TIE_MARGIN}")
 
 
+def _f32_params(params):
+    """An f32 copy of a weight tree: every quantized weight dequantized (its
+    exact values), every bf16 leaf widened.  The model then runs with f32
+    activations: the witness of a whole-model comparison."""
+    from repro_torch.core.qlinear import QTYPES
+    from repro_torch.core.quant import dequantize
+    from repro_torch.core.tree import tree_map
+
+    def widen(t):
+        if isinstance(t, QTYPES):
+            return dequantize(t, torch.float32)
+        return t.float() if t.is_floating_point() else t
+    return tree_map(widen, params, is_leaf=lambda t: isinstance(t, QTYPES))
+
+
+def witness_far(x, exact) -> tuple:
+    """How far the logits ``x`` are from the witness ``exact`` (the same
+    positions): (max|x - exact|, the widest top-2 margin of ``exact`` at
+    which x's argmax differs from exact's (0 if none), how many differ)."""
+    top = exact.topk(2, dim=-1)
+    margin = top.values[..., 0] - top.values[..., 1]
+    flips = x.argmax(-1) != top.indices[..., 0]
+    widest = margin[flips].max().item() if flips.any() else 0.0
+    return (x - exact).abs().max().item(), widest, int(flips.sum())
+
+
+def _check_witness(label: str, dec, ref, exact, names: tuple) -> float:
+    """The one-sided whole-model check of ``dec`` against ``ref`` (logits of
+    the same tokens; ``names`` theirs) through the witness ``exact`` (an f32
+    replay): ``dec`` no more than GEN_LOGIT_TOL further from it in a logit
+    than ``ref``, and ``dec``'s argmax that of ``exact`` wherever exact's
+    top-2 margin exceeds the widest at which ``ref``'s argmax differs from
+    it plus GEN_TIE_MARGIN.  Returns that margin."""
+    d_dec, w_dec, n_dec = witness_far(dec, exact)
+    d_ref, w_ref, n_ref = witness_far(ref, exact)
+    bare = (dec - ref).abs().max().item()
+    held = w_ref + GEN_TIE_MARGIN
+    top = exact.topk(2, dim=-1)
+    compared = int((top.values[..., 0] - top.values[..., 1] > held).sum())
+    log(f"[{label}] {names[0]} vs {names[1]}: logits within {bare:.4f} of each "
+        f"other; from the f32 witness {d_dec:.4f} and {d_ref:.4f} (limit "
+        f"{names[1]} + {GEN_LOGIT_TOL}); argmax differs from the witness's at "
+        f"{n_dec} and {n_ref} of {top.indices[..., 0].numel()} positions, at "
+        f"margins up to {w_dec:.4f} and {w_ref:.4f}; {compared} positions with "
+        f"a witness margin above {held:.4f} compared")
+    if not (d_dec <= d_ref + GEN_LOGIT_TOL and w_dec <= held):
+        raise AssertionError(f"{label}: the {names[0]} is {d_dec} from the f32 witness, "
+                             f"the {names[1]} {d_ref} (allowance {GEN_LOGIT_TOL}); or "
+                             f"its argmax differs from the witness's at a margin of "
+                             f"{w_dec} > {held}")
+    return held
+
+
 def _check_gen_against_forward(params, cfg, out, dec, first, prompt: int = GEN_PROMPT,
-                               enc_embeds=None, label: str = "full_gen") -> None:
+                               enc_embeds=None, label: str = "full_gen",
+                               tol: float = GEN_LOGIT_TOL, exact=None) -> None:
     """``dec`` (B, S+steps-1, V): the decode path's logits at every
-    position.  Every logit is within GEN_LOGIT_TOL of ``lm_forward``'s, and
-    every generated token whose top-2 margin in ``lm_forward`` exceeds
-    GEN_TIE_MARGIN is its argmax (``first``, ``make_prefill``'s argmax,
-    likewise for the first generated token).  ``prompt``: the prompt's
-    length; an encoder-decoder model takes ``enc_embeds``."""
+    position.  Every logit is within ``tol`` (GEN_LOGIT_TOL) of
+    ``lm_forward``'s, and every generated token whose top-2 margin in
+    ``lm_forward`` exceeds GEN_TIE_MARGIN is its argmax (``first``,
+    ``make_prefill``'s argmax, likewise for the first generated token).
+    ``prompt``: the prompt's length; an encoder-decoder model takes
+    ``enc_embeds``.  With ``exact`` (an f32 replay of the same tokens) both
+    are held one-sided to that witness instead (``_check_witness``; the
+    generated tokens are ``dec``'s argmax), and ``first`` to its argmax
+    where its margin exceeds the widest at which lm_forward's flips plus
+    GEN_TIE_MARGIN."""
     from repro_torch.models.transformer import lm_forward
     with torch.no_grad():
         fwd = lm_forward(params, cfg, out[:, :-1], enc_embeds=enc_embeds)[0]
+    if exact is not None:
+        held = _check_witness(label, dec, fwd, exact, ("replay", "lm_forward"))
+        top = exact[:, prompt - 1].topk(2, dim=-1)
+        margin = (top.values[:, 0] - top.values[:, 1]).cpu()
+        if ((margin > held) & (first != top.indices[:, 0].cpu())).any():
+            raise AssertionError(f"{label}: make_prefill's first tokens {first.tolist()} "
+                                 f"differ from the witness's {top.indices[:, 0].tolist()} "
+                                 f"at margins {margin.tolist()} > {held}")
+        return
+    with torch.no_grad():
         diff = (dec - fwd).abs()
         worst = diff.max().item()
         top = fwd[:, prompt - 1:].topk(2, dim=-1)
@@ -2270,9 +2463,9 @@ def _check_gen_against_forward(params, cfg, out, dec, first, prompt: int = GEN_P
         margin = (top.values[..., 0] - top.values[..., 1]).cpu()
         best = top.indices[..., 0].cpu()
     del fwd, diff
-    if not worst <= GEN_LOGIT_TOL:
+    if not worst <= tol:
         raise AssertionError(f"{label}: decode-path logits differ from lm_forward's "
-                             f"by {worst} > {GEN_LOGIT_TOL}")
+                             f"by {worst} > {tol}")
     gen = out[:, prompt:].cpu()
     near = margin <= GEN_TIE_MARGIN
     bad = (~near) & (best != gen)
@@ -2855,19 +3048,26 @@ class _CheckedExperts:
     on the card) against its plain version on that call's own inputs,
     within MATMUL_RTOL of its largest magnitude.  The model goes on with
     the kernel's result, or with ``plain=True`` the plain version's (a
-    plain replay).  The comparisons launch no kernel."""
+    plain replay).  The comparisons launch no kernel.  While ``active`` is
+    unset, launches pass through unchecked and uncounted.  ``per_expert``
+    takes the plain version expert by expert (``ops._experts_plain``: one
+    expert's dequantized weight at a time, for experts too large to
+    dequantize at once)."""
 
-    def __init__(self, plain: bool = False):
-        self.plain = plain
+    def __init__(self, plain: bool = False, per_expert: bool = False):
+        self.plain, self.per_expert = plain, per_expert
 
     def __enter__(self):
         from repro_torch.kernels import ops
         self.inner = ops._experts_matmul
-        self.calls, self.err, self.excess = 0, None, None
+        self.calls, self.err, self.excess, self.active = 0, None, None, True
 
         def checked(x, w):
             out = self.inner(x, w)
-            want = experts_plain_batched(x, w)
+            if not self.active:
+                return out
+            want = (ops._experts_plain(x, w) if self.per_expert
+                    else experts_plain_batched(x, w))
             diff = (out - want).abs().amax()
             excess = diff - MATMUL_RTOL * want.abs().amax().clamp_min(1.0)
             self.err = diff if self.err is None else torch.maximum(self.err, diff)
@@ -3571,6 +3771,562 @@ def phase_full_asr(card: str) -> dict[str, int]:
     return totals
 
 
+# ------------------------------------------------- recurrent and hybrid
+# phase tiny_ssm: reduced(xlstm-1.3b) under q8_0 and reduced(jamba-1.5-
+# large) under q3_k (each arch's default) on the CPU and the card:
+# greedy_generate of TINY_SSM_STEPS tokens after TINY_SSM_PROMPT at 2 rows,
+# and 4 served requests of TINY_SSM_NEW tokens.  Prompt draws (seeds
+# 0-59) whose every generated token has a top-2 logit margin of at least
+# 0.078 on the CPU (ten bf16 ulps at |logit| in [1, 2)), so rounding cannot
+# flip a token.
+TINY_SSM_RUNS = (  # (arch, greedy_generate's prompt seed, the served prompts' seed)
+    ("xlstm-1.3b", 46, 21), ("jamba-1.5-large-398b", 9, 46))
+TINY_SSM_PROMPT, TINY_SSM_STEPS = 16, 6
+TINY_SSM_PROMPTS, TINY_SSM_NEW = (21, 9, 14, 17), 4
+# phase full_ssm: xlstm-1.3b at full size under q8_0 and none, then
+# jamba-1.5-large at full width and one period of its 72 layers under
+# q3_k (the depth cut: 44.2 B parameters in the period, about 19 GB in
+# Q3_K; nine periods would need about 171 GB).
+XLSTM_PRESETS = ("q8_0", "none")
+XLSTM_GEN_BATCH, XLSTM_GEN_PROMPT, XLSTM_GEN_STEPS = 4, 32, 16
+XLSTM_PROMPTS, XLSTM_NEW = (24, 64, 40, 31, 52, 45), 16
+XLSTM_KW = dict(slots=4, block_size=16, prefill_chunk=16)
+JAMBA_PERIODS = 1
+JAMBA_GEN_BATCH, JAMBA_GEN_PROMPT, JAMBA_GEN_STEPS = 2, 32, 8
+JAMBA_PROMPTS, JAMBA_NEW = (24, 48, 37, 30, 41), 8
+# Whole-model comparisons of two paths of a recurrent stack at full width
+# with random weights: two roundings of the same xLSTM decode path
+# (q8_matmul's kernel and its plain version) differ by up to 1.075 in a
+# logit and flip its argmax at top-2 margins up to 0.344, because a bf16
+# ulp of each of 48 layers' outputs adds up in the residual stream and in
+# 47 steps of state (the replay against lm_forward: 0.914 under none,
+# 1.334 under q8_0, flips at margins up to 0.4375; NVIDIA H100 80GB HBM3,
+# 700 W).  GEN_LOGIT_TOL / GEN_TIE_MARGIN cannot hold between them, so
+# each such comparison of xlstm-1.3b is held one-sided to a witness, as
+# the few-key rule holds a decode row: an f32 replay of the same weights
+# (``_f32_params``), against which the path under test may be no more
+# than GEN_LOGIT_TOL further in a logit than the path it is compared with
+# (``_check_witness``).  What the rounding cannot excuse is held layer
+# by layer: every recurrent layer's full-sequence form against its
+# decode step on the same inputs within SSM_LAYER_REL of the layer's
+# largest output (measured at most 0.0082: about two bf16 ulps).
+# jamba-1.5-large's one period (45 B parameters) has no f32 copy on the
+# card: its replay against lm_forward without drops is held to
+# JAMBA_LOGIT_TOL (measured 0.352, argmax flips at margins up to 0.0156,
+# so GEN_TIE_MARGIN holds), and the same comparison against lm_forward at
+# its own capacity factor, which drops tokens (measured 7.05), must
+# exceed it: the control that the limit can see a routing change.
+JAMBA_LOGIT_TOL = 0.5
+SSM_LAYER_REL = 2.0 ** -6
+
+
+def _stack_want(params, forwards: int, attention: dict) -> dict:
+    """Launches of ``forwards`` one-token (or lm_forward) passes through a
+    stack, worked out from its weights: every layer's quantized linears
+    (an MoE projection one batched launch) and the quantized head, plus
+    ``attention`` (kernel name -> launches)."""
+    from repro_torch.kernels import ops
+    want = {name: 0 for name in ops.KERNEL_MODULES}
+    head = params.get("lm_head") or params["embed"]
+    for tree in (params["layers"], head):
+        for name, k in _matmul_launches(tree).items():
+            want[name] += k * forwards
+    for name, n in attention.items():
+        want[name] += n
+    return want
+
+
+def _attn_layers(cfg) -> int:
+    return sum(k == "attn" for k in cfg.pattern_for_layers())
+
+
+def _no_drops(cfg):
+    """``cfg`` with an MoE capacity of every token of a group (capacity
+    factor E / top_k): lm_forward then routes as the decode path does (one
+    token per group never drops), so the two can be compared; at jamba's
+    capacity factor 1.25 lm_forward drops tokens by design."""
+    if cfg.moe is None:
+        return cfg
+    factor = cfg.moe.num_experts / cfg.moe.top_k
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+
+
+class _Tap:
+    """Record, per request, the logits behind each token a batcher emits:
+    its last prompt chunk's (through ``lm_prefill_chunk``) and its row of
+    every decode quantum (through ``lm_decode_step``), both called by the
+    batcher's own programs.  Launches nothing."""
+
+    def __init__(self, cb):
+        self.cb, self.slot, self.logits = cb, None, {}
+
+    def __enter__(self):
+        from repro_torch.serving import scheduler
+        self.mod = scheduler
+        self.inner = (scheduler.lm_decode_step, scheduler.lm_prefill_chunk,
+                      self.cb._prefill_quantum)
+        dec, pre, quantum = self.inner
+        cb = self.cb
+
+        def prefill_quantum(i):
+            self.slot = i
+            return quantum(i)
+
+        def decode_step(*args, **kw):
+            logits, cache = dec(*args, **kw)
+            for i, r in enumerate(cb.slots):
+                if r is not None:
+                    self.logits.setdefault(r.rid, []).append(logits[i, -1])
+            return logits, cache
+
+        def prefill_chunk(*args, **kw):
+            logits, cache = pre(*args, **kw)
+            if not cb._pending[self.slot]:
+                self.logits[cb.slots[self.slot].rid] = [logits[0, -1]]
+            return logits, cache
+        scheduler.lm_decode_step, scheduler.lm_prefill_chunk = decode_step, prefill_chunk
+        cb._prefill_quantum = prefill_quantum
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lm_decode_step, self.mod.lm_prefill_chunk = self.inner[:2]
+        del self.cb._prefill_quantum
+
+    def stacked(self) -> dict:
+        return {rid: torch.stack(v) for rid, v in self.logits.items()}
+
+
+def _ssm_serve(cfg, params, reqs, label: str, device, max_len: int, **kw):
+    """A ContinuousBatcher run over the requests ``reqs`` with its logits
+    tapped: (batcher, launches, logits per rid, seconds)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ContinuousBatcher
+    cb = ContinuousBatcher(params, cfg, max_len=max_len, device=device, **kw)
+    for r in reqs:
+        cb.submit(r)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _Tap(cb) as tap, torch.no_grad():
+        cb.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    _check_events(label, cb, len(reqs))
+    return cb, counts, tap.stacked(), wall
+
+
+def _ssm_requests(prompts, vocab: int, new: int, gen) -> tuple[list, int]:
+    """Random prompts of the given lengths (``_lm_requests``) and the
+    batcher's ``max_len`` for them."""
+    from repro_torch.serving import ContinuousBatcher, Request
+    return (_lm_requests(Request, prompts, vocab, new, 0, gen),
+            ContinuousBatcher.required_len(len(prompts), 4, max(prompts), new))
+
+
+def _serve_want(cb, cfg, params) -> dict:
+    """A recurrent stack prefills by the decode-step scan: one forward per
+    prompt token and per decode quantum, each with one paged decode per
+    attention layer."""
+    fwd = cb.prefill_launches + cb.decode_launches
+    return _stack_want(params, fwd, {"flash_decode_paged": _attn_layers(cfg) * fwd})
+
+
+def phase_tiny_ssm() -> None:
+    """reduced(xlstm-1.3b) under q8_0 and reduced(jamba-1.5-large) under
+    q3_k with the same seeded weights on the CPU (plain versions) and on
+    the card (kernels): greedy_generate and ContinuousBatcher give
+    identical tokens, with exact launches."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.tree import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.serve_step import greedy_generate
+    for arch, seed, serve_seed in TINY_SSM_RUNS:
+        cfg = reduced(get_config(arch))
+        params = init_lm(torch.Generator().manual_seed(SEED), cfg,
+                         policy=get_policy(cfg.default_policy))
+        prompt = torch.randint(1, cfg.vocab_size, (2, TINY_SSM_PROMPT),
+                               generator=torch.Generator().manual_seed(seed))
+        steps = TINY_SSM_PROMPT + TINY_SSM_STEPS - 1
+        gens, served = {}, {}
+        for dev in ("cpu", "cuda"):
+            p = to_device(params, dev)
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                gens[dev] = greedy_generate(p, cfg, prompt, TINY_SSM_STEPS, device=dev).cpu()
+            counts = ops.launch_counts()
+            want = (_stack_want(p, steps, {"flash_decode": _attn_layers(cfg) * steps})
+                    if dev == "cuda" else {k: 0 for k in counts})
+            if counts != want:
+                raise AssertionError(f"tiny_ssm {arch} greedy_generate {dev}: launches "
+                                     f"{counts}, expected {want}")
+            reqs, max_len = _ssm_requests(TINY_SSM_PROMPTS, cfg.vocab_size, TINY_SSM_NEW,
+                                          torch.Generator().manual_seed(serve_seed))
+            cb, counts, _, _ = _ssm_serve(cfg, p, reqs, f"tiny_ssm {arch} {dev}", dev,
+                                          max_len, slots=2, block_size=16,
+                                          prefill_chunk=16)
+            want = (_serve_want(cb, cfg, p) if dev == "cuda" else {k: 0 for k in counts})
+            if counts != want or cb.prefill_launches != sum(TINY_SSM_PROMPTS):
+                raise AssertionError(f"tiny_ssm {arch} serve {dev}: launches {counts}, "
+                                     f"expected {want}; {cb.prefill_launches} prefill "
+                                     f"launches for {sum(TINY_SSM_PROMPTS)} prompt tokens")
+            served[dev] = {r.rid: r.out for r in cb.finished}
+        log(f"[tiny_ssm] {arch} weights={cfg.default_policy}: greedy_generate cpu "
+            f"{gens['cpu'][:, TINY_SSM_PROMPT:].tolist()} cuda "
+            f"{gens['cuda'][:, TINY_SSM_PROMPT:].tolist()}; served cpu {served['cpu']} "
+            f"cuda {served['cuda']}")
+        if not torch.equal(gens["cpu"], gens["cuda"]) or served["cpu"] != served["cuda"]:
+            raise AssertionError(f"tiny_ssm {arch}: tokens differ between the CPU and "
+                                 "the card")
+
+
+class _PlainQ8:
+    """Route ``q8_matmul`` (as ``ops.quantized_matmul`` calls it) to its
+    plain version, and while ``check`` is set also launch the kernel on
+    the call's inputs and hold it to the plain result within MATMUL_RTOL
+    of its largest magnitude (a plain replay with one step checked)."""
+    active = False
+
+    def __enter__(self):
+        from repro_torch.core.quant import Q8_0Tensor
+        from repro_torch.kernels import q8_matmul, ref
+        self.mod, self.inner = q8_matmul, q8_matmul.q8_matmul
+        self.calls, self.checked, self.excess = 0, 0, None
+
+        def plain(x, wq, ws):
+            want = ref.q8_matmul_ref(x, Q8_0Tensor(wq, ws))
+            self.calls += 1
+            if self.active:
+                got = self.inner(x, wq, ws)
+                excess = ((got - want).abs().amax()
+                          - MATMUL_RTOL * want.abs().amax().clamp_min(1.0))
+                self.excess = excess if self.excess is None else torch.maximum(
+                    self.excess, excess)
+                self.checked += 1
+            return want
+        q8_matmul.q8_matmul = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.q8_matmul = self.inner
+
+
+def _check_replay(label: str, dec, plain) -> None:
+    """``dec`` against ``plain`` (two runs of the same tokens): every logit
+    within GEN_LOGIT_TOL and the same argmax where ``plain``'s top-2 margin
+    exceeds GEN_TIE_MARGIN."""
+    diff = (dec - plain).abs()
+    worst = diff.max().item()
+    top = plain.topk(2, dim=-1)
+    margin = (top.values[..., 0] - top.values[..., 1]).cpu()
+    flips = (dec.argmax(-1) != plain.argmax(-1)).cpu()
+    log(f"[full_ssm] {label}: logits within {worst:.4f} "
+        f"({100 * (diff == 0).float().mean().item():.3f}% bit-equal), "
+        f"{int(flips.sum())} of {flips.numel()} argmax differ (margins "
+        f"{[round(float(m), 4) for m in margin[flips]]}); "
+        f"{int((margin > GEN_TIE_MARGIN).sum())} compared")
+    if not worst <= GEN_LOGIT_TOL or (flips & (margin > GEN_TIE_MARGIN)).any():
+        raise AssertionError(f"full_ssm {label}: logits differ by {worst} (limit "
+                             f"{GEN_LOGIT_TOL}), or the argmax where the margin "
+                             f"exceeds {GEN_TIE_MARGIN}")
+
+
+def _layers_parallel_vs_recurrent(params, cfg, tokens) -> list:
+    """Every recurrent layer's full-sequence form (what lm_forward runs:
+    Mamba's chunked scan, mLSTM's decay matrix, sLSTM's loop) against its
+    decode step fed the same bf16 input token by token from a fresh state,
+    on lm_forward's own layer inputs over ``tokens``.  Returns per
+    recurrent layer (max |difference| / max |output|, the share of
+    bit-equal outputs)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    b, s = tokens.shape
+    x = L.apply_embedding(params["embed"], tokens)
+    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    rows = []
+    with torch.no_grad():
+        for p in params["layers"]:
+            kind = T._mixer(p)
+            if kind != "attn":
+                _, fwd, step, state = T._RECURRENT[kind]
+                h = T._apply_norm(cfg, p["norm1"], x)
+                y = fwd(p[kind], cfg, h)
+                st = state(b, cfg, x.device)
+                rec = torch.cat([step(p[kind], cfg, h[:, t:t + 1], st)[0] for t in range(s)], 1)
+                rows.append((((y.float() - rec.float()).abs().max()
+                              / y.float().abs().max()).item(),
+                             (y == rec).float().mean().item()))
+            x, _ = T._layer_fwd(p, cfg, x, pos, causal=True)
+    return rows
+
+
+def _ssm_gen(card: str, cfg, params, preset: str, batch: int, prompt_len: int,
+             steps_new: int, seed: int, witness: bool = False) -> dict:
+    """greedy_generate (counted), its synchronised replay (ms per step, the
+    tokens reproduced), a plain replay (q8_0: every q8_matmul routed to its
+    plain version, the kernel held to it on the last step's calls; an MoE
+    stack: every batched expert launch of the last step held to its plain
+    version), tokens against lm_forward (without MoE drops, ``_no_drops``),
+    and a profile of one decode step.  ``witness``: an f32 replay holds the
+    replays' comparisons one-sided (``_check_witness``); else they hold
+    JAMBA_LOGIT_TOL, and an MoE stack's lm_forward with drops must exceed
+    it (the control)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.train.serve_step import greedy_generate, make_decode, make_prefill
+    prompts = torch.randint(1, cfg.vocab_size, (batch, prompt_len),
+                            generator=torch.Generator(device="cuda").manual_seed(seed),
+                            device="cuda")
+    steps, max_len = prompt_len + steps_new - 1, prompt_len + steps_new
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = greedy_generate(params, cfg, prompts, steps_new, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    label = f"{cfg.name} weights={preset} greedy_generate"
+    want = _stack_want(params, steps, {"flash_decode": _attn_layers(cfg) * steps})
+    if counts != want:
+        raise AssertionError(f"full_ssm {label}: launches {counts}, expected {want}")
+    if out.shape != (batch, max_len) or not torch.equal(out[:, :prompt_len], prompts.to(out.dtype)) \
+            or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"full_ssm {label}: output {tuple(out.shape)} is not the "
+                             "prompts followed by vocabulary tokens")
+    if cfg.moe is not None:
+        with _CheckedExperts(per_expert=True) as oracle:
+            dec, times, cache = _replay(params, cfg, out, steps, max_len, check=oracle)
+    else:
+        dec, times, cache = _replay(params, cfg, out, steps, max_len)
+    if not torch.isfinite(dec).all() or not torch.equal(
+            dec[:, prompt_len - 1:].argmax(-1).to(out.dtype), out[:, prompt_len:]):
+        raise AssertionError(f"full_ssm {label}: the make_decode replay does not "
+                             "reproduce greedy_generate's tokens")
+    exact = None
+    if witness:
+        wide = _f32_params(params)
+        exact = _replay(wide, cfg, out, steps, max_len)[0]
+        with torch.no_grad():
+            forms = (lm_forward(wide, cfg, out[:, :-1])[0] - exact).abs().max().item()
+        del wide
+        log(f"[full_ssm] {label}: the f32 witness: its replay within {forms:.3e} of its "
+            f"lm_forward")
+        if not forms <= GEN_LOGIT_TOL:
+            raise AssertionError(f"full_ssm {label}: the f32 replay is {forms} from the f32 "
+                                 f"lm_forward (limit {GEN_LOGIT_TOL})")
+    if preset == "q8_0":
+        with _PlainQ8() as plain_q8:
+            plain = _replay(params, cfg, out, steps, max_len, check=plain_q8)[0]
+        per_step = _stack_want(params, 1, {})["q8_matmul"]
+        if plain_q8.calls != per_step * steps or plain_q8.checked != per_step \
+                or not plain_q8.excess.item() <= 0:
+            raise AssertionError(f"full_ssm {label}: {plain_q8.calls} plain q8_matmul calls "
+                                 f"({plain_q8.checked} checked), expected {per_step} per "
+                                 f"step; excess over MATMUL_RTOL {plain_q8.excess}")
+        log(f"[full_ssm] {label}: {plain_q8.checked} q8_matmul launches of the last step "
+            f"held to their plain version (excess over MATMUL_RTOL "
+            f"{plain_q8.excess.item():.3e})")
+        _check_witness(f"full_ssm {label}", dec, plain, exact,
+                       ("kernel replay", "plain replay"))
+        del plain
+    if cfg.moe is not None:
+        per_step = sum(_matmul_launches([lp["moe"] for lp in params["layers"]
+                                         if "moe" in lp]).values())
+        oracle.check(f"{label} last step", per_step)
+    with torch.no_grad():
+        first = make_prefill(_no_drops(cfg), device="cuda")(
+            params, {"tokens": prompts}).argmax(-1).cpu()
+    _check_gen_against_forward(params, _no_drops(cfg), out, dec, first, prompt=prompt_len,
+                               label=f"full_ssm {label}",
+                               **(dict(exact=exact) if witness else dict(tol=JAMBA_LOGIT_TOL)))
+    if cfg.moe is not None:
+        with torch.no_grad():
+            drop = (lm_forward(params, cfg, out[:, :-1])[0] - dec).abs().max().item()
+        log(f"[full_ssm] {label}: the control, lm_forward at capacity factor "
+            f"{cfg.moe.capacity_factor} (drops tokens), {drop:.4f} from the replay "
+            f"(limit {JAMBA_LOGIT_TOL} without drops)")
+        if not drop > JAMBA_LOGIT_TOL:
+            raise AssertionError(f"full_ssm {label}: lm_forward with drops is within "
+                                 f"{JAMBA_LOGIT_TOL} of the replay: the limit cannot see "
+                                 "a routing change")
+    del exact
+    layers = _layers_parallel_vs_recurrent(params, _no_drops(cfg), out[:, :-1])
+    worst = max(rel for rel, _ in layers)
+    log(f"[full_ssm] {label}: each recurrent layer's full-sequence form against its "
+        f"decode step on lm_forward's inputs: max|diff| / max|out| "
+        f"{[round(rel, 5) for rel, _ in layers]} (bit-equal "
+        f"{min(eq for _, eq in layers):.3f}-{max(eq for _, eq in layers):.3f})")
+    if not worst <= SSM_LAYER_REL:
+        raise AssertionError(f"full_ssm {label}: a recurrent layer's two forms differ by "
+                             f"{worst} of its largest output > {SSM_LAYER_REL}")
+    step_ms = 1e3 * sum(times[2:]) / (steps - 2)
+    log(f"[full_ssm] {label}: {steps} decode steps of {batch} rows in {wall:.2f} s "
+        f"({1e3 * wall / steps:.2f} ms per step unsynchronised); {step_ms:.2f} ms per "
+        f"synchronised decode step; launches {counts}; {card}")
+    decode = make_decode(cfg, device="cuda")
+    with torch.no_grad():
+        tok = out[:, -1:]
+        _profile(f"{label} decode step", lambda: decode(params, tok, steps, cache))
+    del dec, cache
+    return counts
+
+
+def _xlstm_serve(card: str, cfg, params, preset: str) -> dict:
+    """ContinuousBatcher(4 slots, block 16, chunk 16) over XLSTM_PROMPTS (6
+    requests: the fifth and sixth land in recycled slots).  Gates: events,
+    exact launches (the scan prefill: one forward per prompt token); every
+    request's tokens and logits the bits of the same request alone in a
+    fresh batcher of 4 slots (the reset at full width); and each request's
+    logits against a replay of it alone from a zeroed state (the reset
+    writes zeros: not lm_forward's, nor greedy_generate's, fresh state)."""
+    label = f"xlstm-1.3b weights={preset} serve"
+    reqs, max_len = _ssm_requests(XLSTM_PROMPTS, cfg.vocab_size, XLSTM_NEW,
+                                  torch.Generator(device="cuda").manual_seed(SEED + 41))
+    cb, counts, logits, wall = _ssm_serve(cfg, params, reqs, f"full_ssm {label}", "cuda",
+                                          max_len, **XLSTM_KW)
+    want = _serve_want(cb, cfg, params)
+    if counts != want or cb.prefill_launches != sum(XLSTM_PROMPTS):
+        raise AssertionError(f"full_ssm {label}: launches {counts}, expected {want}; "
+                             f"{cb.prefill_launches} prefill launches for "
+                             f"{sum(XLSTM_PROMPTS)} prompt tokens")
+    outs = {r.rid: r.out for r in cb.finished}
+    recycled = sum(1 for e in cb.bus.log if type(e).__name__ == "Admitted") - XLSTM_KW["slots"]
+    for r in reqs:
+        alone = type(r)(rid=0, prompt=list(r.prompt), max_new=r.max_new)
+        solo, _, solo_logits, _ = _ssm_serve(cfg, params, [alone], f"full_ssm {label} alone",
+                                             "cuda", max_len, **XLSTM_KW)
+        if solo.finished[0].out != outs[r.rid] \
+                or not torch.equal(solo_logits[0], logits[r.rid]):
+            raise AssertionError(f"full_ssm {label} rid {r.rid}: tokens or logits differ "
+                                 "from the same request alone in a fresh batcher")
+        del solo
+    for r in sorted(cb.finished, key=lambda r: r.rid):
+        seq = r.prompt + r.out[:-1]
+        dec = _replay(params, cfg, torch.tensor([seq], device="cuda"), len(seq), len(seq),
+                      zeroed=True)[0]
+        _check_replay(f"{label} rid {r.rid}: the batcher vs a replay of it alone from a "
+                      "zeroed state", logits[r.rid][None], dec[:, len(r.prompt) - 1:])
+    log(f"[full_ssm] {label}: {len(reqs) * XLSTM_NEW} tokens for {len(reqs)} requests "
+        f"({recycled} in recycled slots) in {wall:.2f} s; quanta {cb.prefill_quanta} "
+        f"prefill / {cb.decode_quanta} decode; each request's tokens and logits the bits "
+        f"of the same request alone; launches {counts}; {card}")
+    _profile_ssm(cb, label, card)
+    return counts
+
+
+def _profile_ssm(cb, label: str, card: str) -> None:
+    """ms per synchronised decode quantum at all slots and per scan-prefill
+    token (a prefill chunk of ``cb.prefill_chunk`` tokens at batch 1), then
+    a profile of one decode quantum (on the batcher's recycled state)."""
+    slots, mb = len(cb.slots), cb.runtime.blocks_per_slot
+    tables = (torch.arange(slots * mb, device="cuda", dtype=torch.int32)
+              % (cb.runtime.num_blocks - 1) + 1).reshape(slots, mb)
+    toks = torch.ones((slots, 1), dtype=torch.int64, device="cuda")
+    pos = torch.full((slots,), 8, dtype=torch.int32, device="cuda")
+    chunk = torch.ones((1, cb.prefill_chunk), dtype=torch.int64, device="cuda")
+
+    def decode():
+        return cb.step_fn(cb.params, toks, pos, tables, cb.cache)
+
+    def prefill():
+        return cb._prefill_raw(cb.params, chunk, torch.zeros((1,), dtype=torch.int32), 0,
+                               tables[:1], cb.cache)
+    with torch.no_grad():
+        dec_ms, pre_ms = cuda_ms(decode, iters=5, warmup=1), cuda_ms(prefill, iters=2, warmup=1)
+        log(f"[full_ssm] {label}: {dec_ms:.2f} ms per decode quantum at {slots} slots, "
+            f"{pre_ms / cb.prefill_chunk:.2f} ms per scan-prefill token (event time); {card}")
+        _profile(f"{label} decode quantum", decode)
+
+
+def _jamba_serve(card: str, cfg, params) -> dict:
+    """ContinuousBatcher(4 slots) over JAMBA_PROMPTS: events, exact
+    launches, each request's tokens against lm_forward without MoE drops
+    (``_no_drops``; Mamba's zero reset is its fresh state)."""
+    label = "jamba-1.5-large weights=q3_k serve"
+    reqs, max_len = _ssm_requests(JAMBA_PROMPTS, cfg.vocab_size, JAMBA_NEW,
+                                  torch.Generator(device="cuda").manual_seed(SEED + 43))
+    cb, counts, _, wall = _ssm_serve(cfg, params, reqs, f"full_ssm {label}", "cuda",
+                                     max_len, **XLSTM_KW)
+    want = _serve_want(cb, cfg, params)
+    if counts != want or cb.prefill_launches != sum(JAMBA_PROMPTS):
+        raise AssertionError(f"full_ssm {label}: launches {counts}, expected {want}")
+    _check_against_forward(cb.finished, params, _no_drops(cfg), GEN_TIE_MARGIN,
+                           label=f"full_ssm {label}")
+    log(f"[full_ssm] {label}: {len(reqs) * JAMBA_NEW} tokens for {len(reqs)} requests in "
+        f"{wall:.2f} s; quanta {cb.prefill_quanta} prefill / {cb.decode_quanta} decode; "
+        f"launches {counts}; {card}")
+    _profile_ssm(cb, label, card)
+    return counts
+
+
+def phase_full_ssm(card: str) -> dict[str, int]:
+    """xlstm-1.3b at full size under q8_0 and none, then jamba-1.5-large at
+    full width and one period under q3_k, with seeded weights made on the
+    card (jamba's layer by layer, each quantized as it is drawn)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qlinear import param_bytes, param_count, quantize_params
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    phase_tiny_ssm()
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+
+    def add(counts):
+        for name, n in counts.items():
+            totals[name] += n
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config("xlstm-1.3b")
+    base = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    log(f"[full_ssm] init xlstm-1.3b {time.perf_counter() - t_phase:.1f} s, "
+        f"{param_count(base) / 1e9:.3f} B parameters, {param_bytes(base) / 2**30:.2f} GiB")
+    for preset in XLSTM_PRESETS:
+        params = base if preset == "none" else quantize_params(base, get_policy(preset))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        add(_ssm_gen(card, cfg, params, preset, XLSTM_GEN_BATCH, XLSTM_GEN_PROMPT,
+                     XLSTM_GEN_STEPS, SEED + 39, witness=True))
+        add(_xlstm_serve(card, cfg, params, preset))
+        log(f"[full_ssm] xlstm-1.3b weights={preset}: {param_bytes(params) / 2**30:.2f} GiB "
+            f"of weights; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+        del params
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_jamba = time.perf_counter()
+    full = get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(full, num_layers=JAMBA_PERIODS * len(full.block_pattern))
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                     policy=get_policy(cfg.default_policy))
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()                  # the init's bf16 layers, freed
+    log(f"[full_ssm] init jamba-1.5-large, {cfg.num_layers} of {full.num_layers} layers, "
+        f"quantized layer by layer to {cfg.default_policy}: "
+        f"{time.perf_counter() - t_jamba:.1f} s, {param_count(params) / 1e9:.2f} B "
+        f"parameters, {param_bytes(params) / 2**30:.2f} GiB; peak {init_peak:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    add(_ssm_gen(card, cfg, params, cfg.default_policy, JAMBA_GEN_BATCH, JAMBA_GEN_PROMPT,
+                 JAMBA_GEN_STEPS, SEED + 45))
+    add(_jamba_serve(card, cfg, params))
+    log(f"[full_ssm] jamba-1.5-large: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB after init; {card}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[full_ssm] phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return totals
+
+
 def phase_full_serving(card: str) -> dict[str, int]:
     """Phases full_router and full_fleet on one pair of weight trees."""
     sd, lm, cfg = _serving_bases()
@@ -3606,7 +4362,7 @@ def main() -> int:
     for phase in (lambda: phase_full(rows["flash_attention"]),
                   lambda: phase_full_lm(card), lambda: phase_full_gen(card),
                   lambda: phase_full_serving(card), lambda: phase_full_moe(card),
-                  lambda: phase_full_asr(card)):
+                  lambda: phase_full_asr(card), lambda: phase_full_ssm(card)):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
     for name in KERNEL_META:

@@ -1,9 +1,11 @@
 """Configs of the port and the architecture registry.
 
-:func:`get_config` serves the dense attention-only LMs, the MoE family
-and whisper-large-v3 (encoder-decoder), whose configs are copied here
-from ``repro.configs``; every other architecture of the reference (SSM,
-hybrid, VLM) raises ``NotImplementedError`` until its slice is ported.
+:func:`get_config` serves the dense attention-only LMs, the MoE family,
+whisper-large-v3 (encoder-decoder), xlstm-1.3b (mLSTM and sLSTM) and
+jamba-1.5-large (Mamba and attention, MoE every second layer), whose
+configs are copied here from ``repro.configs``; qwen2-vl-72b (M-RoPE and
+a vision prefix) raises ``NotImplementedError`` until its slice is
+ported.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.configs.base import (SD15_UNET, SD15_VAE, SD_TURBO,  # noqa: F4
 from repro_torch.models import frontend
 
 ARCH_MODULES = {
+    "xlstm-1.3b": "xlstm_1_3b",
     "whisper-large-v3": "whisper_large_v3",
     "llama3-405b": "llama3_405b",
     "h2o-danube-3-4b": "h2o_danube3_4b",
@@ -26,10 +29,11 @@ ARCH_MODULES = {
     "qwen1.5-110b": "qwen1_5_110b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
 }
 
 # Architectures of the reference that need blocks this port lacks.
-NOT_PORTED = ("xlstm-1.3b", "jamba-1.5-large-398b", "qwen2-vl-72b")
+NOT_PORTED = ("qwen2-vl-72b",)
 
 ARCHS = tuple(ARCH_MODULES)
 
@@ -37,8 +41,8 @@ ARCHS = tuple(ARCH_MODULES)
 def get_config(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"{name}: only the attention-only LMs (dense, MoE, enc-dec) are ported "
-            f"({', '.join(ARCHS)})")
+            f"{name}: M-RoPE and the vision prefix are not ported; the "
+            f"ported LMs are {', '.join(ARCHS)}")
     if name not in ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list(ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[name]}")

@@ -100,7 +100,9 @@ def apply_linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
 def quantize_linear(p: Linear, policy: OffloadPolicy) -> Linear:
     """Post-training quantization of one linear layer.  Roles whose K is
     not a multiple of the format's block stay dense (GGML keeps such
-    tensors in F16 as well)."""
+    tensors in F16 as well).  A weight with a leading expert axis is
+    quantized one expert at a time (the same bytes: blocks run along K),
+    so that the f32 temporaries are one expert's."""
     fmt = policy.format_for(p.role)
     w = p.w
     if isinstance(w, QTYPES):
@@ -111,7 +113,15 @@ def quantize_linear(p: Linear, policy: OffloadPolicy) -> Linear:
     block = 256 if fmt == "q3_k" else 32
     if w.shape[-1] % block:
         return p
-    return Linear(quant.quantize(w, fmt, **kw), p.b, p.role)
+    if w.dim() < 3:
+        return Linear(quant.quantize(w, fmt, **kw), p.b, p.role)
+    parts = [quant.quantize(e, fmt, **kw) for e in w]
+    first = parts[0]
+    fields = {f.name: getattr(first, f.name) for f in dataclasses.fields(first)}
+    for name, val in fields.items():
+        if isinstance(val, torch.Tensor):
+            fields[name] = torch.stack([getattr(q, name) for q in parts])
+    return Linear(type(first)(**fields), p.b, p.role)
 
 
 def _is_linear(x) -> bool:

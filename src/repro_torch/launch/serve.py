@@ -61,8 +61,9 @@ DIFFUSION_ARCHS = ("sd-turbo",)
 def _args() -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="a dense LM (granite-8b, h2o-danube-3-4b, ...) or "
-                         "sd-turbo for text-to-image")
+                    help="an LM (granite-8b, deepseek-moe-16b, xlstm-1.3b, "
+                         "jamba-1.5-large-398b, ...) or sd-turbo for "
+                         "text-to-image")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (reduced configs)")
     ap.add_argument("--policy", default=None,

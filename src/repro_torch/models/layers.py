@@ -69,11 +69,32 @@ def _const(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=like.dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (``lax.logistic``) op by op: ``1 / (1 + exp(-x))``
+    in x's dtype."""
+    one = _const(1.0, x)
+    return one / (one + torch.exp(-x))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``jnp.logaddexp(x, 0)``, op by op:
+    ``max(x, 0) + log1p(exp(-|x|))``, and ``x + 0`` where x is NaN.
+    (``F.softplus`` computes ``log1p(exp(x))`` below a threshold and x
+    above it, which rounds otherwise.)"""
+    zero = _const(0.0, x)
+    return torch.where(torch.isnan(x), x + zero,
+                       torch.maximum(x, zero) + torch.log1p(torch.exp(-x.abs())))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` op by op: ``x * (1 / (1 + exp(-x)))``, each op
     rounded to x's dtype as the reference's bf16 program does."""
-    one = _const(1.0, x)
-    return x * (one / (one + torch.exp(-x)))
+    return x * sigmoid(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

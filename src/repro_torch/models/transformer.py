@@ -1,20 +1,26 @@
-"""The attention-only LM stack (``repro.models.transformer``), dense,
-MoE or encoder-decoder (whisper): parameters, the full-sequence
-forward, one-token decode on a contiguous or a paged cache, and the
-paged serving paths (fused chunk prefill and its decode-step scan).
+"""The LM stack (``repro.models.transformer``): dense, MoE,
+encoder-decoder (whisper), recurrent (xLSTM) and hybrid (jamba)
+decoders — parameters, the full-sequence forward, one-token decode on a
+contiguous or a paged cache, and the paged serving paths (fused chunk
+prefill and its decode-step scan).
 
+Each layer's mixer is the block kind at its position in the repeating
+``block_pattern`` (``attn``, ``mamba``, ``mlstm`` or ``slstm``, from
+``models.ssm``); its parameters sit under that key of the layer's dict.
 The reference stacks layer parameters over a leading period axis for
 ``lax.scan``; here ``params["layers"]`` (and an encoder's
 ``params["encoder"]["layers"]``) is a plain list with one dict per
 layer, walked by a Python loop (``weights.from_reference`` unstacks the
 reference's layout).  Likewise the cache is a list with one entry per
-layer, updated in place: a
+layer, updated in place: for an attention layer a
 :class:`~repro_torch.models.attention.KVCache` (contiguous rows, or a
 paged pool), or for an encoder-decoder stack a :class:`LayerCache` that
 adds the layer's cross-attention keys and values, as contiguous rows
 precomputed from ``enc_embeds`` or as a paged bf16 cross pool that
-:func:`write_cross_kv` fills.  SSM and hybrid stacks come with a later
-slice.
+:func:`write_cross_kv` fills; for a recurrent layer its decode state
+(``ssm.MambaState``, ``MLSTMState`` or ``SLSTMState``), one row per
+batch row or serving slot whichever the KV layout.  A recurrent stack
+prefills by the decode-step scan (``prefill_path``).
 
 Each layer's FFN tail is an MLP or an MoE layer (``_ffn_kind``, the
 reference's rule with ``moe_every``).  The MoE layer's capacity is per
@@ -33,17 +39,50 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.qlinear import Linear, apply_linear, init_linear
+from repro_torch.core.policy import OffloadPolicy
+from repro_torch.core.qlinear import (Linear, apply_linear, init_linear,
+                                      quantize_params)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+
+
+class _Recurrent(NamedTuple):
+    """A recurrent block kind's functions (``models.ssm``)."""
+    init: Any      # (gen, cfg) -> params
+    fwd: Any       # (params, cfg, x (B, S, d)) -> (B, S, d)
+    decode: Any    # (params, cfg, x (B, 1, d), state) -> (y, state)
+    state: Any     # (batch, cfg, device) -> a fresh state
+
+
+_RECURRENT = {
+    "mamba": _Recurrent(ssm_mod.init_mamba, ssm_mod.mamba_fwd,
+                        ssm_mod.mamba_decode, ssm_mod.init_mamba_state),
+    "mlstm": _Recurrent(ssm_mod.init_mlstm, ssm_mod.mlstm_fwd,
+                        ssm_mod.mlstm_decode, ssm_mod.init_mlstm_state),
+    "slstm": _Recurrent(ssm_mod.init_slstm, ssm_mod.slstm_fwd,
+                        ssm_mod.slstm_decode, ssm_mod.init_slstm_state),
+}
+_STATES = (ssm_mod.MambaState, ssm_mod.MLSTMState, ssm_mod.SLSTMState)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if set(cfg.block_pattern) != {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: only attention-only stacks (dense, MoE or "
-            "encoder-decoder) are ported")
+    unknown = set(cfg.block_pattern) - {"attn", *_RECURRENT}
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
+    if cfg.mrope:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported")
+
+
+def _block_kind(cfg: ModelConfig, i: int) -> str:
+    """The block kind of layer ``i``: its position in the period."""
+    return cfg.block_pattern[i % len(cfg.block_pattern)]
+
+
+def _mixer(p: dict) -> str:
+    """The block kind of a layer's parameters."""
+    return next(k for k in ("attn", *_RECURRENT) if k in p)
 
 
 def _ffn_kind(cfg: ModelConfig, j: int) -> str:
@@ -69,8 +108,12 @@ def _apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, i: int, *,
                 cross: bool = False) -> dict:
     init_n, _ = _norm(cfg)
-    p: dict[str, Any] = {"norm1": init_n(cfg.d_model, gen.device),
-                         "attn": attn_mod.init_attention(gen, cfg)}
+    kind = _block_kind(cfg, i)
+    p: dict[str, Any] = {"norm1": init_n(cfg.d_model, gen.device)}
+    if kind == "attn":
+        p["attn"] = attn_mod.init_attention(gen, cfg)
+    else:
+        p[kind] = _RECURRENT[kind].init(gen, cfg)
     if cross:
         p["norm_x"] = init_n(cfg.d_model, gen.device)
         p["cross"] = attn_mod.init_attention(gen, cfg)
@@ -84,26 +127,34 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, i: int, *,
     return p
 
 
-def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Full LM parameter tree on ``gen``'s device, drawn from ``gen``."""
+def init_lm(gen: torch.Generator, cfg: ModelConfig, *,
+            policy: OffloadPolicy | None = None) -> dict:
+    """Full LM parameter tree on ``gen``'s device, drawn from ``gen``.
+    With ``policy`` each layer is quantized as soon as it is drawn (then
+    the embedding and the head), so that only one layer is ever held in
+    bf16: the same tree as ``quantize_params(init_lm(gen, cfg), policy)``."""
     _check_supported(cfg)
     init_n, _ = _norm(cfg)
+
+    def q(tree):
+        return tree if policy is None else quantize_params(tree, policy)
     p: dict[str, Any] = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model),
-        "layers": [_init_layer(gen, cfg, i, cross=cfg.is_enc_dec)
+        "layers": [q(_init_layer(gen, cfg, i, cross=cfg.is_enc_dec))
                    for i in range(cfg.num_layers)],
         "final_norm": init_n(cfg.d_model, gen.device),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size,
-                                   role="lm_head")
+        p["lm_head"] = q(init_linear(gen, cfg.d_model, cfg.vocab_size,
+                                     role="lm_head"))
     if cfg.is_enc_dec:
         # The encoder's blocks are plain attention + MLP at the same width.
         p["encoder"] = {
-            "layers": [_init_layer(gen, cfg, 0)
+            "layers": [q(_init_layer(gen, cfg, 0))
                        for _ in range(cfg.encoder_layers)],
             "final_norm": init_n(cfg.d_model, gen.device),
         }
+    p["embed"] = q(p["embed"])
     return p
 
 
@@ -117,9 +168,13 @@ def _block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, positions, *,
                causal: bool, enc_out: torch.Tensor | None = None
                ) -> torch.Tensor:
     h = _apply_norm(cfg, p["norm1"], x)
-    x = x + attn_mod.attention_fwd(p["attn"], cfg, h, positions,
-                                   causal=causal,
-                                   rope=cfg.pos_embed == "rope")
+    kind = _mixer(p)
+    if kind == "attn":
+        x = x + attn_mod.attention_fwd(p["attn"], cfg, h, positions,
+                                       causal=causal,
+                                       rope=cfg.pos_embed == "rope")
+    else:
+        x = x + _RECURRENT[kind].fwd(p[kind], cfg, h)
     if enc_out is not None and "cross" in p:
         h = _apply_norm(cfg, p["norm_x"], x)
         x = x + attn_mod.attention_fwd(p["cross"], cfg, h, positions,
@@ -238,9 +293,16 @@ class LayerCache(NamedTuple):
     cross_v: torch.Tensor
 
 
-def _kv(c) -> attn_mod.KVCache:
-    """The self-attention KV cache of one layer's entry."""
-    return c.kv if isinstance(c, LayerCache) else c
+def _kv(c) -> attn_mod.KVCache | None:
+    """The self-attention KV cache of one layer's entry (None for a
+    recurrent layer's state)."""
+    if isinstance(c, LayerCache):
+        return c.kv
+    return c if isinstance(c, attn_mod.KVCache) else None
+
+
+def _kv_caches(cache: list) -> list:
+    return [kv for kv in map(_kv, cache) if kv is not None]
 
 
 def init_cache(params: dict, cfg: ModelConfig, batch: int, max_len: int, *,
@@ -250,10 +312,12 @@ def init_cache(params: dict, cfg: ModelConfig, batch: int, max_len: int, *,
                num_blocks: int | None = None,
                cross_block_size: int | None = None,
                cross_num_blocks: int | None = None, device="cuda") -> list:
-    """One cache per layer: with ``block_size``/``num_blocks`` a paged KV
-    pool (num_blocks, Hkv, block_size, hd), whose slot -> block mapping
-    lives host-side in ``serving.kvcache``; otherwise contiguous rows
-    (batch, Hkv, min(max_len, sliding_window), hd).
+    """One cache per layer.  An attention layer gets, with
+    ``block_size``/``num_blocks``, a paged KV pool (num_blocks, Hkv,
+    block_size, hd), whose slot -> block mapping lives host-side in
+    ``serving.kvcache``; otherwise contiguous rows (batch, Hkv,
+    min(max_len, sliding_window), hd).  A recurrent layer gets its fresh
+    decode state of ``batch`` rows either way (one per serving slot).
 
     An encoder-decoder stack gets a :class:`LayerCache` per layer.  Its
     cross KV is by default computed here from ``enc_embeds`` (B_enc,
@@ -272,15 +336,18 @@ def init_cache(params: dict, cfg: ModelConfig, batch: int, max_len: int, *,
     if paged_cross and not cfg.is_enc_dec:
         raise ValueError("cross pool requested for a non-enc-dec config")
     device = resolve_device(device)
-    if block_size is not None:
-        kvs = [attn_mod.init_paged_kv_cache(num_blocks, cfg, block_size,
-                                            quantized=quantized_kv,
-                                            device=device)
-               for _ in range(cfg.num_layers)]
-    else:
-        kvs = [attn_mod.init_kv_cache(batch, cfg, max_len,
+
+    def layer(i: int):
+        kind = _block_kind(cfg, i)
+        if kind != "attn":
+            return _RECURRENT[kind].state(batch, cfg, device)
+        if block_size is not None:
+            return attn_mod.init_paged_kv_cache(num_blocks, cfg, block_size,
+                                                quantized=quantized_kv,
+                                                device=device)
+        return attn_mod.init_kv_cache(batch, cfg, max_len,
                                       quantized=quantized_kv, device=device)
-               for _ in range(cfg.num_layers)]
+    kvs = [layer(i) for i in range(cfg.num_layers)]
     if not cfg.is_enc_dec:
         return kvs
     if paged_cross:
@@ -350,7 +417,7 @@ def _block_cross(p: dict, cfg: ModelConfig, x: torch.Tensor, c: LayerCache,
 
 
 def _is_quantized(cache: list) -> bool:
-    return any(_kv(c).k_scale is not None for c in cache)
+    return any(kv.k_scale is not None for kv in _kv_caches(cache))
 
 
 def lm_decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -363,16 +430,18 @@ def lm_decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     int32 selects the paged cache (per-slot positions required), else
     the cache is contiguous.  ``cross_tables`` (B, MBc) int32 selects an
     encoder-decoder stack's paged cross pool, else its contiguous cross
-    rows are read.  -> (logits (B, 1, V) f32, cache updated in place)."""
+    rows are read.  A recurrent layer steps its state, whatever the
+    position.  -> (logits (B, 1, V) f32, cache updated in place)."""
     _check_supported(cfg)
     x = L.apply_embedding(params["embed"], token)
     per_row = isinstance(pos, torch.Tensor) and pos.dim() > 0
     pos_tensors = None
+    kvs = _kv_caches(cache)
     if not per_row:
         pos = attn_mod._as_int(pos)
-        if block_tables is None:       # shared by every layer's cache
+        if block_tables is None and kvs:   # shared by every layer's cache
             pos_tensors = attn_mod.scalar_pos_tensors(
-                cfg, pos, token.shape[0], _kv(cache[0]).capacity, x.device)
+                cfg, pos, token.shape[0], kvs[0].capacity, x.device)
     if cfg.pos_embed == "sinusoidal":
         if per_row:                    # one computation over the rows
             x = x + _sinusoidal_at(pos.to(x.device), cfg.d_model)[:, None]
@@ -383,9 +452,14 @@ def lm_decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     new = []
     for p, c in zip(params["layers"], cache):
         h = _apply_norm(cfg, p["norm1"], x)
-        y, _ = attn_mod.attention_decode(p["attn"], cfg, h, pos, _kv(c),
-                                         rope=rope, block_tables=block_tables,
-                                         pos_tensors=pos_tensors)
+        kind = _mixer(p)
+        if kind == "attn":
+            y, _ = attn_mod.attention_decode(p["attn"], cfg, h, pos, _kv(c),
+                                             rope=rope,
+                                             block_tables=block_tables,
+                                             pos_tensors=pos_tensors)
+        else:
+            y, _ = _RECURRENT[kind].decode(p[kind], cfg, h, c)
         new.append(c)
         x = x + y
         if "cross" in p:
@@ -519,30 +593,42 @@ def lm_verify_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------- slot cache surgery
 # Chunked prefill runs at batch 1 for the slot being admitted.  Paged KV
 # pools need no carving (the block table isolates the slot); contiguous
-# cross rows are sliced to the slot's row (a view); there are no
-# recurrent states to reset yet.
+# cross rows and recurrent states are sliced to the slot's row, as views
+# that the prefill updates in place.
 
 def cache_slot_view(cache: list, slot: int, *,
                     paged_cross: bool = False) -> list:
     """Batch-1 view of ``slot``'s rows.  ``paged_cross`` passes a paged
     cross pool through (the slot's cross-table row isolates it)."""
-    if paged_cross:
-        return cache
-    return [c._replace(cross_k=c.cross_k[slot:slot + 1],
-                       cross_v=c.cross_v[slot:slot + 1])
-            if isinstance(c, LayerCache) else c for c in cache]
+    def view(c):
+        if isinstance(c, _STATES):
+            return type(c)(*(t[slot:slot + 1] for t in c))
+        if isinstance(c, LayerCache) and not paged_cross:
+            return c._replace(cross_k=c.cross_k[slot:slot + 1],
+                              cross_v=c.cross_v[slot:slot + 1])
+        return c
+    return [view(c) for c in cache]
 
 
 def cache_slot_merge(cache: list, local: list, slot: int) -> list:
-    """Fold a batch-1 view back: the KV pools were updated in place and
-    cross KV is read-only, so the full cache is the result."""
+    """Fold a batch-1 view back: the KV pools and the recurrent rows were
+    updated in place and cross KV is read-only, so the full cache is the
+    result."""
     del local, slot
     return cache
 
 
 def cache_slot_reset(cache: list, slot: int) -> list:
     """A freshly admitted slot inherits nothing from its previous
-    occupant: paged KV is masked by position, and the port has no
-    recurrent states yet."""
-    del slot
+    occupant: paged KV is masked by position, and every field of the
+    slot's recurrent states is set to zero, in place.  Zero, as the
+    reference writes, and not the fresh state: an mLSTM or sLSTM
+    stabiliser ``m`` starts at -1e30 in ``init_cache`` but at 0 after a
+    reset.  mLSTM's outputs do not depend on it; sLSTM's do (``h = o * c
+    / max(n, 1)``), so a served xLSTM request differs from the same
+    prompt through ``greedy_generate``, in both packages alike."""
+    for c in cache:
+        if isinstance(c, _STATES):
+            for t in c:
+                t[slot].zero_()
     return cache

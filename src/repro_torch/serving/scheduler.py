@@ -121,8 +121,9 @@ def make_paged_decode(cfg: ModelConfig):
 
 
 def make_prefill_chunk(cfg: ModelConfig, *, fused: bool = True):
-    """Batch-1 chunked prefill for one slot (the slot view/merge are the
-    identity for a pure-attention paged cache)."""
+    """Batch-1 chunked prefill for one slot: the slot view carves the
+    slot's recurrent rows (a pure-attention paged cache passes through)
+    and the prefill updates them in place."""
     def prefill(params, tokens, pos0, slot, block_row, cache):
         local = cache_slot_view(cache, slot)
         logits, local = lm_prefill_chunk(params, cfg, tokens, pos0, local,
@@ -497,6 +498,7 @@ class ContinuousBatcher(ev.EventStreamMixin):
             self.slots[i] = req
             req._cursor = reused
             self._pending[i] = list(req._feed[reused:])
+            # Zero the slot's recurrent rows (the reference's reset).
             self.cache = cache_slot_reset(self.cache, i)
             if self.spec is not None:
                 # The draft pool covers every slot fully and has no

@@ -100,6 +100,11 @@ def test_import_and_engine_leave_jax_unloaded():
         "sys.argv = ['serve', '--arch', 'whisper-large-v3', '--asr', '--device', 'cpu',\n"
         "    '--slots', '2', '--requests', '3', '--gen', '2']\n"
         "S.main()\n"
+        "import repro_torch.models.ssm\n"
+        "for arch in ('xlstm-1.3b', 'jamba-1.5-large-398b'):\n"
+        "    sys.argv = ['serve', '--arch', arch, '--device', 'cpu',\n"
+        "        '--slots', '2', '--requests', '3', '--gen', '2']\n"
+        "    S.main()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n")

@@ -395,18 +395,26 @@ def test_lm_forward_matches(granite):
 
 
 def test_unported_stacks_raise():
+    """What is still refused: qwen2-vl-72b, and any config with M-RoPE
+    (xLSTM and hybrid stacks build since models.ssm was ported)."""
     with pytest.raises(NotImplementedError):
-        tget_config("xlstm-1.3b")
+        tget_config("qwen2-vl-72b")
+    mrope = tbase.reduced(tbase.ModelConfig(
+        name="v", family="vlm", num_layers=2, d_model=64, num_heads=4,
+        num_kv_heads=2, d_ff=128, vocab_size=96, mrope=True))
+    with pytest.raises(NotImplementedError):
+        tT.init_cache({}, mrope, 1, 8, block_size=4, num_blocks=4, device="cpu")
     hybrid = tbase.reduced(tbase.ModelConfig(
         name="h", family="hybrid", num_layers=2, d_model=64, num_heads=4,
         num_kv_heads=2, d_ff=128, vocab_size=96, block_pattern=("attn", "mamba")))
-    with pytest.raises(NotImplementedError):
-        tT.init_cache({}, hybrid, 1, 8, block_size=4, num_blocks=4, device="cpu")
+    cache = tT.init_cache({}, hybrid, 1, 8, block_size=4, num_blocks=4, device="cpu")
+    assert type(cache[1]).__name__ == "MambaState"
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "llama3-405b", "h2o-danube-3-4b",
                                   "qwen1.5-110b", "deepseek-moe-16b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "moonshot-v1-16b-a3b", "xlstm-1.3b",
+                                  "jamba-1.5-large-398b"])
 def test_configs_copied(arch):
     import dataclasses
     assert dataclasses.asdict(tget_config(arch)) == {
