@@ -252,12 +252,47 @@ caught and passed over):
              synchronised decode step and decode quantum, ms per
              scan-prefill token, a profile of one decode step and one decode
              quantum, peak memory, the phase's seconds.
+13. full_vlm — qwen2-vl-72b at full width and depth (80 layers, d 8192,
+             64/8 heads of 128, M-RoPE, d_ff 29568, vocab 152064) under q3_k,
+             drawn and quantized layer by layer on the card (every down
+             projection dense bf16: K = 29568 is no multiple of 256; peak
+             logged against the 63 GB reckoning).  make_prefill on 2 rows of
+             a 256-patch vision prefix and 16 tokens: the bits of
+             lm_forward(prefix_embeds=..., last_only=True), differing from the
+             same text without the prefix; every layer's kernel path against
+             its plain path (every kernel routed to its plain version) on the
+             same input within VLM_LAYER_REL; greedy_generate of 2 prompts x
+             16 new with exact launches per decode step (480 q3k_matmul, 1
+             q8_matmul, 80 flash_decode, 80 cuBLAS down projections) and its
+             replay; a 4-request ContinuousBatcher (bf16 KV, fused prefill)
+             with exact launches.  Then an 8-layer cut at full width under
+             q3_k and q8_0: greedy_generate's replay and each served
+             request's logits against lm_forward under GEN_LOGIT_TOL /
+             GEN_TIE_MARGIN, or where that does not hold one-sided to an f32
+             lm_forward of the same weights (``_check_witness``).
+14. full_train — tiny_train (reduced(granite-8b), one step on the CPU and
+             the card: losses within the attention limit, flash_attention
+             twice per layer under remat="block"); granite-8b at full width:
+             36 layers with Q8_0 moments and remat="block", 1 x 512 tokens,
+             3 steps on one batch (the loss falls at every step, the
+             parameters change, 72 flash_attention launches a step; step
+             time, a profiled step, peak against the 51 GB reckoning); a
+             4-layer cut, 2 x 512: loss and every gradient leaf of the kernel
+             path (flash_attention's forward, the plain backward) against the
+             all-plain path within TRAIN_GRAD_REL (else one-sided to the f32
+             gradient), exact launches under remat "none" and "block", one
+             step each with microbatch=1, gradient compression and f32
+             moments; then ``python -m repro_torch.launch.train --reduced
+             --device cuda`` with checkpoints every 2 steps: a run stopped
+             after step 2 and resumed has the uninterrupted run's step-4
+             parameters and optimizer state bit for bit, and a rerun resumes
+             at step 4.
 
 Progress goes to stderr.  Standard output gets three lines at the end of
 a run that passed: the card's name and power limit as ``nvidia-smi``
 gives them, a JSON object ``{"kernels": [...]}`` (per kernel: launches
 on the main paths, phases full, full_lm, full_gen, full_router,
-full_fleet, full_moe, full_asr and full_ssm, and for
+full_fleet, full_moe, full_asr, full_ssm, full_vlm and full_train, and for
 ``q8_matmul_w8a8`` through its entry point; worst error; the headline
 shape's times and bound), and ``{"ok": true, "device": {...}}``.
 """
@@ -266,6 +301,8 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -335,6 +372,11 @@ ATTN_ASR_SHAPES = [(1, 20, 1500, 1500, 64, False, None),
 # 2 rows of 39 tokens, and over one served request of 55 (the LM shapes'
 # allowance: the first causal rows see a handful of keys).
 ATTN_SSM_SHAPES = [(2, 64, 39, 39, 128, True, None), (1, 64, 55, 55, 128, True, None)]
+# qwen2-vl-72b (phase full_vlm; its shapes are listed there) and
+# granite-8b's training (phase full_train): the full-depth step's 1 x 512
+# tokens and the 4-layer cut's 2 x 512, causal, KV heads repeated to 32
+# (the LM shapes' allowance).
+ATTN_TRAIN_SHAPES = [(1, 32, 512, 512, 128, True, None), (2, 32, 512, 512, 128, True, None)]
 ATTN_EDGE = [
     (1, 2, 100, 300, 48, True, 50),        # Sq < Sk, causal + window
     (1, 2, 130, 70, 16, True, None),       # Sq > Sk: rows with no key -> 0
@@ -633,7 +675,7 @@ def _attn_case(shape, gen, timed: bool) -> dict:
     torch.cuda.synchronize()
     diff = (out.float() - want.float()).abs()
     err = diff.max().item()
-    lm_rows = (shape in ATTN_LM_SHAPES + ATTN_SSM_SHAPES
+    lm_rows = (shape in ATTN_LM_SHAPES + ATTN_SSM_SHAPES + ATTN_VLM_SHAPES + ATTN_TRAIN_SHAPES
                or (causal and shape in ATTN_ASR_SHAPES))
     atol = ATTN_ABS + (ATTN_P_ROUND * v.float().abs().max().item() if lm_rows else 0.0)
     excess = (diff - atol - ATTN_REL * want.float().abs()).max().item()
@@ -641,6 +683,8 @@ def _attn_case(shape, gen, timed: bool) -> dict:
         raise AssertionError(f"flash_attention {shape}: max|err| {err}; some "
                              f"|err| exceeds {atol} + {ATTN_REL}*|ref| "
                              f"by {excess}")
+    if not torch.equal(kern(), out):
+        raise AssertionError(f"flash_attention {shape}: a second call gave other bits")
     row = {"shape": shape, "max_abs_err": err}
     if timed:
         qpos = torch.arange(sq)[:, None] + (sk - sq)
@@ -899,24 +943,29 @@ def phase_kernels() -> dict[str, list[dict]]:
     # Each kernel's later slices' cases follow its earlier ones, so that
     # they change none of the earlier cases' inputs.
     for shape in (ATTN_SHAPES + ATTN_LM_SHAPES + ATTN_EDGE + ATTN_ASR_SHAPES
-                  + ATTN_SSM_SHAPES):
+                  + ATTN_SSM_SHAPES + ATTN_VLM_SHAPES + ATTN_TRAIN_SHAPES):
         rows["flash_attention"].append(
             _attn_case(shape, gens["flash_attention"], timed=shape not in ATTN_EDGE))
-    timed_later = ASR_Q8_SHAPES + SSM_Q8_SHAPES + SSM_Q3K_SHAPES
+    timed_later = (ASR_Q8_SHAPES + SSM_Q8_SHAPES + SSM_Q3K_SHAPES + VLM_Q8_SHAPES
+                   + VLM_Q3K_SHAPES)
     for kind, shapes, edges, later in (
             ("q8_matmul", Q8_SHAPES, Q8_EDGE,
-             ASR_Q8_SHAPES + ASR_Q8_EDGE + SSM_Q8_SHAPES + SSM_Q8_EDGE),
-            ("q3k_matmul", Q3K_SHAPES, Q3K_EDGE, SSM_Q3K_SHAPES + SSM_Q3K_EDGE),
+             ASR_Q8_SHAPES + ASR_Q8_EDGE + SSM_Q8_SHAPES + SSM_Q8_EDGE + VLM_Q8_SHAPES
+             + VLM_Q8_EDGE),
+            ("q3k_matmul", Q3K_SHAPES, Q3K_EDGE,
+             SSM_Q3K_SHAPES + SSM_Q3K_EDGE + VLM_Q3K_SHAPES + VLM_Q3K_EDGE),
             ("q4_matmul", Q4_SHAPES, Q4_EDGE, []),
             ("q8_matmul_w8a8", W8A8_SHAPES, W8A8_EDGE, [])):
         for shape in shapes + edges + later:
             timed = shape in shapes or shape in timed_later
             rows[kind].append(_matmul_case(kind, shape, gens[kind], timed=timed))
-    for case in FLASH_DECODE_SHAPES + FLASH_DECODE_EDGE + ASR_FLASH_DECODE + SSM_FLASH_DECODE:
+    for case in (FLASH_DECODE_SHAPES + FLASH_DECODE_EDGE + ASR_FLASH_DECODE + SSM_FLASH_DECODE
+                 + VLM_FLASH_DECODE):
         rows["flash_decode"].append(_flash_decode_case(
             case, gens["flash_decode"],
             timed=case in FLASH_DECODE_SHAPES or case in (ASR_FLASH_DECODE[0],
-                                                          SSM_FLASH_DECODE[0])))
+                                                          SSM_FLASH_DECODE[0],
+                                                          VLM_FLASH_DECODE[0])))
     for kind, shapes, edges, later in (
             ("q8_matmul", Q8_EXPERT_SHAPES, Q8_EXPERT_EDGE, []),
             ("q3k_matmul", Q3K_EXPERT_SHAPES, Q3K_EXPERT_EDGE,
@@ -4327,6 +4376,662 @@ def phase_full_ssm(card: str) -> dict[str, int]:
     return totals
 
 
+# ------------------------------------------------------------- full_vlm
+# qwen2-vl-72b at full width (80 layers, d 8192, 64/8 heads of 128, d_ff
+# 29568, vocab 152064) under q3_k, drawn layer by layer: q, k, v, o, gate
+# and up as Q3_K (21.8 GB), every down projection dense bf16 (K = 29568 is
+# no multiple of 256: 38.8 GB), the embedding and the head Q8_0 (2.65 GB).
+VLM_RECKON_GB = 63.2
+VLM_ROWS, VLM_TEXT = 2, 16               # make_prefill: 2 rows, 256 patches + 16 tokens
+VLM_GEN_PROMPT, VLM_GEN_NEW = 16, 16     # greedy_generate: 2 prompts x 16 new
+VLM_PROMPTS, VLM_NEW = (40, 72, 56, 90), 8
+VLM_KW = dict(slots=4, block_size=16, prefill_chunk=64)
+VLM_CUT = 8                              # the whole-model comparisons' depth
+VLM_CUT_PRESETS = ("q3_k", "q8_0")
+# Each layer's kernel path against its plain path (every kernel routed to
+# its plain version) on the same input: max|diff| / max|out|, two bf16
+# ulps of the layer's largest output, as SSM_LAYER_REL.
+VLM_LAYER_REL = 2.0 ** -6
+BF16_ULP = 2.0 ** -7       # one bf16 ulp, relative: at most 2^-7 of |x|
+# Per decode step of the 80-layer stack under q3_k: q, k, v, o, gate and
+# up of each layer through q3k_matmul, the q8_0 head through q8_matmul,
+# one flash_decode per layer, and each layer's dense down projection on
+# cuBLAS (counted at qlinear.dense_matmul).
+VLM_STEP_WANT = {"q3k_matmul": 480, "q8_matmul": 1, "flash_decode": 80, "dense": 80}
+# The kernel rows at qwen2-vl's shapes.  flash_attention: make_prefill's
+# causal self-attention over 256 patches + 16 tokens (KV heads repeated to
+# 64), and lm_forward at the 8-layer cut over 2 x 31 tokens.  q3k_matmul:
+# the decode linears at greedy_generate's 2 rows (q/o, k/v, gate/up) and
+# the batcher's 4; make_prefill's 544 rows and the batcher's 64-token
+# chunk (tile path).  q8_matmul: the head (N = 152064) at 2 rows and the
+# q8_0 cut's linears (down: K = 29568); lm_forward's 62 rows (tile path).
+# flash_decode: 2 rows, Hkv 8, G 8, hd 128 on a 32-slot cache read at 31,
+# 1 and 16 keys (the few-key rule).
+ATTN_VLM_SHAPES = [(2, 64, 272, 272, 128, True, None), (2, 64, 31, 31, 128, True, None)]
+VLM_NK = [(8192, 8192), (1024, 8192), (29568, 8192)]
+VLM_Q3K_SHAPES = [(2, n, k) for n, k in VLM_NK]
+VLM_Q3K_EDGE = ([(4, 29568, 8192)] + [(544, n, k) for n, k in VLM_NK]
+                + [(64, 29568, 8192)])
+VLM_Q8_SHAPES = [(2, 152064, 8192)] + [(2, n, k) for n, k in VLM_NK] + [(2, 8192, 29568)]
+VLM_Q8_EDGE = [(4, 152064, 8192), (32, 152064, 8192), (62, 29568, 8192),
+               (62, 8192, 29568)]
+VLM_FLASH_DECODE = [(2, 8, 8, 128, 32, n) for n in (31, 1, 16)]
+
+
+class _DenseCount:
+    """Count ``qlinear.dense_matmul`` calls: the dense linears (cuBLAS on
+    the card)."""
+
+    def __enter__(self):
+        from repro_torch.core import qlinear
+        self.mod, self.inner, self.calls = qlinear, qlinear.dense_matmul, 0
+
+        def counted(x, w):
+            self.calls += 1
+            return self.inner(x, w)
+        qlinear.dense_matmul = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dense_matmul = self.inner
+
+
+class _PlainOps:
+    """Route every kernel entry of ``ops`` to its plain version on the card
+    (the dispatch takes the CUDA tensors for the CPU's): the all-plain path
+    a kernel path is held to."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.inner = ops, ops._on_card
+        ops._on_card = lambda t: False
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._on_card = self.inner
+
+
+def _vlm_inputs(cfg, rows: int, text: int, seed: int):
+    from repro_torch.models.frontend import synthetic_frontend, vision_frontend_shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(1, cfg.vocab_size, (rows, text), generator=gen, device="cuda")
+    return tokens, synthetic_frontend(gen, vision_frontend_shape(cfg, rows))
+
+
+def _vlm_prefill(card: str, cfg, params) -> dict:
+    """make_prefill on 2 rows of a 256-patch prefix and 16 tokens: the bits
+    of lm_forward(prefix_embeds=..., last_only=True); lm_forward's last row
+    with the head over every position (tile path) within MATMUL_RTOL; the
+    same text without the prefix differs; exact launches; each layer's
+    kernel path against its plain path."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.train.serve_step import make_prefill
+    tokens, prefix = _vlm_inputs(cfg, VLM_ROWS, VLM_TEXT, SEED + 51)
+    prefill = make_prefill(cfg, device="cuda")
+    batch = {"tokens": tokens, "prefix_embeds": prefix}
+    layers = cfg.num_layers
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with _DenseCount() as dense:
+            logits = prefill(params, batch)
+        counts = ops.launch_counts()
+        want = _stack_want(params, 1, {"flash_attention": layers})
+        if counts != want or dense.calls != layers:
+            raise AssertionError(f"full_vlm make_prefill: launches {counts} and {dense.calls} "
+                                 f"dense, expected {want} and {layers}")
+        same = lm_forward(params, cfg, tokens, prefix_embeds=prefix, last_only=True)[0][:, -1]
+        full = lm_forward(params, cfg, tokens, prefix_embeds=prefix)[0][:, -1]
+        bare = prefill(params, {"tokens": tokens})
+    # The head's f32 sums (decode path at 2 rows, tile path at 32) are
+    # rounded to bf16 logits: the two may sit one bf16 ulp apart.
+    head_err = (full - logits).abs().max().item()
+    head_excess = ((full - logits).abs() - BF16_ULP * full.abs()).max().item()
+    moved = (bare - logits).abs().max().item()
+    tol = MATMUL_RTOL * max(1.0, full.abs().max().item())
+    log(f"[full_vlm] make_prefill {tuple(tokens.shape)} + prefix {tuple(prefix.shape)}: "
+        f"logits {tuple(logits.shape)} finite {bool(torch.isfinite(logits).all())}; the bits "
+        f"of lm_forward(last_only) {torch.equal(same, logits)}; lm_forward's head over every "
+        f"position within {head_err:.3e} (limit {tol:.3e} + one bf16 ulp); without the prefix {moved:.4f} "
+        f"away; launches {counts}, {dense.calls} dense")
+    if not (torch.isfinite(logits).all() and torch.equal(same, logits)
+            and head_excess <= tol and moved > GEN_LOGIT_TOL):
+        raise AssertionError("full_vlm make_prefill: not the bits of lm_forward(last_only), "
+                             f"or the full head {head_err} > {tol}, or the prefix moved the "
+                             f"logits only {moved}")
+    ms = cuda_ms(lambda: prefill(params, batch), iters=3, warmup=1)
+    log(f"[full_vlm] make_prefill: {ms:.2f} ms per call ({VLM_ROWS} x "
+        f"{prefix.shape[1] + VLM_TEXT} tokens, event time); {card}")
+    with torch.no_grad():
+        _profile("qwen2-vl-72b q3_k make_prefill", lambda: prefill(params, batch))
+        rels = _layers_kernel_vs_plain(params, cfg, tokens, prefix)
+    worst = max(rels)
+    log(f"[full_vlm] each of {len(rels)} layers, kernel path vs plain path on the same "
+        f"input: max|diff| / max|out| {min(rels):.5f}-{worst:.5f} (limit "
+        f"{VLM_LAYER_REL:.5f}); layers 0-7 {[round(r, 5) for r in rels[:8]]}")
+    if not worst <= VLM_LAYER_REL:
+        raise AssertionError(f"full_vlm: layer {rels.index(worst)}'s kernel path is {worst} of "
+                             f"its largest output from its plain path > {VLM_LAYER_REL}")
+    return counts
+
+
+def _layers_kernel_vs_plain(params, cfg, tokens, prefix) -> list:
+    """Every layer run twice on the kernel path's own input (make_prefill's
+    prefix and text): with the kernels and with every kernel routed to its
+    plain version.  -> per layer max|diff| / max|plain output|."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    x = torch.cat([prefix, L.apply_embedding(params["embed"], tokens)], 1)
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    rels = []
+    for p in params["layers"]:
+        y, _ = T._layer_fwd(p, cfg, x, pos, causal=True)
+        with _PlainOps():
+            want, _ = T._layer_fwd(p, cfg, x, pos, causal=True)
+        rels.append(((y.float() - want.float()).abs().max()
+                     / want.float().abs().max()).item())
+        x = y
+    return rels
+
+
+def _vlm_gen(card: str, cfg, params, preset: str, whole: bool) -> dict:
+    """greedy_generate of 2 prompts x 16 new tokens (counted per step), the
+    make_decode replay reproducing its tokens, and a profile of one decode
+    step.  ``whole``: also hold the replay to lm_forward (at the cut)."""
+    from repro_torch.core.quant import QTYPES
+    from repro_torch.kernels import ops
+    from repro_torch.train.serve_step import greedy_generate, make_decode, make_prefill
+    prompts = torch.randint(1, cfg.vocab_size, (VLM_ROWS, VLM_GEN_PROMPT),
+                            generator=torch.Generator(device="cuda").manual_seed(SEED + 53),
+                            device="cuda")
+    steps, max_len = VLM_GEN_PROMPT + VLM_GEN_NEW - 1, VLM_GEN_PROMPT + VLM_GEN_NEW
+    label = f"{cfg.name} {cfg.num_layers} layers weights={preset} greedy_generate"
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), _DenseCount() as dense:
+        out = greedy_generate(params, cfg, prompts, VLM_GEN_NEW, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = _stack_want(params, steps, {"flash_decode": cfg.num_layers * steps})
+    dense_want = sum(not isinstance(lp["mlp"]["down"].w, QTYPES) for lp in params["layers"])
+    if counts != want or dense.calls != dense_want * steps:
+        raise AssertionError(f"full_vlm {label}: launches {counts} and {dense.calls} dense, "
+                             f"expected {want} and {dense_want * steps}")
+    per_step = {k: v // steps for k, v in counts.items() if v}
+    per_step["dense"] = dense.calls // steps
+    if cfg.num_layers == 80 and preset == "q3_k" and per_step != VLM_STEP_WANT:
+        raise AssertionError(f"full_vlm {label}: per step {per_step}, expected {VLM_STEP_WANT}")
+    dec, times, cache = _replay(params, cfg, out, steps, max_len)
+    if not torch.isfinite(dec).all() or not torch.equal(
+            dec[:, VLM_GEN_PROMPT - 1:].argmax(-1).to(out.dtype), out[:, VLM_GEN_PROMPT:]):
+        raise AssertionError(f"full_vlm {label}: the make_decode replay does not reproduce "
+                             "greedy_generate's tokens")
+    if whole:
+        with torch.no_grad():
+            first = make_prefill(cfg, device="cuda")(params, {"tokens": prompts}).argmax(-1).cpu()
+        _vlm_whole(label, params, cfg, out, dec, first)
+    step_ms = 1e3 * sum(times[2:]) / (steps - 2)
+    log(f"[full_vlm] {label}: {steps} decode steps of {VLM_ROWS} rows in {wall:.2f} s; "
+        f"{step_ms:.2f} ms per synchronised decode step; per step {per_step}; {card}")
+    decode = make_decode(cfg, device="cuda")
+    with torch.no_grad():
+        tok = out[:, -1:]
+        _profile(f"{label} decode step", lambda: decode(params, tok, steps, cache))
+    del dec, cache
+    return counts
+
+
+def _vlm_whole(label: str, params, cfg, out, dec, first) -> None:
+    """The decode replay against lm_forward under GEN_LOGIT_TOL /
+    GEN_TIE_MARGIN; where that does not hold, one-sided to an f32 replay
+    of the same weights (``_check_witness``)."""
+    from repro_torch.models.transformer import lm_forward
+    with torch.no_grad():
+        fwd = lm_forward(params, cfg, out[:, :-1])[0]
+    worst = (dec - fwd).abs().max().item()
+    top = fwd[:, VLM_GEN_PROMPT - 1:].topk(2, dim=-1)
+    margin = top.values[..., 0] - top.values[..., 1]
+    flips = (top.indices[..., 0] != out[:, VLM_GEN_PROMPT:]) & (margin > GEN_TIE_MARGIN)
+    del fwd, top
+    if worst <= GEN_LOGIT_TOL and not flips.any():
+        _check_gen_against_forward(params, cfg, out, dec, first, prompt=VLM_GEN_PROMPT,
+                                   label=f"full_vlm {label}")
+        return
+    log(f"[full_vlm] {label}: the replay is {worst:.4f} from lm_forward (limit "
+        f"{GEN_LOGIT_TOL}), {int(flips.sum())} tokens off its argmax above "
+        f"{GEN_TIE_MARGIN}: held to the f32 witness")
+    exact = _f32_forward(params, cfg, out[:, :-1])
+    _check_gen_against_forward(params, cfg, out, dec, first, prompt=VLM_GEN_PROMPT,
+                               label=f"full_vlm {label}", exact=exact)
+
+
+def _f32_forward(params, cfg, tokens) -> torch.Tensor:
+    """The witness of a whole-model comparison of an attention stack:
+    lm_forward of an f32 copy of the weights (``_f32_params``) with every
+    kernel routed to its plain version, f32 activations throughout."""
+    from repro_torch.models.transformer import lm_forward
+    wide = _f32_params(params)
+    with torch.no_grad(), _PlainOps():
+        exact = lm_forward(wide, cfg, tokens)[0]
+    del wide
+    return exact
+
+
+def _vlm_serve(card: str, cfg, params, preset: str, whole: bool) -> dict:
+    """ContinuousBatcher (4 slots, bf16 KV, fused 64-token chunks) over
+    VLM_PROMPTS: events, exact launches (per chunk and quantum one paged
+    kernel per layer, the quantized linears per forward), finite logits;
+    ``whole``: each request's tapped logits against lm_forward under
+    GEN_LOGIT_TOL / GEN_TIE_MARGIN, else one-sided to an f32 replay of the
+    request alone."""
+    from repro_torch.models.transformer import lm_forward
+    label = f"{cfg.name} {cfg.num_layers} layers weights={preset} serve"
+    reqs, max_len = _ssm_requests(VLM_PROMPTS, cfg.vocab_size, VLM_NEW,
+                                  torch.Generator(device="cuda").manual_seed(SEED + 55))
+    cb, counts, logits, wall = _ssm_serve(cfg, params, reqs, f"full_vlm {label}", "cuda",
+                                          max_len, **VLM_KW)
+    fwd_n = cb.prefill_launches + cb.decode_launches
+    want = _stack_want(params, fwd_n, {
+        "flash_prefill_paged": cfg.num_layers * cb.prefill_launches,
+        "flash_decode_paged": cfg.num_layers * cb.decode_launches})
+    if counts != want:
+        raise AssertionError(f"full_vlm {label}: launches {counts}, expected {want}")
+    if not all(torch.isfinite(v).all() for v in logits.values()):
+        raise AssertionError(f"full_vlm {label}: non-finite logits")
+    if whole:
+        for r in sorted(cb.finished, key=lambda r: r.rid):
+            seq = torch.tensor([r.prompt + r.out[:-1]], device="cuda")
+            with torch.no_grad():
+                fwd = lm_forward(params, cfg, seq)[0][:, len(r.prompt) - 1:]
+            got = logits[r.rid][None]
+            worst = (got - fwd).abs().max().item()
+            top = fwd.topk(2, dim=-1)
+            margin = top.values[..., 0] - top.values[..., 1]
+            flips = (got.argmax(-1) != top.indices[..., 0]) & (margin > GEN_TIE_MARGIN)
+            if worst <= GEN_LOGIT_TOL and not flips.any():
+                log(f"[full_vlm] {label} rid {r.rid}: served logits within {worst:.4f} of "
+                    f"lm_forward's; {int((margin > GEN_TIE_MARGIN).sum())} tokens compared")
+                continue
+            exact = _f32_forward(params, cfg, seq)[:, len(r.prompt) - 1:]
+            _check_witness(f"full_vlm {label} rid {r.rid}", got, fwd, exact,
+                           ("batcher", "lm_forward"))
+    log(f"[full_vlm] {label}: {len(reqs) * VLM_NEW} tokens for {len(reqs)} requests in "
+        f"{wall:.2f} s; quanta {cb.prefill_quanta} prefill / {cb.decode_quanta} decode; "
+        f"launches {counts}; {card}")
+    _profile_lm(cb, label)
+    return counts
+
+
+def phase_full_vlm(card: str) -> dict[str, int]:
+    """qwen2-vl-72b at full width and depth under q3_k (weights drawn and
+    quantized layer by layer on the card): make_prefill with the vision
+    prefix, every layer's kernel path against its plain path,
+    greedy_generate and the batcher with exact launches; then an 8-layer
+    cut at full width under q3_k and q8_0 whose decode replay and served
+    requests are held to lm_forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qlinear import param_bytes, param_count
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+
+    def add(counts):
+        for name, n in counts.items():
+            totals[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-vl-72b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                     policy=get_policy("q3_k"))
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[full_vlm] init qwen2-vl-72b, {cfg.num_layers} layers quantized layer by layer "
+        f"to q3_k: {time.perf_counter() - t_phase:.1f} s, {param_count(params) / 1e9:.2f} B "
+        f"parameters, {param_bytes(params) / 1e9:.2f} GB of weights (reckoned "
+        f"{VLM_RECKON_GB} GB); peak {init_peak:.2f} GB while drawing")
+    torch.cuda.reset_peak_memory_stats()
+    add(_vlm_prefill(card, cfg, params))
+    add(_vlm_gen(card, cfg, params, "q3_k", whole=False))
+    add(_vlm_serve(card, cfg, params, "q3_k", whole=False))
+    log(f"[full_vlm] 80 layers: peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB after "
+        f"init; {card}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=VLM_CUT)
+    for preset in VLM_CUT_PRESETS:
+        params = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 1), cut,
+                         policy=get_policy(preset))
+        add(_vlm_gen(card, cut, params, preset, whole=True))
+        add(_vlm_serve(card, cut, params, preset, whole=True))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[full_vlm] phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return totals
+
+
+# ----------------------------------------------------------- full_train
+# granite-8b trained at full width.  Full depth (36 layers, 8.25 B
+# parameters): bf16 parameters and gradients 16.5 GB each, Q8_0 moments
+# 17.5 GB, about 51 GB before temporaries; f32 moments (66 GB), the f32
+# microbatch accumulator and the f32 compression residual (33 GB each) do
+# not fit beside them, so those options run at a cut of 4 layers.
+TRAIN_RECKON_GB = 51.0
+TRAIN_SEQ, TRAIN_STEPS = 512, 3
+# The full-depth steps' learning rate: the first steps of a warmup.  At
+# TrainConfig's 3e-4 the first Adam step (a sign step of 3e-4 on every one
+# of 8.25 B random weights) overshoots on the fixed batch: the loss rose
+# from 11.31 to 12.38 (NVIDIA H100 80GB HBM3, 700.00 W).
+TRAIN_LR = 1e-5
+TRAIN_CUT, TRAIN_CUT_BATCH = 4, 2
+# Per-leaf gradients of the kernel path (flash_attention's forward) and
+# of the all-plain path on the same weights and batch: max|diff| /
+# max|plain|.  The two round the attention output to bf16 at other
+# points, and the bf16 backward carries that on (the CPU port against the
+# reference measures up to 2.0e-2 per leaf in bf16).  Where a leaf fails,
+# it is held one-sided to the f32 gradient of the same weights: the
+# kernel path no more than TRAIN_GRAD_REL further from it than the plain.
+TRAIN_GRAD_REL = 4e-2
+TRAIN_LOSS_RTOL = 1e-3     # the loss of the two paths (bf16 forward)
+TINY_TRAIN_SEQ = 16
+
+
+def _train_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    from repro_torch.data.pipeline import TokenPipeline
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq, batch=batch, seed=seed)
+    try:
+        return {k: torch.as_tensor(v, device="cuda") for k, v in pipe.make_batch(0).items()}
+    finally:
+        pipe.close()
+
+
+def _tiny_train() -> int:
+    """reduced(granite-8b) with the same weights and batch on the CPU (plain
+    versions) and on the card (flash_attention's forward, twice per layer
+    under remat="block"): the loss and every gradient leaf of one
+    value_and_grad (``_hold_grads``), then one train step's loss, within
+    TRAIN_LOSS_RTOL; exact launches.  -> the card's launches."""
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_loss_fn, make_train_step, value_and_grad
+    cfg = reduced(get_config("granite-8b"))
+    tc = TrainConfig(remat="block")
+    params = init_lm(torch.Generator().manual_seed(SEED), cfg)
+    batch = {k: v.cpu() for k, v in _train_batch(cfg, 2, TINY_TRAIN_SEQ, SEED).items()}
+    out, grads, launches = {}, {}, 0
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)   # the step updates in place
+        ops.reset_launch_counts()
+        (loss, _), grads[dev] = value_and_grad(make_loss_fn(cfg, tc))(
+            p, {k: v.to(dev) for k, v in batch.items()})
+        _, _, _, m = make_train_step(cfg, tc, device=dev)(p, adamw.init_adam(p, tc), None, batch)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        want = {"flash_attention": 2 * 2 * cfg.num_layers} if dev == "cuda" else {}
+        if counts != want:
+            raise AssertionError(f"tiny_train {dev}: launches {counts}, expected {want}")
+        launches += sum(counts.values())
+        out[dev] = {"value_and_grad loss": float(loss), **{k: float(v) for k, v in m.items()}}
+    rels = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+            for k in ("value_and_grad loss", "loss")}
+    log(f"[tiny_train] reduced(granite-8b): cpu {out['cpu']}, cuda {out['cuda']}; losses "
+        f"{rels} apart (limit {TRAIN_LOSS_RTOL})")
+    if not max(rels.values()) <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"tiny_train: the card's losses are {rels} off the CPU's")
+
+    def witness():
+        return value_and_grad(make_loss_fn(cfg, tc))(_f32_params(params), batch)[1]
+    _hold_grads("tiny_train card vs cpu", grads["cuda"], grads["cpu"], witness)
+    return launches
+
+
+def _train_full(card: str) -> int:
+    """(a) 36 layers, Q8_0 moments, remat="block", 1 x 512 tokens, 3 steps
+    on one batch: the loss falls at every step, the parameters change, 72
+    flash_attention launches a step; step time, device time, peak."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.qlinear import param_count
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = get_config("granite-8b")
+    tc = TrainConfig(quantized_moments=True, remat="block", lr=TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, comp = init_train_state(torch.Generator(device="cuda").manual_seed(SEED),
+                                         cfg, tc, init_lm)
+    torch.cuda.synchronize()
+    log(f"[full_train] granite-8b {cfg.num_layers} layers: {param_count(params) / 1e9:.2f} B "
+        f"parameters, init with Q8_0 moments {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    batch = _train_batch(cfg, 1, TRAIN_SEQ, SEED + 61)
+    step = make_train_step(cfg, tc, device="cuda")
+    watch = {"layer 0 wq": params["layers"][0]["attn"]["wq"].w,
+             "layer 35 down": params["layers"][-1]["mlp"]["down"].w,
+             "final norm": params["final_norm"]["g"], "head": params["lm_head"].w}
+    before = {k: v[:64].clone() for k, v in watch.items()}
+    losses, times, launches, total = [], [], 2 * cfg.num_layers, 0
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        params, opt, comp, m = step(params, opt, comp, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        if counts != {"flash_attention": launches}:
+            raise AssertionError(f"full_train step {i}: launches {counts}, expected "
+                                 f"{launches} flash_attention")
+        total += counts["flash_attention"]
+        losses.append(float(m["loss"]))
+        log(f"[full_train] step {i}: loss {losses[-1]:.4f}, grad_norm "
+            f"{float(m['grad_norm']):.4f}, {times[-1]:.2f} s")
+    changed = {k: not torch.equal(watch[k][:64], before[k]) for k in watch}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[full_train] granite-8b 36 layers, 1 x {TRAIN_SEQ}, Q8_0 moments, remat=block, "
+        f"lr {TRAIN_LR}: "
+        f"losses {losses}; parameters changed {changed}; {launches} flash_attention launches "
+        f"a step; step {1e3 * min(times[1:]):.1f} ms synchronised; peak {peak:.2f} GB "
+        f"(reckoned {TRAIN_RECKON_GB} GB + temporaries); {card}")
+    if not (all(b < a for a, b in zip(losses, losses[1:])) and all(changed.values())
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"full_train: the loss did not fall at every step {losses}, or "
+                             f"a parameter did not change {changed}")
+    _profile("granite-8b train step (36 layers, 1 x 512)",
+             lambda: step(params, opt, comp, batch))
+    del params, opt, comp, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _leaf_rel(got, want) -> list:
+    """Per leaf: max|got - want| / max|want| (``want`` moved to ``got``'s
+    device)."""
+    from repro_torch.core.tree import tree_leaves
+    out = []
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        b = b.to(a.device).float()
+        out.append(((a.float() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item())
+    return out
+
+
+def _hold_grads(label: str, got, plain, witness) -> float:
+    """Every gradient leaf of the kernel path ``got`` against the plain
+    path's ``plain`` within TRAIN_GRAD_REL of the leaf's largest |value|;
+    where a leaf is not, both are held to the f32 gradients ``witness()``
+    and ``got`` may be no more than TRAIN_GRAD_REL further from them than
+    ``plain``.  -> the worst leaf's relative difference."""
+    rels = _leaf_rel(got, plain)
+    worst = max(rels)
+    log(f"[full_train] {label}: {len(rels)} gradient leaves, max|diff| / max|plain| up to "
+        f"{worst:.3e} (limit {TRAIN_GRAD_REL})")
+    if worst <= TRAIN_GRAD_REL:
+        return worst
+    wide = witness()
+    k_far, p_far = _leaf_rel(got, wide), _leaf_rel(plain, wide)
+    del wide
+    bad = [i for i, (a, b) in enumerate(zip(k_far, p_far)) if a > b + TRAIN_GRAD_REL]
+    log(f"[full_train] {label} f32 witness: kernel path up to {max(k_far):.3e}, plain up to "
+        f"{max(p_far):.3e} from its gradients")
+    if bad:
+        raise AssertionError(f"{label}: gradient leaves {bad} of the kernel path are more "
+                             f"than {TRAIN_GRAD_REL} further from the f32 gradient than the "
+                             "plain path's")
+    return worst
+
+
+def _train_cut(card: str) -> int:
+    """(b) 4 layers at full width, 2 x 512: the kernel path's loss and
+    every gradient leaf against the all-plain path's; launches exact under
+    remat "none" and "block"; one step each with microbatch=1, gradient
+    compression and f32 moments, all finite."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import adamw, compression
+    from repro_torch.train.train_step import make_loss_fn, make_train_step, value_and_grad
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=TRAIN_CUT)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 2), cfg)
+    batch = _train_batch(cfg, TRAIN_CUT_BATCH, TRAIN_SEQ, SEED + 63)
+    total = 0
+    grads = {}
+    for remat in ("none", "block"):
+        fn = value_and_grad(make_loss_fn(cfg, TrainConfig(remat=remat)))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        (loss, _), g = fn(params, batch)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        want = TRAIN_CUT * (1 if remat == "none" else 2)
+        if counts != {"flash_attention": want}:
+            raise AssertionError(f"full_train cut remat={remat}: launches {counts}, expected "
+                                 f"{want} flash_attention")
+        total += counts["flash_attention"]
+        grads[remat] = (loss, g)
+    same = sum(torch.equal(a, b) for a, b in zip(tree_leaves(grads["none"][1]),
+                                                 tree_leaves(grads["block"][1])))
+    n_leaves = len(tree_leaves(params))
+    ops.reset_launch_counts()
+    with _PlainOps():
+        (p_loss, _), p_grads = value_and_grad(make_loss_fn(cfg, TrainConfig(remat="none")))(
+            params, batch)
+    if any(ops.launch_counts().values()):
+        raise AssertionError("full_train cut: the plain path launched flash_attention")
+    k_loss, k_grads = grads["none"]
+    loss_rel = abs(k_loss.item() - p_loss.item()) / abs(p_loss.item())
+    log(f"[full_train] 4 layers, 2 x {TRAIN_SEQ}: loss kernel {k_loss.item():.5f} plain "
+        f"{p_loss.item():.5f} ({loss_rel:.2e}, limit {TRAIN_LOSS_RTOL}); remat block vs "
+        f"none: {same} of {n_leaves} gradient leaves bit-equal")
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"full_train cut: loss {k_loss.item()} vs plain {p_loss.item()}")
+
+    def witness():
+        with _PlainOps():
+            return value_and_grad(make_loss_fn(cfg, TrainConfig(remat="none")))(
+                _f32_params(params), batch)[1]
+    _hold_grads(f"4 layers, 2 x {TRAIN_SEQ}", k_grads, p_grads, witness)
+    del grads, p_grads, k_grads
+    for opts in (dict(microbatch=1), dict(grad_compression=True), dict()):
+        tc = TrainConfig(remat="block", **opts)
+        p = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 2), cfg)
+        opt = adamw.init_adam(p, tc)
+        comp = compression.init_compression(p) if tc.grad_compression else None
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        p, opt, comp, m = make_train_step(cfg, tc, device="cuda")(p, opt, comp, batch)
+        torch.cuda.synchronize()
+        nm = TRAIN_CUT_BATCH // tc.microbatch if tc.microbatch else 1
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        if counts != {"flash_attention": 2 * TRAIN_CUT * nm}:
+            raise AssertionError(f"full_train cut {opts}: launches {counts}")
+        total += counts["flash_attention"]
+        finite = all(math.isfinite(float(m[k])) for k in ("loss", "grad_norm")) and all(
+            torch.isfinite(t).all() for t in tree_leaves(p))
+        log(f"[full_train] 4 layers {opts or 'f32 moments'}: loss {float(m['loss']):.4f} "
+            f"grad_norm {float(m['grad_norm']):.4f}, {time.perf_counter() - t0:.2f} s, finite "
+            f"{finite}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if not finite:
+            raise AssertionError(f"full_train cut {opts}: not finite")
+        del p, opt, comp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def _train_launcher(card: str) -> None:
+    """(c) ``python -m repro_torch.launch.train --arch granite-8b --reduced
+    --device cuda --steps 4 --ckpt-every 2`` into a temporary directory; a
+    run stopped after step 2 and resumed reaches the same step-4
+    parameters and optimizer state bit for bit; a rerun resumes at 4."""
+    import tempfile
+    common = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite-8b",
+              "--reduced", "--device", "cuda", "--batch", "4", "--seq", "64",
+              "--ckpt-every", "2"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def run(*args) -> str:
+        t0 = time.perf_counter()
+        res = subprocess.run(common + list(args), cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"full_train launch.train {args}: exit {res.returncode}\n"
+                                 f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        log(f"[full_train] launch.train {' '.join(args[:2])}: "
+            f"{time.perf_counter() - t0:.1f} s; {res.stdout.strip().splitlines()[-1]}")
+        return res.stdout
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, cut = os.path.join(tmp, "whole"), os.path.join(tmp, "cut")
+        run("--steps", "4", "--ckpt-dir", whole)
+        run("--steps", "2", "--ckpt-dir", cut)
+        out = run("--steps", "4", "--ckpt-dir", cut)
+        again = run("--steps", "4", "--ckpt-dir", whole)
+        if "resumed at step 2" not in out or "resumed at step 4" not in again \
+                or "step " in again.split("resumed at step 4")[1]:
+            raise AssertionError("full_train launch.train: did not resume at steps 2 and 4")
+        import numpy as np
+        differ = []
+        for name in ("params", "opt"):
+            a = np.load(os.path.join(whole, "step_00000004", f"{name}.npz"))
+            b = np.load(os.path.join(cut, "step_00000004", f"{name}.npz"))
+            if a.files != b.files:
+                raise AssertionError(f"full_train launch.train: {name} keys differ")
+            differ += [f"{name}:{k}" for k in a.files if not np.array_equal(a[k], b[k])]
+        log(f"[full_train] launch.train: stopped after step 2 and resumed, step 4 against the "
+            f"uninterrupted run: {len(differ)} arrays differ {differ[:8]}; {card}")
+        if differ:
+            raise AssertionError(f"full_train launch.train: the resumed run's step 4 differs "
+                                 f"from the uninterrupted run's in {differ[:8]}")
+
+
+def phase_full_train(card: str) -> dict[str, int]:
+    """tiny_train, then granite-8b's training at full width: (a) full depth
+    with Q8_0 moments, (b) a 4-layer cut held to the all-plain path, (c)
+    the launcher's checkpoint and resume on the card."""
+    from repro_torch.kernels import ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+    totals["flash_attention"] += _tiny_train()
+    totals["flash_attention"] += _train_full(card)
+    totals["flash_attention"] += _train_cut(card)
+    _train_launcher(card)
+    log(f"[full_train] phase {time.perf_counter() - t0:.1f} s; {card}")
+    return totals
+
+
 def phase_full_serving(card: str) -> dict[str, int]:
     """Phases full_router and full_fleet on one pair of weight trees."""
     sd, lm, cfg = _serving_bases()
@@ -4362,7 +5067,8 @@ def main() -> int:
     for phase in (lambda: phase_full(rows["flash_attention"]),
                   lambda: phase_full_lm(card), lambda: phase_full_gen(card),
                   lambda: phase_full_serving(card), lambda: phase_full_moe(card),
-                  lambda: phase_full_asr(card), lambda: phase_full_ssm(card)):
+                  lambda: phase_full_asr(card), lambda: phase_full_ssm(card),
+                  lambda: phase_full_vlm(card), lambda: phase_full_train(card)):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
     for name in KERNEL_META:

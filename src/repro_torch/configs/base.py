@@ -1,7 +1,8 @@
 """Config dataclasses: the LM ``ModelConfig`` and the SD pipeline configs.
 
-``ModelConfig`` is a copy of ``repro.configs.base.ModelConfig`` and
-:func:`reduced` of ``repro.configs.base.reduced``.
+``ModelConfig`` and ``TrainConfig`` are copies of
+``repro.configs.base``'s, and :func:`reduced` of
+``repro.configs.base.reduced``.
 ``UNetConfig``/``VAEConfig`` (``repro.models.unet``/``vae``),
 ``clip_config`` (``repro.models.clip``) and ``SDConfig`` with
 ``SD_TURBO``/``TINY_SD`` (``repro.engine.diffusion_engine``) live here
@@ -10,6 +11,8 @@ and are re-exported from the modules that use them.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Any, Sequence
 
 
@@ -73,6 +76,24 @@ class ModelConfig:
         pat = list(self.block_pattern)
         reps = -(-self.num_layers // len(pat))
         return (pat * reps)[: self.num_layers]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatch: int = 0          # 0 -> no accumulation
+    remat: str = "block"         # "none" | "block" | "full"
+    quantized_moments: bool = False  # Q8_0 Adam moments (beyond-paper)
+    grad_compression: bool = False   # int8 error-feedback gradient exchange
+    seed: int = 0
+    steps: int = 100
+    ckpt_every: int = 50
+    # The reference's /tmp/repro_ckpt, under this process's temp directory.
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -55,7 +55,7 @@ def init_linear(gen: torch.Generator, in_dim: int, out_dim: int, *,
     """Normal(0, std) weight drawn in f32 on ``gen``'s device, then cast."""
     std = scale if scale is not None else in_dim ** -0.5
     w = (torch.randn((out_dim, in_dim), generator=gen, device=gen.device,
-                     dtype=torch.float32) * std).to(dtype)
+                     dtype=torch.float32).mul_(std)).to(dtype)
     b = torch.zeros((out_dim,), dtype=dtype, device=gen.device) if bias else None
     return Linear(w=w, b=b, role=role)
 
@@ -102,7 +102,9 @@ def quantize_linear(p: Linear, policy: OffloadPolicy) -> Linear:
     not a multiple of the format's block stay dense (GGML keeps such
     tensors in F16 as well).  A weight with a leading expert axis is
     quantized one expert at a time (the same bytes: blocks run along K),
-    so that the f32 temporaries are one expert's."""
+    so that the f32 temporaries are one expert's; so is a weight of more
+    than ``_CHUNK`` elements, ``_CHUNK // K`` rows at a time (a 152064-row
+    head or embedding)."""
     fmt = policy.format_for(p.role)
     w = p.w
     if isinstance(w, QTYPES):
@@ -113,15 +115,24 @@ def quantize_linear(p: Linear, policy: OffloadPolicy) -> Linear:
     block = 256 if fmt == "q3_k" else 32
     if w.shape[-1] % block:
         return p
-    if w.dim() < 3:
+    if w.dim() >= 3:
+        parts, join = [quant.quantize(e, fmt, **kw) for e in w], torch.stack
+    elif w.numel() > _CHUNK:
+        rows = max(1, _CHUNK // w.shape[-1])
+        parts = [quant.quantize(w[i:i + rows], fmt, **kw)
+                 for i in range(0, w.shape[0], rows)]
+        join = torch.cat
+    else:
         return Linear(quant.quantize(w, fmt, **kw), p.b, p.role)
-    parts = [quant.quantize(e, fmt, **kw) for e in w]
     first = parts[0]
     fields = {f.name: getattr(first, f.name) for f in dataclasses.fields(first)}
     for name, val in fields.items():
         if isinstance(val, torch.Tensor):
-            fields[name] = torch.stack([getattr(q, name) for q in parts])
+            fields[name] = join([getattr(q, name) for q in parts])
     return Linear(type(first)(**fields), p.b, p.role)
+
+
+_CHUNK = 1 << 28   # elements quantized at once (1 GiB of f32 temporaries)
 
 
 def _is_linear(x) -> bool:

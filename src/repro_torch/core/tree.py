@@ -1,5 +1,6 @@
-"""Walk the port's parameter trees: dicts, lists, tuples and dataclasses
-(``Linear``, ``Conv``, the quantized tensors) with tensors at the leaves.
+"""Walk the port's parameter trees: dicts, lists, tuples (named ones
+too, such as ``AdamState``) and dataclasses (``Linear``, ``Conv``, the
+quantized tensors) with tensors at the leaves.
 
 The JAX package gets this from pytrees; here a parameter tree is plain
 Python containers, so one small walker serves device moves, quantization
@@ -23,6 +24,8 @@ def tree_map(fn: Callable, tree: Any, *,
         return fn(tree)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, is_leaf=is_leaf) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # NamedTuple
+        return type(tree)(*(tree_map(fn, v, is_leaf=is_leaf) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, is_leaf=is_leaf) for v in tree)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):

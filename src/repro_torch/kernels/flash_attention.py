@@ -2,6 +2,13 @@
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` on the card.
 Its plain version is :func:`repro_torch.kernels.ref.flash_attention_ref`.
+
+The kernel writes its output over ``ctypes``, so the output has no
+autograd history.  :class:`FlashAttention` gives it one: its forward
+launches the kernel (the plain version on a CPU tensor), and its
+backward recomputes the plain version on the saved q, k and v and takes
+its gradient, the gradient the reference gets from XLA's autodiff of the
+same math (the JAX package has no backward kernel).
 """
 from __future__ import annotations
 
@@ -9,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 launches = 0          # kernel launches since the last reset
 MAX_HEAD_DIM = 192   # the largest padded head dim the kernel is built for
@@ -48,3 +55,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  -1 if window is None else int(window))
     launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: ``FlashAttention.apply(q, k, v, causal,
+    window, scale)``.  The forward is one :func:`flash_attention` launch on
+    a CUDA tensor (:func:`~repro_torch.kernels.ref.flash_attention_ref` on
+    a CPU tensor); the backward runs ``flash_attention_ref`` again under
+    autograd on the saved inputs and returns its gradients.  Under
+    ``torch.utils.checkpoint`` the recomputed forward launches the kernel
+    a second time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        if q.is_cuda:
+            return flash_attention(q, k, v, **ctx.opts)
+        return ref.flash_attention_ref(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            out = ref.flash_attention_ref(*leaves, **ctx.opts)
+            wanted = [t for t, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(grads) if n else None for n in need), None, None, None)

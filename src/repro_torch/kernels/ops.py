@@ -28,6 +28,14 @@ version:
   the caller passes, in place;
 * contiguous decode of a bf16 cache launches ``flash_decode``, which
   reads ``kv_len`` on the card.
+
+Gradients: on a CUDA tensor that requires grad (under grad mode)
+``attention`` goes through ``flash_attention.FlashAttention``, whose
+forward is the kernel and whose backward is autograd of the plain
+version.  Every other kernel has no backward, so its entry raises a
+``RuntimeError`` naming the kernel there rather than return an output
+that silently drops the gradient.  On the CPU each plain version is
+differentiable as it stands.
 """
 from __future__ import annotations
 
@@ -65,6 +73,21 @@ def reset_launch_counts() -> None:
         setattr(mod, _COUNTERS.get(name, "launches"), 0)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether a call dispatches to the kernel: its input is on the card."""
+    return t.is_cuda
+
+
+def _no_grad(kernel: str, *tensors) -> None:
+    """Raise when a kernel without a backward would drop a gradient."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the kernel has no backward, and an input requires "
+            "grad; run it under torch.no_grad(), or train with dense "
+            "weights (only flash_attention has a gradient)")
+
+
 def _expert_axis(w) -> bool:
     """True for a quantized weight with a leading expert axis (E, N, K)."""
     return isinstance(w, (Q8_0Tensor, Q4_0Tensor)) and w.qs.dim() == 3 \
@@ -80,13 +103,15 @@ def _experts_matmul(x: torch.Tensor, w) -> torch.Tensor:
     if x.dim() != 3 or x.shape[0] != e:
         raise ValueError(f"quantized_matmul: x{tuple(x.shape)} against a weight of "
                          f"{e} experts needs x of shape (E, M, K)")
-    if not x.is_cuda:
+    if not _on_card(x):
         return _experts_plain(x, w)
     if isinstance(w, Q8_0Tensor):
+        _no_grad("q8_matmul", x)
         if w.logical is not None:
             x = F.pad(x, (0, w.qs.shape[-1] - w.logical))
         return _q8.q8_matmul_experts(x, w.qs, w.d)
     if isinstance(w, Q3KTensor):
+        _no_grad("q3k_matmul", x)
         return _q3k.q3k_matmul_experts(x, w.ql, w.qh, w.scales, w.d)
     raise TypeError(f"quantized_matmul: no expert-batched kernel for {type(w).__name__}")
 
@@ -112,10 +137,11 @@ def quantized_matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
         return _experts_matmul(x, w).to(out_dtype)
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
-    on_card = xf.is_cuda
+    on_card = _on_card(xf)
     if isinstance(w, Q8_0Tensor):
         n = w.qs.shape[0]
         if on_card:
+            _no_grad("q8_matmul", xf)
             if w.logical is not None:
                 xf = F.pad(xf, (0, w.qs.shape[-1] - w.logical))
             y = _q8.q8_matmul(xf, w.qs, w.d)
@@ -124,6 +150,7 @@ def quantized_matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
     elif isinstance(w, Q4_0Tensor):
         n = w.qs.shape[0]
         if on_card:
+            _no_grad("q4_matmul", xf)
             if w.logical is not None:
                 xf = F.pad(xf, (0, 2 * w.qs.shape[-1] - w.logical))
             y = _q4.q4_matmul(xf, w.qs, w.d)
@@ -132,6 +159,7 @@ def quantized_matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
     elif isinstance(w, Q3KTensor):
         n = w.ql.shape[0]
         if on_card:
+            _no_grad("q3k_matmul", xf)
             y = _q3k.q3k_matmul(xf, w.ql, w.qh, w.scales, w.d)
         else:
             y = ref.q3k_matmul_ref(xf, w)
@@ -147,9 +175,12 @@ def quantized_matmul_w8a8(x: torch.Tensor, w: Q8_0Tensor, *,
     then int8 x int8 block dots scaled by both block scales."""
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
+    on_card = _on_card(x)
+    if on_card:
+        _no_grad("q8_matmul_w8a8", x)
     xa = quant.quantize_q8_0(x.reshape(-1, x.shape[-1]))
     xs = xa.d.float()
-    if x.is_cuda:
+    if on_card:
         y = _q8.q8_matmul_w8a8(xa.qs, xs, w.qs, w.d)
     else:
         y = ref.q8_matmul_w8a8_ref(xa.qs, xs, w)
@@ -173,7 +204,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rep = hq // hkv
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    if q.is_cuda:
+    if _on_card(q):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _fa.FlashAttention.apply(q, k, v, causal, window, scale)
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -192,12 +226,17 @@ def paged_prefill_attention(q, k_new, v_new, k_pool, v_pool, block_table,
     ``(out, k_pool, v_pool)``, or with ``k_scale_pool``/``v_scale_pool``
     (Q8_0 pools: int8 quants + f16 per-32 scales, the chunk requantized)
     ``(out, kq, vq, ks, vs)``."""
+    on_card = _on_card(q)
     if k_scale_pool is not None:
-        fn = _fp.flash_prefill_paged_q8 if q.is_cuda \
+        if on_card:
+            _no_grad("flash_prefill_paged_q8", q, k_new, v_new)
+        fn = _fp.flash_prefill_paged_q8 if on_card \
             else _fp.flash_prefill_paged_q8_ref
         return fn(q, k_new, v_new, k_pool, v_pool, k_scale_pool, v_scale_pool,
                   block_table, pos0, scale=scale, window=window)
-    fn = _fp.flash_prefill_paged if q.is_cuda else _fp.flash_prefill_paged_ref
+    if on_card:
+        _no_grad("flash_prefill_paged", q, k_new, v_new)
+    fn = _fp.flash_prefill_paged if on_card else _fp.flash_prefill_paged_ref
     return fn(q, k_new, v_new, k_pool, v_pool, block_table, pos0,
               scale=scale, window=window)
 
@@ -208,7 +247,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
     """One-token GQA decode through per-row block tables of a bf16 pool.
     q: (B, Hkv, G, hd); pools: (NB, Hkv, bs, hd); block_tables: (B, MB)
     int32; positions: (B,) int32, last valid index per row."""
-    fn = _fd.flash_decode_paged if q.is_cuda else _fd.flash_decode_paged_ref
+    on_card = _on_card(q)
+    if on_card:
+        _no_grad("flash_decode_paged", q, k_pool, v_pool)
+    fn = _fd.flash_decode_paged if on_card else _fd.flash_decode_paged_ref
     return fn(q, k_pool, v_pool, block_tables, positions, scale=scale,
               window=window)
 
@@ -217,5 +259,8 @@ def decode_attention(q, k, v, kv_len, *, scale: float | None = None
                      ) -> torch.Tensor:
     """One-token GQA decode against a contiguous cache: q (B, Hkv, G, hd),
     k/v (B, Hkv, C, hd), kv_len (1,) int32 valid slots of every row."""
-    fn = _fd.flash_decode if q.is_cuda else _fd.flash_decode_ref
+    on_card = _on_card(q)
+    if on_card:
+        _no_grad("flash_decode", q, k, v)
+    fn = _fd.flash_decode if on_card else _fd.flash_decode_ref
     return fn(q, k, v, kv_len, scale=scale)

@@ -18,7 +18,9 @@ read in plain PyTorch: the reference has no kernel for those reads, and
 (``cross_attention_decode`` on contiguous encoder rows,
 ``cross_attention_paged`` through the paged cross pool) is the
 reference's einsum read in plain PyTorch too: the reference computes it
-in XLA, not in a Pallas kernel.  M-RoPE is not ported.
+in XLA, not in a Pallas kernel.  A config with ``mrope`` rotates q and k
+by M-RoPE (``layers.apply_mrope``) on every one of these paths; with the
+stub frontend its three position streams are the text positions.
 """
 from __future__ import annotations
 
@@ -115,10 +117,17 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
+def _positions_mrope(positions: torch.Tensor) -> torch.Tensor:
+    """(B, S) -> (B, 3, S) text-position triplet (stub frontend)."""
+    return positions[:, None, :].expand(positions.shape[0], 3,
+                                        positions.shape[1])
+
+
 def _rope(cfg: ModelConfig, x: torch.Tensor,
           positions: torch.Tensor) -> torch.Tensor:
     if cfg.mrope:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported")
+        return layers.apply_mrope(x, _positions_mrope(positions),
+                                  tuple(cfg.mrope_sections), cfg.rope_theta)
     return layers.apply_rope(x, positions, cfg.rope_theta)
 
 

@@ -1,5 +1,5 @@
-"""Shared layers: norms, RoPE, MLPs, embeddings and the unembedding
-(``repro.models.layers``; M-RoPE is not ported).
+"""Shared layers: norms, RoPE and M-RoPE, MLPs, embeddings and the
+unembedding (``repro.models.layers``).
 
 Plain functions over parameter dicts and :class:`Linear`s; weight
 matmuls go through :mod:`repro_torch.core.qlinear` so the offload policy
@@ -55,6 +55,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
     ang = positions[:, None, :, None].float() * freqs
     cos, sin = torch.cos(ang), torch.sin(ang)                 # (B,1,S,D/2)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...],
+                theta: float = 10_000.0) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the head_dim/2 frequency slots are split into
+    (temporal, height, width) sections, each rotated by its own position
+    stream.  x: (B, H, S, D); positions: (B, 3, S) int.  In f32 and cast
+    back to x's dtype, as :func:`apply_rope`."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim/2 = {d // 2}")
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(list(sections), device=x.device))        # (D/2,)
+    pos_slot = positions.float()[:, sec_id, :]                # (B, D/2, S)
+    ang = pos_slot.transpose(1, 2) * freqs                    # (B, S, D/2)
+    cos = torch.cos(ang)[:, None]                             # (B,1,S,D/2)
+    sin = torch.sin(ang)[:, None]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -131,7 +155,7 @@ def apply_mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
 def init_embedding(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.bfloat16) -> Linear:
     w = (torch.randn((vocab, d), generator=gen, device=gen.device,
-                     dtype=torch.float32) * 0.02).to(dtype)
+                     dtype=torch.float32).mul_(0.02)).to(dtype)
     return Linear(w=w, b=None, role="embed")
 
 

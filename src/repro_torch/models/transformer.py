@@ -29,13 +29,22 @@ group (batch row), so its routing depends on how tokens are grouped:
 chunk's T tokens, and a decode step (and so the scan prefill and the
 scan verify) one token per row, which never drops.  Each path matches
 the same path of the reference, not another path.
+
+A vision-language config (qwen2-vl) rotates by M-RoPE on every path, and
+``lm_forward(prefix_embeds=...)`` prepends its stub frontend's patch
+embeddings to the text.  For training, ``lm_forward(remat=...)``
+recomputes each period of layers in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -71,8 +80,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     unknown = set(cfg.block_pattern) - {"attn", *_RECURRENT}
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
-    if cfg.mrope:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported")
 
 
 def _block_kind(cfg: ModelConfig, i: int) -> str:
@@ -130,16 +137,17 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, i: int, *,
 def init_lm(gen: torch.Generator, cfg: ModelConfig, *,
             policy: OffloadPolicy | None = None) -> dict:
     """Full LM parameter tree on ``gen``'s device, drawn from ``gen``.
-    With ``policy`` each layer is quantized as soon as it is drawn (then
-    the embedding and the head), so that only one layer is ever held in
-    bf16: the same tree as ``quantize_params(init_lm(gen, cfg), policy)``."""
+    With ``policy`` each tensor is quantized as soon as it is drawn (the
+    embedding, each layer, the head), so that at most one layer is ever
+    held in bf16: the same tree as ``quantize_params(init_lm(gen, cfg),
+    policy)``."""
     _check_supported(cfg)
     init_n, _ = _norm(cfg)
 
     def q(tree):
         return tree if policy is None else quantize_params(tree, policy)
     p: dict[str, Any] = {
-        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model),
+        "embed": q(L.init_embedding(gen, cfg.vocab_size, cfg.d_model)),
         "layers": [q(_init_layer(gen, cfg, i, cross=cfg.is_enc_dec))
                    for i in range(cfg.num_layers)],
         "final_norm": init_n(cfg.d_model, gen.device),
@@ -154,7 +162,6 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, *,
                        for _ in range(cfg.encoder_layers)],
             "final_norm": init_n(cfg.d_model, gen.device),
         }
-    p["embed"] = q(p["embed"])
     return p
 
 
@@ -224,24 +231,63 @@ def _sinusoidal(seq: int, d: int, offset: int = 0,
                                        device=device) + offset, d)
 
 
+# The products that ``remat="block"`` keeps, as the reference's
+# ``dots_with_no_batch_dims_saveable`` keeps its dots without batch
+# dimensions: the linears' 2-D matmuls.  Everything else of a period
+# (attention included) is recomputed in the backward pass.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    if op in _SAVED_DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT = ("none", "block", "full")
+
+
 def _stack_fwd(layers: list, cfg: ModelConfig, x: torch.Tensor,
                positions=None, *, causal: bool,
-               enc_out: torch.Tensor | None = None
+               enc_out: torch.Tensor | None = None, remat: str = "none"
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The layers in order -> (x, the MoE aux losses summed over layers,
-    f32)."""
+    f32).  ``remat`` ``"block"`` or ``"full"`` wraps each period of
+    ``len(block_pattern)`` layers in ``torch.utils.checkpoint``: "block"
+    saves the linears' matmul outputs and recomputes the rest, "full"
+    saves nothing but the period's input; "none" recomputes nothing."""
     _check_supported(cfg)
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+
+    def period(x, aux, group):
+        for p in group:
+            x, a = _layer_fwd(p, cfg, x, positions, causal=causal,
+                              enc_out=enc_out)
+            if isinstance(a, torch.Tensor):
+                aux = aux + a
+        return x, aux
+
+    plen = len(cfg.block_pattern)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in layers:
-        x, a = _layer_fwd(p, cfg, x, positions, causal=causal,
-                          enc_out=enc_out)
-        if isinstance(a, torch.Tensor):
-            aux = aux + a
+    for i in range(0, len(layers), plen):
+        group = layers[i:i + plen]
+        if remat == "none" or not torch.is_grad_enabled():
+            x, aux = period(x, aux, group)
+        else:
+            kw = {}
+            if remat == "block":
+                kw["context_fn"] = functools.partial(
+                    _ckpt.create_selective_checkpoint_contexts, _save_dots)
+            x, aux = _ckpt.checkpoint(period, x, aux, group,
+                                      use_reentrant=False, **kw)
     return x, aux
 
 
 def encoder_forward(params: dict, cfg: ModelConfig,
-                    enc_embeds: torch.Tensor) -> torch.Tensor:
+                    enc_embeds: torch.Tensor, *,
+                    remat: str = "none") -> torch.Tensor:
     """Whisper-style encoder over precomputed frame embeddings (B, S_enc,
     d) bf16 (the stub frontend's output): sinusoidal positions, non-causal
     self-attention, the encoder's final norm."""
@@ -249,21 +295,31 @@ def encoder_forward(params: dict, cfg: ModelConfig,
     x = enc_embeds + _sinusoidal(s, cfg.d_model, device=enc_embeds.device)[None]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     x, _ = _stack_fwd(params["encoder"]["layers"], cfg, x, positions,
-                      causal=False)
+                      causal=False, remat=remat)
     return _apply_norm(cfg, params["encoder"]["final_norm"], x)
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                enc_embeds: torch.Tensor | None = None,
+               prefix_embeds: torch.Tensor | None = None,
+               remat: str = "none",
                last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (logits (B, S, V) f32, MoE aux loss summed over
     layers, 0.0 for a dense stack).  Attention goes through
     ``ops.attention`` (the flash-attention kernel on the card).  An
     encoder-decoder stack needs ``enc_embeds`` (B, S_enc, d): each decoder
     layer attends to the encoder's output after its self-attention.
-    ``last_only`` unembeds only the final position."""
+    ``prefix_embeds`` (B, P, d), a vision config's patch embeddings, is
+    prepended to the token embeddings: positions run over prefix and
+    text, and the prefix is sliced off before the head, so the logits
+    are the text's.  ``remat`` is the backward's recomputation
+    (:func:`_stack_fwd`).  ``last_only`` unembeds only the final
+    position."""
     b, s = tokens.shape
     x = L.apply_embedding(params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        s = x.shape[1]
     if cfg.pos_embed == "sinusoidal":
         x = x + _sinusoidal(s, cfg.d_model, device=x.device)[None]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -272,10 +328,12 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         if enc_embeds is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
                              "enc_embeds")
-        enc_out = encoder_forward(params, cfg, enc_embeds)
+        enc_out = encoder_forward(params, cfg, enc_embeds, remat=remat)
     x, aux = _stack_fwd(params["layers"], cfg, x, positions, causal=True,
-                        enc_out=enc_out)
+                        enc_out=enc_out, remat=remat)
     x = _apply_norm(cfg, params["final_norm"], x)
+    if prefix_embeds is not None:
+        x = x[:, prefix_embeds.shape[1]:]
     if last_only:
         x = x[:, -1:]
     return L.apply_unembed(_head(params), x), aux

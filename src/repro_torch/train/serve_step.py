@@ -6,7 +6,8 @@ prompt is fed one token at a time through :func:`make_decode`'s step,
 then greedy tokens follow.  An encoder-decoder model takes
 ``enc_embeds`` (the stub frontend's frame embeddings): ``make_prefill``
 reads them from its batch, ``make_cache`` runs the encoder once into
-contiguous cross rows.  On the card each step's bf16-cache attention
+contiguous cross rows.  A vision config's ``make_prefill`` batch may
+carry ``prefix_embeds``, the patch embeddings prepended to the text.  On the card each step's bf16-cache attention
 is the ``flash_decode`` kernel and a quantized linear its matmul kernel;
 the step position is a host int and the next token stays on the card, so
 the loop never waits on the device.  Every factory runs on the card
@@ -25,18 +26,21 @@ from repro_torch.models.transformer import init_cache, lm_decode_step, lm_forwar
 
 
 def make_prefill(cfg: ModelConfig, *, device="cuda"):
-    """``prefill(params, {"tokens": (B, S)[, "enc_embeds": (B, S_enc, d)]})
-    -> (B, V)`` f32 logits of the last position (the head runs on that
-    position only)."""
+    """``prefill(params, {"tokens": (B, S)[, "enc_embeds": (B, S_enc, d)]
+    [, "prefix_embeds": (B, P, d)]}) -> (B, V)`` f32 logits of the last
+    position (the head runs on that position only)."""
     device = resolve_device(device)
 
     def prefill(params, batch: dict[str, Any]) -> torch.Tensor:
         tokens = torch.as_tensor(batch["tokens"], device=device)
-        enc = batch.get("enc_embeds")
+        enc, prefix = (batch.get(name) for name in ("enc_embeds",
+                                                    "prefix_embeds"))
         if enc is not None:
             enc = torch.as_tensor(enc, device=device)
+        if prefix is not None:
+            prefix = torch.as_tensor(prefix, device=device)
         logits, _ = lm_forward(params, cfg, tokens, enc_embeds=enc,
-                               last_only=True)
+                               prefix_embeds=prefix, last_only=True)
         return logits[:, -1]
     return prefill
 

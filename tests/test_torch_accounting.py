@@ -43,6 +43,8 @@ from repro_torch.diffusion import pipeline as tpipe  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.models import unet as tunet  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 PRESETS = ("none", "q8_0", "q4_0", "q3_k", "q3_k_imax")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,

@@ -35,6 +35,8 @@ from repro_torch.engine import (CostModel, DiffusionEngine,  # noqa: E402
                                 GenerateRequest, calibrate)
 from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 pytestmark = pytest.mark.serving
 

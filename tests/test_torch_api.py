@@ -24,11 +24,25 @@ from repro_torch.configs import TINY_SD  # noqa: E402
 from repro_torch.engine import (DiffusionEngine, GenerateRequest,  # noqa: E402
                                 init_pipeline)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this module runs: the suite's six xdist
+    workers share eight cores, and torch's default pool of one thread per
+    core oversubscribes them (six port test files took 469 s on six
+    workers with the default pool, 218 s with one thread each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)(\.|\s)(?!_torch))",
+    r"^\s*(import\s+(jax|repro|ml_dtypes)\b(?!_torch)"
+    r"|from\s+(jax|repro|ml_dtypes)(\.|\s)(?!_torch))",
     re.M)
 
 
@@ -105,10 +119,24 @@ def test_import_and_engine_leave_jax_unloaded():
         "    sys.argv = ['serve', '--arch', arch, '--device', 'cpu',\n"
         "        '--slots', '2', '--requests', '3', '--gen', '2']\n"
         "    S.main()\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "import tempfile\n"
+        "import repro_torch.launch.train as LT, repro_torch.checkpoint.ckpt\n"
+        "import repro_torch.optim.adamw, repro_torch.optim.compression\n"
+        "import repro_torch.data.pipeline, repro_torch.train.train_step\n"
+        "vcfg = reduced(get_config('qwen2-vl-72b'))\n"
+        "vp = T.init_lm(torch.Generator().manual_seed(0), vcfg)\n"
+        "pre = F.synthetic_frontend(torch.Generator().manual_seed(2), (1, 8, vcfg.d_model))\n"
+        "assert T.lm_forward(vp, vcfg, torch.tensor([[3] * 4]), prefix_embeds=pre)[0]"
+        ".shape == (1, 4, vcfg.vocab_size)\n"
+        "assert greedy_generate(vp, vcfg, [[3] * 4], 2, device='cpu').shape == (1, 6)\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    LT.main(['--arch', 'qwen2-vl-72b', '--device', 'cpu', '--steps', '2',\n"
+        "             '--batch', '1', '--seq', '8', '--ckpt-every', '1', '--ckpt-dir', d])\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes') or "
+        "m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "assert not bad, bad\n")
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "OMP_NUM_THREADS": "1"}          # as _one_torch_thread
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]

@@ -46,6 +46,8 @@ from repro_torch.engine import (AsrEngine, AsrEngineConfig,  # noqa: E402
                                 ReplicaSpec, TranscribeRequest, build_engine)
 from repro_torch.engine.asr_engine import audio_fingerprint  # noqa: E402
 from repro_torch.weights import from_reference, to_tensor  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 pytestmark = pytest.mark.serving
 

@@ -26,6 +26,8 @@ from repro_torch.models import clip as tclip  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.models import vae as tvae  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 JCFG = jde.TINY_SD
 

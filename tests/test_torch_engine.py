@@ -31,6 +31,8 @@ from repro_torch.engine import DiffusionEngine as TEngine  # noqa: E402
 from repro_torch.engine import GenerateRequest as TRequest  # noqa: E402
 from repro_torch.configs import TINY_SD  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 CORR, MAX_ABS = 0.9999, 5e-2
 CORR_BY_PRESET = {"q4_0": 0.9998}

@@ -29,6 +29,8 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNEL_SRC = ROOT / "src" / "repro_torch" / "csrc" / "flash_attention.cu"

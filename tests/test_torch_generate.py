@@ -43,6 +43,8 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.train import serve_step as tss  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 pytestmark = pytest.mark.serving
 

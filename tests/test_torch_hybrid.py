@@ -12,6 +12,7 @@ import pytest
 
 pytest.importorskip("jax")
 from test_torch_ssm import PRESETS, _check_batcher, _check_lm_paths, models  # noqa: E402,F401
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
 
 
 @pytest.mark.parametrize("preset", PRESETS)

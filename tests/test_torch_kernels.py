@@ -30,6 +30,8 @@ from repro_torch.kernels import q4_matmul as tq4  # noqa: E402
 from repro_torch.kernels import q8_matmul as tq8  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -25,6 +25,8 @@ from repro_torch.core import qlinear as tql  # noqa: E402
 from repro_torch.models import layers as tL  # noqa: E402
 from repro_torch.models import unet as tunet  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 JCFG = jde.TINY_SD
 

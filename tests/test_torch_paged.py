@@ -18,6 +18,8 @@
   operations, ends in the same state.
 * The CUDA wrappers refuse CPU tensors instead of computing.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -41,6 +43,8 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.serving import kvcache as tkv  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 pytestmark = pytest.mark.serving
 
@@ -395,15 +399,18 @@ def test_lm_forward_matches(granite):
 
 
 def test_unported_stacks_raise():
-    """What is still refused: qwen2-vl-72b, and any config with M-RoPE
-    (xLSTM and hybrid stacks build since models.ssm was ported)."""
-    with pytest.raises(NotImplementedError):
-        tget_config("qwen2-vl-72b")
+    """Nothing of the reference's stacks is refused any more: qwen2-vl-72b
+    and M-RoPE configs build (since the VLM slice), as xLSTM and hybrid
+    stacks do (since models.ssm); an unknown block kind still raises."""
+    assert tget_config("qwen2-vl-72b").mrope
     mrope = tbase.reduced(tbase.ModelConfig(
         name="v", family="vlm", num_layers=2, d_model=64, num_heads=4,
         num_kv_heads=2, d_ff=128, vocab_size=96, mrope=True))
-    with pytest.raises(NotImplementedError):
-        tT.init_cache({}, mrope, 1, 8, block_size=4, num_blocks=4, device="cpu")
+    cache = tT.init_cache({}, mrope, 1, 8, block_size=4, num_blocks=4, device="cpu")
+    assert type(cache[0]).__name__ == "KVCache"
+    with pytest.raises(ValueError, match="unknown block kinds"):
+        tT.init_cache({}, dataclasses.replace(mrope, block_pattern=("conv",)), 1, 8,
+                      device="cpu")
     hybrid = tbase.reduced(tbase.ModelConfig(
         name="h", family="hybrid", num_layers=2, d_model=64, num_heads=4,
         num_kv_heads=2, d_ff=128, vocab_size=96, block_pattern=("attn", "mamba")))
@@ -414,7 +421,7 @@ def test_unported_stacks_raise():
 @pytest.mark.parametrize("arch", ["granite-8b", "llama3-405b", "h2o-danube-3-4b",
                                   "qwen1.5-110b", "deepseek-moe-16b",
                                   "moonshot-v1-16b-a3b", "xlstm-1.3b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "qwen2-vl-72b"])
 def test_configs_copied(arch):
     import dataclasses
     assert dataclasses.asdict(tget_config(arch)) == {

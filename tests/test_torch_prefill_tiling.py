@@ -39,6 +39,8 @@ from repro.kernels import flash_prefill as jfp  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import quant as tq  # noqa: E402
 from repro_torch.kernels import flash_prefill as tfp  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNEL_SRC = ROOT / "src" / "repro_torch" / "csrc" / "flash_prefill.cu"

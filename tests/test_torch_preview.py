@@ -32,6 +32,8 @@ from repro_torch.engine import diffusion_engine as tde  # noqa: E402
 from repro_torch.engine.costmodel import CostModel  # noqa: E402
 from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 CORR, MAX_ABS = 0.9999, 5e-2
 # Two ddim rows co-batched, one euler row with pixel previews.

@@ -22,6 +22,7 @@ from repro_torch.core import policy as tpolicy  # noqa: E402
 from repro_torch.core import qlinear as tql  # noqa: E402
 from repro_torch.core import quant as tq  # noqa: E402
 from repro_torch.weights import from_reference, to_tensor  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
 
 
 def _rand(shape, seed=0, scale=1.0):

@@ -39,6 +39,8 @@ from repro_torch.engine import (CostModel, DiffusionEngine, Engine,  # noqa: E40
                                 EngineRouter, GenerateRequest)
 from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 pytestmark = pytest.mark.serving
 

@@ -31,6 +31,7 @@ from repro_torch.engine import steps_bucket  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
 from test_torch_engine import (_tokens, assert_images_close,  # noqa: E402
                                jax_noise, run_pair)
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
 
 
 @pytest.fixture(scope="module")

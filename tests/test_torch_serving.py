@@ -29,6 +29,8 @@ from repro_torch.engine import events as tev  # noqa: E402
 from repro_torch.serving import ContinuousBatcher as TCB  # noqa: E402
 from repro_torch.serving import Request as TReq  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 pytestmark = pytest.mark.serving
 

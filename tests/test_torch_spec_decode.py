@@ -47,6 +47,8 @@ from repro_torch.serving.scheduler import make_paged_decode  # noqa: E402
 from repro_torch.engine.costmodel import CostModel  # noqa: E402
 from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 pytestmark = pytest.mark.serving
 

@@ -75,6 +75,8 @@ from repro_torch.serving import ContinuousBatcher as TCB  # noqa: E402
 from repro_torch.serving import Request as TReq  # noqa: E402
 from repro_torch.train import serve_step as tss  # noqa: E402
 from repro_torch.weights import from_reference  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT_TOL = dict(rtol=1e-2, atol=1e-2)        # about two bf16 ulps
@@ -563,9 +565,15 @@ def test_prefix_share_and_spec_decode_refuse_recurrent(models):
 
 
 def test_mrope_still_refused():
-    cfg = dataclasses.replace(treduced(tget_config("granite-8b")), mrope=True)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        tT.init_lm(torch.Generator().manual_seed(0), cfg)
+    """M-RoPE is ported (it was refused before qwen2-vl's slice): with the
+    stub frontend's three equal position streams it is plain RoPE, so an
+    M-RoPE granite gives the RoPE granite's logits bit for bit."""
+    base = treduced(tget_config("granite-8b"))
+    cfg = dataclasses.replace(base, mrope=True, mrope_sections=(4, 6, 6))
+    params = tT.init_lm(torch.Generator().manual_seed(0), cfg)
+    toks = torch.tensor([[3, 7, 11, 5, 2]])
+    assert torch.equal(tT.lm_forward(params, cfg, toks)[0],
+                       tT.lm_forward(params, base, toks)[0])
 
 
 # ------------------------------------------------------------ stand-alone

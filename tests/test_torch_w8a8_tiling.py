@@ -43,6 +43,8 @@ from repro.kernels import q8_matmul as jq8  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import quant as tq  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = (ROOT / "src" / "repro_torch" / "csrc" / "q8_matmul_w8a8.cu").read_text()
