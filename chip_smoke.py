@@ -4972,9 +4972,11 @@ def _train_cut(card: str) -> int:
 
 def _train_launcher(card: str) -> None:
     """(c) ``python -m repro_torch.launch.train --arch granite-8b --reduced
-    --device cuda --steps 4 --ckpt-every 2`` into a temporary directory; a
-    run stopped after step 2 and resumed reaches the same step-4
-    parameters and optimizer state bit for bit; a rerun resumes at 4."""
+    --device cuda --steps 4 --ckpt-every 2`` into a temporary directory,
+    at world 1 on a one-rank nccl group (its mesh line), sharded saves and
+    restores; a run stopped after step 2 and resumed reaches the same
+    step-4 parameters and optimizer state bit for bit; a rerun resumes at
+    4."""
     import tempfile
     common = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite-8b",
               "--reduced", "--device", "cuda", "--batch", "4", "--seq", "64",
@@ -4993,7 +4995,10 @@ def _train_launcher(card: str) -> None:
         return res.stdout
     with tempfile.TemporaryDirectory() as tmp:
         whole, cut = os.path.join(tmp, "whole"), os.path.join(tmp, "cut")
-        run("--steps", "4", "--ckpt-dir", whole)
+        first = run("--steps", "4", "--ckpt-dir", whole)
+        line = "mesh: {'pod': 1, 'data': 1, 'model': 1} on 1 devices (nccl)"
+        if line not in first:
+            raise AssertionError(f"full_train launch.train: no line {line!r} in\n{first[-800:]}")
         run("--steps", "2", "--ckpt-dir", cut)
         out = run("--steps", "4", "--ckpt-dir", cut)
         again = run("--steps", "4", "--ckpt-dir", whole)
@@ -5029,6 +5034,278 @@ def phase_full_train(card: str) -> dict[str, int]:
     totals["flash_attention"] += _train_cut(card)
     _train_launcher(card)
     log(f"[full_train] phase {time.perf_counter() - t0:.1f} s; {card}")
+    return totals
+
+
+# ------------------------------------------------------------ full_dist
+# The training launcher's sharded path on the card at world 1: one nccl
+# rank and an elastic mesh of 1.  NCCL refuses two ranks on one device,
+# so multi-rank equality is held on the CPU (tests/test_torch_dist.py).
+# (a) granite-8b at full width cut to DIST_CUT layers (1.28 B parameters)
+# with Q8_0 moments and gradient compression: the sharded step against
+# the unsharded step, bit for bit (the launcher at world 1, which saves
+# and resumes, is full_train's _train_launcher).  (b) deepseek-moe-16b
+# at full width cut to DIST_MOE_CUT layers under the axis env ("ep": the
+# Q8_0 combine): a q8_0 forward with every q8_matmul launch held to its
+# plain version, and a bf16 gradient held to the all-plain path's on the
+# same routing, then one sharded step.
+DIST_CUT, DIST_BATCH, DIST_STEPS = 4, 2, 3
+DIST_MOE_CUT, DIST_MOE_ROWS, DIST_MOE_SEQ = 2, 2, 128
+
+
+class _CheckedQ8:
+    """Hold every launch of the 2-D ``q8_matmul`` entry (as
+    ``ops.quantized_matmul`` calls it) against its plain version on that
+    call's inputs, within MATMUL_RTOL of its largest magnitude; the model
+    goes on with the kernel's result.  The batched expert entry is
+    ``_CheckedExperts``'s."""
+
+    def __enter__(self):
+        from repro_torch.core.quant import Q8_0Tensor
+        from repro_torch.kernels import q8_matmul, ref
+        self.mod, self.inner = q8_matmul, q8_matmul.q8_matmul
+        self.calls, self.err, self.excess = 0, None, None
+
+        def checked(x, wq, ws):
+            out = self.inner(x, wq, ws)
+            want = ref.q8_matmul_ref(x, Q8_0Tensor(wq, ws))
+            diff = (out.float() - want.float()).abs().amax()
+            excess = diff - MATMUL_RTOL * want.float().abs().amax().clamp_min(1.0)
+            self.err = diff if self.err is None else torch.maximum(self.err, diff)
+            self.excess = excess if self.excess is None else torch.maximum(self.excess, excess)
+            self.calls += 1
+            return out
+        q8_matmul.q8_matmul = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.q8_matmul = self.inner
+
+    def check(self, label: str, calls: int) -> None:
+        if self.calls != calls or not self.excess.item() <= 0:
+            raise AssertionError(f"{label}: {self.calls} q8_matmul calls (expected {calls}), "
+                                 f"max|err| {self.err.item()} over MATMUL_RTOL by "
+                                 f"{self.excess.item()}")
+        log(f"[full_dist] {label}: {self.calls} q8_matmul launches held to their plain "
+            f"version, max|err| {self.err.item():.3e}")
+
+
+def _one_rank_group() -> bool:
+    """Join a one-rank nccl group (an in-process store) unless one is up;
+    -> whether this call made it."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return False
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    return True
+
+
+def _dist_granite(card: str) -> int:
+    """(a) The sharded step (elastic mesh of 1) against the unsharded step
+    on the same weights and batches: DIST_STEPS steps, exact launches,
+    every metric and every leaf of the parameters, the Q8_0 moments and the
+    compression residual bit for bit; the steps' times and device time."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.qlinear import param_count
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.fault_tolerance import elastic_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=DIST_CUT)
+    tc = TrainConfig(quantized_moments=True, grad_compression=True, remat="block",
+                     lr=TRAIN_LR)
+    mesh = elastic_mesh(model_parallel=1)
+    batches = [_train_batch(cfg, DIST_BATCH, TRAIN_SEQ, SEED + 71 + i)
+               for i in range(DIST_STEPS)]
+    want = {"flash_attention": 2 * DIST_CUT}
+    runs, total = {}, 0
+    for name in ("unsharded", "sharded"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p, o, c = init_train_state(torch.Generator(device="cuda").manual_seed(SEED + 5), cfg,
+                                   tc, init_lm)
+        with ctx.axis_env(mesh):
+            step = make_train_step(cfg, tc, device="cuda",
+                                   mesh=mesh if name == "sharded" else None)
+            if name == "sharded":
+                p, o = step.shard(p, o)
+            metrics, times = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                p, o, c, m = step(p, o, c, b)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                counts = {k: v for k, v in ops.launch_counts().items() if v}
+                if counts != want:
+                    raise AssertionError(f"full_dist {name} step: launches {counts}, "
+                                         f"expected {want}")
+                total += sum(counts.values())
+                metrics.append({k: v.item() for k, v in m.items()})
+        runs[name] = (tree_leaves([p, o, c]), metrics, times, step,
+                      torch.cuda.max_memory_allocated() / 1e9)
+        log(f"[full_dist] granite-8b {DIST_CUT} layers ({param_count(p) / 1e9:.2f} B "
+            f"parameters), {DIST_BATCH} x {TRAIN_SEQ}, Q8_0 moments + compression, {name}: "
+            f"losses {[round(x['loss'], 5) for x in metrics]}, steps "
+            f"{[round(t, 1) for t in times]} ms synchronised, peak {runs[name][4]:.2f} GB; "
+            f"{card}")
+        del p, o, c
+    (a_leaves, a_m, _, _, _), (b_leaves, b_m, _, step, _) = runs["unsharded"], runs["sharded"]
+    differ = [i for i, (x, y) in enumerate(zip(a_leaves, b_leaves)) if not torch.equal(x, y)]
+    if a_m != b_m or differ or len(a_leaves) != len(b_leaves):
+        raise AssertionError(f"full_dist: the sharded step at one rank is not the unsharded "
+                             f"step: metrics {a_m} vs {b_m}, {len(differ)} leaves differ")
+    log(f"[full_dist] sharded = unsharded after {DIST_STEPS} steps: metrics and all "
+        f"{len(a_leaves)} state leaves bit-equal; {card}")
+    del runs, a_leaves, b_leaves, step
+    busy = {}
+    for name in ("unsharded", "sharded"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        p, o, c = init_train_state(torch.Generator(device="cuda").manual_seed(SEED + 5), cfg,
+                                   tc, init_lm)
+        with ctx.axis_env(mesh):
+            step = make_train_step(cfg, tc, device="cuda",
+                                   mesh=mesh if name == "sharded" else None)
+            if name == "sharded":
+                p, o = step.shard(p, o)
+            prof = _profile(f"granite-8b {name} train step ({DIST_CUT} layers, "
+                            f"{DIST_BATCH} x {TRAIN_SEQ}, Q8_0 moments + compression)",
+                            lambda: step(p, o, c, batches[0]))
+        busy[name] = sum(ms for ms, _ in prof.values())
+        del p, o, c, step
+    log(f"[full_dist] device busy per step: sharded {busy['sharded']:.2f} ms, unsharded "
+        f"{busy['unsharded']:.2f} ms; {card}")
+    return total
+
+
+def _dist_moe(card: str) -> dict[str, int]:
+    """(b) deepseek-moe-16b, DIST_MOE_CUT layers at full width, under the
+    axis env: a q8_0 forward at DIST_MOE_ROWS x DIST_MOE_SEQ with every
+    batched and 2-D q8_matmul launch held to its plain version; then bf16:
+    the loss and gradients of the kernel path against the all-plain path
+    pinned to its routing (``_hold_grads``), and one sharded step."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qlinear import param_count
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.fault_tolerance import elastic_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import init_lm, lm_forward
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_loss_fn, make_train_step, value_and_grad
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), num_layers=DIST_MOE_CUT)
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 7), cfg,
+                     policy=get_policy("q8_0"))
+    toks = torch.randint(1, cfg.vocab_size, (DIST_MOE_ROWS, DIST_MOE_SEQ),
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 75),
+                         device="cuda")
+    with ctx.axis_env(make_smoke_mesh()), _CheckedExperts() as experts, \
+            _CheckedQ8() as dense, torch.no_grad():
+        ops.reset_launch_counts()
+        logits, aux = lm_forward(params, cfg, toks)
+        counts = ops.launch_counts()
+    want = _moe_want(params, cfg.num_layers, 1, {"flash_attention": cfg.num_layers})
+    if counts != want or not torch.isfinite(logits).all() or logits.shape != (
+            DIST_MOE_ROWS, DIST_MOE_SEQ, cfg.vocab_size):
+        raise AssertionError(f"full_dist moe forward: launches {counts}, expected {want}, "
+                             f"or logits {tuple(logits.shape)} not finite")
+    n_exp = MOE_EXPERT_LAUNCHES["q8_0"] * cfg.num_layers
+    experts.check(f"deepseek-moe-16b {DIST_MOE_CUT} layers q8_0 under the env", n_exp)
+    dense.check(f"deepseek-moe-16b {DIST_MOE_CUT} layers q8_0 under the env",
+                want["q8_matmul"] - n_exp)
+    for k, v in counts.items():
+        totals[k] += v
+    log(f"[full_dist] deepseek-moe-16b {DIST_MOE_CUT} layers q8_0 "
+        f"({param_count(params) / 1e9:.2f} B parameters) under the ep env, "
+        f"{DIST_MOE_ROWS} x {DIST_MOE_SEQ}: aux {aux.item():.6f}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }; {card}")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    base = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 7), cfg)
+    batch = _train_batch(cfg, DIST_MOE_ROWS, DIST_MOE_SEQ, SEED + 77)
+    fn = value_and_grad(make_loss_fn(cfg, TrainConfig(remat="none")))
+    with ctx.axis_env(make_smoke_mesh()):
+        ops.reset_launch_counts()
+        with _Routing() as route:
+            (k_loss, k_metrics), k_grads = fn(base, batch)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        if counts != {"flash_attention": cfg.num_layers}:
+            raise AssertionError(f"full_dist moe grad: launches {counts}")
+        totals["flash_attention"] += cfg.num_layers
+        with _PlainOps(), _Routing(pinned=route.sets):
+            (p_loss, _), p_grads = fn(base, batch)
+        loss_rel = abs(k_loss.item() - p_loss.item()) / abs(p_loss.item())
+        log(f"[full_dist] deepseek-moe-16b bf16 under the env: loss kernel "
+            f"{k_loss.item():.5f} plain {p_loss.item():.5f} ({loss_rel:.2e}, limit "
+            f"{TRAIN_LOSS_RTOL}) on the kernel path's routing")
+        if not loss_rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"full_dist moe: loss {k_loss.item()} vs {p_loss.item()}")
+
+        def witness():
+            with _PlainOps(), _Routing(pinned=route.sets):
+                return fn(_f32_params(base), batch)[1]
+        _hold_grads(f"deepseek-moe-16b {DIST_MOE_CUT} layers under the env", k_grads,
+                    p_grads, witness)
+        del k_grads, p_grads
+        gc.collect()
+        tc = TrainConfig(remat="none")
+        mesh = elastic_mesh(model_parallel=1)
+        step = make_train_step(cfg, tc, device="cuda", mesh=mesh)
+        p, o = step.shard(base, adamw.init_adam(base, tc))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        p, o, _, m = step(p, o, None, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        same = all(m[k].item() == k_metrics[k].item() for k in ("loss", "aux"))
+        if counts != {"flash_attention": cfg.num_layers} or not same or not math.isfinite(
+                m["grad_norm"].item()):
+            raise AssertionError(f"full_dist moe sharded step: launches {counts}, loss and aux "
+                                 f"{m['loss'].item()}, {m['aux'].item()} vs "
+                                 f"{k_metrics['loss'].item()}, {k_metrics['aux'].item()}")
+        totals["flash_attention"] += cfg.num_layers
+    log(f"[full_dist] deepseek-moe-16b bf16 sharded step at one rank: loss "
+        f"{m['loss'].item():.5f} and aux {m['aux'].item():.6f} (the kernel path's bits), "
+        f"grad_norm {m['grad_norm'].item():.4f}, {ms:.1f} ms synchronised; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}")
+    del base, p, o, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_full_dist(card: str) -> dict[str, int]:
+    """The distributed training path at world 1 on a one-rank nccl group:
+    (a) the sharded granite-8b step, (b) deepseek-moe-16b under the axis
+    env.  The launcher's sharded path (a one-rank nccl group, its mesh
+    line, a sharded save and a resume) runs in full_train's
+    ``_train_launcher``."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    own = _one_rank_group()
+    try:
+        totals = {name: 0 for name in ops.KERNEL_MODULES}
+        totals["flash_attention"] += _dist_granite(card)
+        for name, n in _dist_moe(card).items():
+            totals[name] += n
+    finally:
+        if own:
+            dist.destroy_process_group()
+    log(f"[full_dist] phase {time.perf_counter() - t0:.1f} s; {card}")
     return totals
 
 
@@ -5068,7 +5345,8 @@ def main() -> int:
                   lambda: phase_full_lm(card), lambda: phase_full_gen(card),
                   lambda: phase_full_serving(card), lambda: phase_full_moe(card),
                   lambda: phase_full_asr(card), lambda: phase_full_ssm(card),
-                  lambda: phase_full_vlm(card), lambda: phase_full_train(card)):
+                  lambda: phase_full_vlm(card), lambda: phase_full_train(card),
+                  lambda: phase_full_dist(card)):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
     for name in KERNEL_META:

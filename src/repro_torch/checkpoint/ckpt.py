@@ -23,6 +23,11 @@ LM trees hold one dict per layer, where the reference's stack layers
 over a period axis, so a checkpoint written by one package need not
 load in the other; :func:`restore` reads one written by this one, on
 the templates' devices.
+
+Sharded trees (``distributed.sharding``): :func:`save_sharded` gathers
+each whole leaf, rank 0 writes the same layout and the other ranks wait;
+:func:`restore_sharded` has every rank read the whole leaves and keep its
+own slices.  So a run saved at one world size resumes at another.
 """
 from __future__ import annotations
 
@@ -131,10 +136,12 @@ def latest_step(path: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(path: str, step: int, templates: dict[str, Any]
-            ) -> tuple[dict[str, Any], dict]:
+def restore(path: str, step: int, templates: dict[str, Any], *,
+            cut: dict[str, Any] | None = None) -> tuple[dict[str, Any], dict]:
     """Restore named trees using same-structure templates: each leaf
-    comes back with the template leaf's structure, on its device."""
+    comes back with the template leaf's structure, on its device.  With
+    ``cut`` ({name: fn(i, whole_leaf) -> leaf}) each whole leaf read (on
+    the CPU) is passed through ``fn`` before it moves to the device."""
     final = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
@@ -142,22 +149,64 @@ def restore(path: str, step: int, templates: dict[str, Any]
     for name, template in templates.items():
         data = np.load(os.path.join(final, f"{name}.npz"))
         counter = iter(range(len(tree_leaves(template, is_leaf=_is_qleaf))))
+        fn = (cut or {}).get(name)
 
-        def load(leaf, data=data, counter=counter):
+        def load(leaf, data=data, counter=counter, fn=fn):
             i = next(counter)
+            host = "cpu" if fn else None
             if isinstance(leaf, Q3KTensor):
                 dev = leaf.ql.device
-                return Q3KTensor(*(_find(data, i, f"q3k.{f}", dev)
-                                   for f in ("ql", "qh", "scales", "d")),
-                                 scale_bits=int(_find(data, i, "q3k.sb", "cpu")))
-            if isinstance(leaf, (Q8_0Tensor, Q4_0Tensor)):
+                whole = Q3KTensor(*(_find(data, i, f"q3k.{f}", host or dev)
+                                    for f in ("ql", "qh", "scales", "d")),
+                                  scale_bits=int(_find(data, i, "q3k.sb", "cpu")))
+            elif isinstance(leaf, (Q8_0Tensor, Q4_0Tensor)):
                 tag = "q8" if isinstance(leaf, Q8_0Tensor) else "q4"
                 dev = leaf.qs.device
-                return type(leaf)(_find(data, i, f"{tag}.qs", dev),
-                                  _find(data, i, f"{tag}.d", dev), leaf.logical)
-            return _find(data, i, "a", leaf.device)
+                whole = type(leaf)(_find(data, i, f"{tag}.qs", host or dev),
+                                   _find(data, i, f"{tag}.d", host or dev), leaf.logical)
+            else:
+                dev = leaf.device
+                whole = _find(data, i, "a", host or dev)
+            if fn is None:
+                return whole
+            return tree_map(lambda t: t.to(dev), fn(i, whole), is_leaf=None)
         out[name] = tree_map(load, template, is_leaf=_is_qleaf)
     return out, manifest
+
+
+def save_sharded(path: str, step: int, trees: dict[str, Any], specs: dict[str, Any],
+                 mesh, meta: dict | None = None) -> str:
+    """:func:`save` of the whole trees gathered from every rank's slices
+    (``specs``: {name: spec tree}); rank 0 writes, every rank returns
+    when the checkpoint is in place.  Every rank of ``mesh`` calls it."""
+    from repro_torch.distributed import sharding
+    whole = {name: sharding.gather_tree(tree, specs[name], mesh)
+             for name, tree in trees.items()}
+    final = os.path.join(path, f"step_{step:08d}")
+    rank = _rank()
+    if rank == 0:
+        save(path, step, whole, meta)
+    del whole
+    mesh.barrier()
+    return final
+
+
+def restore_sharded(path: str, step: int, templates: dict[str, Any],
+                    specs: dict[str, Any], mesh) -> tuple[dict[str, Any], dict]:
+    """:func:`restore` of this rank's slices (``templates``: its slices of
+    trees of the saved structure; ``specs``: {name: spec tree}): the
+    whole leaves are read and cut, whatever world size wrote them."""
+    from repro_torch.distributed import sharding
+    coords = mesh.own_coords()
+    cut = {name: (lambda i, leaf, sl=sharding.spec_leaves(specs[name]):
+                  sharding.local_shard(leaf, sl[i], mesh, coords))
+           for name in templates}
+    return restore(path, step, templates, cut=cut)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def gc_old(path: str, keep: int = 3) -> None:

@@ -1,5 +1,5 @@
-"""Replica health for the serving fleet (a copy of the serving half of
-``repro.distributed.fault_tolerance``).
+"""Replica health for the serving fleet and the elastic training mesh
+(``repro.distributed.fault_tolerance``).
 
 * ``Watchdog`` — a per-step latency EWMA; a step longer than
   ``threshold x`` the EWMA is a straggler ("suspect") and calls the
@@ -13,14 +13,19 @@
 * ``StepTimer`` — times one step into a ``Watchdog`` on an injectable
   clock.
 
-The reference's ``elastic_mesh`` (a JAX device mesh) belongs to the
-distribution slice and is not here.
+* ``elastic_mesh`` — the largest (pod, data, model) mesh of a rank list,
+  with the reference's arithmetic (a :class:`repro_torch.launch.mesh.Mesh`
+  of ranks where the reference builds one of devices).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Callable
+
+import numpy as np
+
+from repro_torch.launch.mesh import Mesh
 
 
 @dataclasses.dataclass
@@ -159,3 +164,28 @@ class StepTimer:
         self.watchdog.observe(self._step, self.clock() - self._t0)
         self._step += 1
         return False
+
+
+def elastic_mesh(ranks=None, *, model_parallel: int = 16,
+                 pod_size: int = 256) -> Mesh:
+    """Largest valid (pod, data, model) mesh from the live rank set
+    (``ranks``; by default every rank of the default process group, or
+    rank 0 without one).
+
+    Keeps ``model`` fixed, fills ``data`` with what remains inside a pod
+    and ``pod`` with whole live pods, as the reference does.  Like the
+    reference it raises (numpy's reshape) when fewer than
+    ``model_parallel`` ranks are live: ``data`` is floored at 1 and the
+    grid wants ``model_parallel`` ranks."""
+    if ranks is None:
+        import torch.distributed as dist
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        ranks = range(world)
+    ranks = np.asarray(ranks)
+    n = ranks.size
+    pods = max(n // pod_size, 1)
+    per_pod = n // pods
+    data = max(per_pod // model_parallel, 1)
+    usable = pods * data * model_parallel
+    grid = ranks.reshape(-1)[:usable].reshape(pods, data, model_parallel)
+    return Mesh(grid, ("pod", "data", "model"))

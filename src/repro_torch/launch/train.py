@@ -1,40 +1,82 @@
-"""Training launcher of the port (the twin of ``repro.launch.train``),
-single-process on one device.
+"""Training launcher of the port (the twin of ``repro.launch.train``).
 
   python -m repro_torch.launch.train --arch granite-8b [--reduced] \
       [--steps N] [--batch 8] [--seq 128] [--microbatch 0] \
       [--quantized-moments] [--grad-compression] [--resume auto] \
       [--ckpt-dir DIR] [--ckpt-every 25] [--device cuda]
 
-It draws the parameters with ``init_lm`` (seed ``TrainConfig.seed``),
-resumes from the newest checkpoint in ``--ckpt-dir`` unless ``--resume
-none``, feeds ``TokenPipeline`` batches (started at the resumed step, so
-a resumed run sees the batches the interrupted one would have) through
-``make_train_step`` (``remat="block"``), times each step into a
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch granite-8b --device cpu --reduced
+
+One process per rank.  Rank, world size and the rendezvous come from
+the standard ``torchrun`` variables (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): ``nccl`` with
+``--device cuda`` (each rank on card ``LOCAL_RANK``), ``gloo`` with
+``--device cpu``.  Without them the same code runs at one rank through a
+one-rank group; a caller that has set up the default group already
+(a test, on a file store) keeps it.
+
+As in the reference, it builds the elastic mesh over the live ranks
+(``elastic_mesh``, ``pod_size=256``) and prints it, and trains under
+that mesh's axis env with the parameters and the AdamW state sharded by
+``sharding.param_specs`` (``train_step.ShardedTrainStep``).  Ranks that
+the mesh leaves out (``elastic_mesh`` keeps whole pods of equal size)
+take part in building its groups and then idle, as the reference leaves
+such devices idle.  The model axis is 1 at every world size, where the
+reference takes 16 from two devices on: that rule raises below 16 ranks
+(``elastic_mesh`` cannot build a mesh of fewer ranks than its model
+axis), and until tensor-parallel compute is ported every rank along
+``model`` would compute the same rows on the whole gathered parameters,
+sixteen times the work for no memory saved during the step.
+
+It draws the parameters with ``init_lm`` (seed ``TrainConfig.seed``) on
+every rank and keeps the rank's slices, resumes from the newest
+checkpoint in ``--ckpt-dir`` unless ``--resume none`` (every rank reads
+the whole state and keeps its slices, whatever world size wrote it),
+feeds the global ``TokenPipeline`` batches (started at the resumed step,
+so a resumed run sees the batches the interrupted one would have)
+through the step (``remat="block"``), times each step into a
 ``Watchdog``, and saves the parameters and the AdamW state every
-``--ckpt-every`` steps and at the last one, keeping the newest three.
-The compression residual is not saved, as in the reference.
+``--ckpt-every`` steps and at the last one (gathered, written by rank
+0), keeping the newest three.  The compression residual is not saved,
+as in the reference.  Rank 0 prints.
 
 ``--reduced`` (the default with ``--device cpu``) trains the config's
-CPU-scale twin.  The reference also builds an elastic device mesh and
-shards the parameters over it; that belongs to the distribution slice
-and is not here: this launcher runs one process on one device.  The
-batches carry tokens and labels only, so an encoder-decoder arch (which
-needs ``enc_embeds``) is refused, as the reference's loss refuses it.
+CPU-scale twin.  The batches carry tokens and labels only, so an
+encoder-decoder arch (which needs ``enc_embeds``) is refused, as the
+reference's loss refuses it.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device, sync_device
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import TrainConfig, get_config, reduced as reduce_cfg
 from repro_torch.data.pipeline import TokenPipeline
-from repro_torch.distributed.fault_tolerance import StepTimer, Watchdog
+from repro_torch.distributed import ctx as axctx
+from repro_torch.distributed.fault_tolerance import (StepTimer, Watchdog,
+                                                     elastic_mesh)
 from repro_torch.models.transformer import init_lm
 from repro_torch.train.train_step import init_train_state, make_train_step
+
+
+def _init_group(device: torch.device) -> bool:
+    """Join the default process group (torchrun's variables, else a
+    one-rank group); -> whether this call made it."""
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]))
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    return True
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -55,6 +97,9 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
     cfg = get_config(args.arch)
     if args.reduced or device.type == "cpu":
         cfg = reduce_cfg(cfg)
@@ -66,45 +111,67 @@ def main(argv: list[str] | None = None) -> None:
                        grad_compression=args.grad_compression,
                        remat="block", ckpt_dir=args.ckpt_dir,
                        ckpt_every=args.ckpt_every, steps=args.steps)
-    print(f"train {cfg.name} on {device}: {cfg.num_layers} layers, "
-          f"d_model {cfg.d_model}, batch {args.batch} x {args.seq}")
-
-    params, opt, comp = init_train_state(
-        torch.Generator(device=device).manual_seed(tcfg.seed), cfg, tcfg,
-        init_lm)
-    step = make_train_step(cfg, tcfg, device=device)
-
-    start = 0
-    if args.resume == "auto":
-        last = ckpt.latest_step(tcfg.ckpt_dir)
-        if last is not None:
-            restored, man = ckpt.restore(tcfg.ckpt_dir, last,
-                                         {"params": params, "opt": opt})
-            params, opt, start = (restored["params"], restored["opt"],
-                                  man["step"])
-            print(f"resumed at step {start}")
-
-    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                         batch=args.batch, seed=tcfg.seed, start_step=start)
-    watchdog = Watchdog()
-    timer = StepTimer(watchdog)
+    own = _init_group(device)
     try:
-        for i in range(start, tcfg.steps):
-            batch = next(pipe)
-            with timer:
-                params, opt, comp, m = step(params, opt, comp, batch)
-                sync_device(device)
-            if i % 10 == 0:
-                print(f"step {i} loss {float(m['loss']):.4f}")
-            if (i + 1) % tcfg.ckpt_every == 0 or i == tcfg.steps - 1:
-                ckpt.save(tcfg.ckpt_dir, i + 1,
-                          {"params": params, "opt": opt},
-                          meta={"seed": tcfg.seed, **pipe.state()})
-                ckpt.gc_old(tcfg.ckpt_dir)
+        _train(args, cfg, tcfg, device)
     finally:
-        pipe.close()
+        if own:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, tcfg: TrainConfig, device: torch.device) -> None:
+    rank, world = dist.get_rank(), dist.get_world_size()
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"train {cfg.name} on {device}: {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, batch {args.batch} x {args.seq}")
+    mesh = elastic_mesh(model_parallel=1, pod_size=256)
+    say(f"mesh: {dict(mesh.shape)} on {world} devices ({dist.get_backend()})")
+    if world > mesh.size:
+        mesh.device_mesh()          # every rank takes part in making its groups
+        if not mesh.owns():
+            print(f"rank {rank}: outside the {mesh.size}-rank mesh, idle")
+            return
+
+    with axctx.axis_env(mesh):
+        params, opt, comp = init_train_state(
+            torch.Generator(device=device).manual_seed(tcfg.seed), cfg, tcfg,
+            init_lm)
+        step = make_train_step(cfg, tcfg, device=device, mesh=mesh)
+        params, opt = step.shard(params, opt)
+        specs = {"params": step.specs[0], "opt": step.specs[1]}
+
+        start = 0
+        if args.resume == "auto":
+            last = ckpt.latest_step(tcfg.ckpt_dir)
+            if last is not None:
+                restored, man = ckpt.restore_sharded(
+                    tcfg.ckpt_dir, last, {"params": params, "opt": opt}, specs, mesh)
+                params, opt, start = (restored["params"], restored["opt"],
+                                      man["step"])
+                say(f"resumed at step {start}")
+
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                             batch=args.batch, seed=tcfg.seed, start_step=start)
+        watchdog = Watchdog()
+        timer = StepTimer(watchdog)
+        try:
+            for i in range(start, tcfg.steps):
+                batch = next(pipe)
+                with timer:
+                    params, opt, comp, m = step(params, opt, comp, batch)
+                    sync_device(device)
+                if i % 10 == 0:
+                    say(f"step {i} loss {float(m['loss']):.4f}")
+                if (i + 1) % tcfg.ckpt_every == 0 or i == tcfg.steps - 1:
+                    ckpt.save_sharded(tcfg.ckpt_dir, i + 1,
+                                      {"params": params, "opt": opt}, specs, mesh,
+                                      meta={"seed": tcfg.seed, **pipe.state()})
+                    if rank == 0:
+                        ckpt.gc_old(tcfg.ckpt_dir)
+        finally:
+            pipe.close()
     if watchdog.suspects:
-        print(f"straggler-suspect steps: {watchdog.suspects}")
+        say(f"straggler-suspect steps: {watchdog.suspects}")
 
 
 if __name__ == "__main__":

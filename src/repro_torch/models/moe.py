@@ -21,20 +21,83 @@ equal probabilities.  ``torch.topk`` makes no such promise (on the CPU,
 four equal probabilities gave experts 2 and 3 as the top two), so the
 top k here are the first k of a stable descending sort, which keeps the
 index order among equals.  The dispatch sort is stable, as
-``jnp.argsort`` is.  The reference's
-expert-parallel pieces (``_q8_across_ep``, ``_quantized_combine`` and
-``ctx.expert_buf``) act only under a distributed environment and are not
-ported.
+``jnp.argsort`` is.
+
+Under an axis env (``distributed.ctx.axis_env``) the reference's
+expert-parallel pieces act as they do there: with ``moe_mode == "ep"``
+and ``d % 32 == 0`` the combine gathers the expert outputs through Q8_0
+blocks (:class:`QuantizedCombine`, a straight-through backward), also at
+one rank; the aux loss's two means are averaged over the ranks that
+split the batch (``ctx.batch_mean``), so that it is the product of means
+over all tokens of the global batch, as in the reference.  The
+reference's expert-buffer cut points (``ctx.expert_buf``) change no
+value and are left out; the experts still run on every rank: the expert
+all-to-all comes with expert-parallel compute.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant
 from repro_torch.core.qlinear import Linear, apply_linear
 from repro_torch.core.quant import Q3KTensor, Q8_0Tensor, QTYPES
+from repro_torch.distributed import ctx
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+
+
+def _q8_across_ep(x: torch.Tensor) -> torch.Tensor:
+    """Quantize a (G, E, C, d) buffer to Q8_0 blocks before the EP cut and
+    dequantize after it, so that the expert all-to-all would move int8 +
+    fp16 scales instead of bf16.  Without an env, under ``moe_mode ==
+    "dp"`` or with ``d % 32 != 0``, the buffer itself.  The reference
+    defines it but never calls it (its ``apply_moe`` crosses the cut
+    through ``ctx.expert_buf``); neither does the port."""
+    env = ctx.current()
+    if env is None or env.moe_mode != "ep" or x.shape[-1] % 32:
+        return ctx.expert_buf(x)
+    t = quant.quantize_q8_0(x)
+    t = Q8_0Tensor(ctx.expert_buf(t.qs), ctx.expert_buf(t.d))
+    return quant.dequantize_q8_0(t, torch.bfloat16).to(x.dtype)
+
+
+class QuantizedCombine(torch.autograd.Function):
+    """``out_flat`` (G, n, d) gathered at ``dst`` (G, T) through Q8_0
+    blocks: each row is quantized (int8 quants, fp16 scales per 32), a
+    zero row is appended at index n (dropped entries point there), the
+    quants and scales are gathered and dequantized to ``out_flat``'s
+    dtype -> (G, T, d).  The backward is the exact transpose of the
+    gather (straight through the quantizer, whose round would pass no
+    gradient): ``dst`` is injective on kept entries, so the rank scatters
+    only int32 inverse indices and gathers the cotangents."""
+
+    @staticmethod
+    def forward(ctx_, out_flat, dst):
+        g, n, d = out_flat.shape
+        oq = quant.quantize_q8_0(out_flat)
+        qs = torch.cat([oq.qs, oq.qs.new_zeros((g, 1, d))], 1)
+        dsc = torch.cat([oq.d, oq.d.new_zeros((g, 1, d // 32))], 1)
+        qs_g = qs.gather(1, dst[..., None].expand(-1, -1, d))
+        dsc_g = dsc.gather(1, dst[..., None].expand(-1, -1, d // 32))
+        ctx_.save_for_backward(dst)
+        ctx_.n = n
+        return quant.dequantize_q8_0(Q8_0Tensor(qs_g, dsc_g), out_flat.dtype)
+
+    @staticmethod
+    def backward(ctx_, gy):
+        (dst,) = ctx_.saved_tensors
+        g, sk, d = gy.shape
+        inv = torch.full((g, ctx_.n + 1), sk, dtype=torch.int32, device=gy.device)
+        inv.scatter_(1, dst, torch.arange(sk, dtype=torch.int32,
+                                          device=gy.device).expand(g, sk).contiguous())
+        inv = inv[:, :ctx_.n].long()
+        gypad = torch.cat([gy, gy.new_zeros((g, 1, d))], 1)
+        return gypad.gather(1, inv[..., None].expand(-1, -1, d)), None
+
+
+def _quantized_combine(out_flat: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    return QuantizedCombine.apply(out_flat, dst)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -102,8 +165,9 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
     probs, gate, expert_idx = route(p, cfg, x)
 
     # Load-balancing aux loss (Switch-style), over all tokens.
-    me = probs.reshape(-1, e).mean(0)
-    ce = torch.nn.functional.one_hot(expert_idx.reshape(-1, k), e).sum(1).float().mean(0) / k
+    me = ctx.batch_mean(probs.reshape(-1, e).mean(0))
+    ce = ctx.batch_mean(
+        torch.nn.functional.one_hot(expert_idx.reshape(-1, k), e).sum(1).float().mean(0) / k)
     aux = e * (me * ce).sum() * moe.router_aux_coef
 
     cap = max(int(moe.capacity_factor * s * k / e), 1)
@@ -135,11 +199,17 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
     # dropped) times its gate, added up per token in ascending expert
     # order from zero, rounding to x's dtype after each add: the
     # reference's scatter-add over the expert-sorted entries.
+    # Under an "ep" env the gather crosses the EP wire as Q8_0 blocks.
     inv = torch.argsort(order, dim=-1)                           # entry -> sorted position
     dst_tok = dst.gather(-1, inv)
     w_tok = (gate.reshape(g, s * k) * keep.gather(-1, inv)).to(x.dtype)
-    out_flat = torch.cat([out_e, out_e.new_zeros((g, 1, d))], dim=1)
-    contrib = out_flat.gather(1, dst_tok[..., None].expand(-1, -1, d)) * w_tok[..., None]
+    env = ctx.current()
+    if env is not None and env.moe_mode == "ep" and d % 32 == 0:
+        rows = _quantized_combine(out_e, dst_tok)
+    else:
+        out_flat = torch.cat([out_e, out_e.new_zeros((g, 1, d))], dim=1)
+        rows = out_flat.gather(1, dst_tok[..., None].expand(-1, -1, d))
+    contrib = rows * w_tok[..., None]
     by_expert = expert_idx.argsort(dim=-1)                       # (G,S,k)
     contrib = contrib.reshape(g, s, k, d).gather(
         2, by_expert[..., None].expand(-1, -1, -1, d))

@@ -78,15 +78,20 @@ def _is_q(x) -> bool:
 
 @torch.no_grad()
 def adam_update(grads: Any, state: AdamState, params: Any,
-                cfg: TrainConfig) -> tuple[Any, AdamState]:
+                cfg: TrainConfig, *, grad_norm: torch.Tensor
+                ) -> tuple[Any, AdamState]:
     """One AdamW step -> (params, state).  ``grads`` has the parameters'
     structure (any float dtype).  The parameters and the moments are
     updated in place, leaf by leaf, and the same trees are returned with
     the new step count: the reference returns new arrays, but a second
-    copy of an 8 B-parameter model does not fit beside it on one card."""
+    copy of an 8 B-parameter model does not fit beside it on one card.
+
+    ``grad_norm`` is the whole gradient's ``global_norm``, which the
+    caller has for its metrics: the clip scales by it, as in the
+    reference, also where the trees are one rank's slices (the sharded
+    train step)."""
     step = state.step + 1
-    gn = global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
+    clip = torch.clamp(cfg.grad_clip / (grad_norm + 1e-9), max=1.0)
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = _bias_correction(b1, step)
     bc2 = _bias_correction(b2, step)

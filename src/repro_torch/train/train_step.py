@@ -13,6 +13,28 @@ requires grad (``kernels.ops``).
 The parameters and the optimizer state are updated in place
 (``optim.adamw.adam_update``); ``train_step`` returns them all the same,
 with the reference's signature.
+
+With a mesh (:class:`ShardedTrainStep`) the step places the collectives
+that GSPMD places in the reference, so that it computes the reference's
+numbers:
+
+* each rank holds its ``sharding.param_specs`` slice of the parameters
+  and of the AdamW moments, and all-gathers the whole parameters before
+  the forward (ranks along ``model`` hold different slices and compute
+  the same rows: tensor-parallel compute comes later);
+* each rank feeds its rows of the global batch (``batch_specs``; a batch
+  that does not divide the data axes is replicated), ``tcfg.microbatch``
+  counting global rows;
+* the gradients are averaged over the axes that split the batch, and
+  the MoE aux loss takes its means over the whole batch (``ctx.
+  batch_mean``);
+* compression (flat 32-blocks of each whole leaf) and the clip (the
+  global norm) see the whole reduced gradient, on every rank alike;
+* each rank updates only its slices.  A quantized moment whose slice
+  would cut a Q8_0 block (or that is sliced where its parameter is not)
+  is updated whole from the gathered leaf, and cut again.
+
+At one rank it is the unsharded step, bit for bit.
 """
 from __future__ import annotations
 
@@ -22,7 +44,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.quant import QTYPES, Q8_0Tensor
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.distributed import ctx, sharding
+from repro_torch.distributed.sharding import P
 from repro_torch.models.transformer import lm_forward
 from repro_torch.optim import adamw, compression
 
@@ -72,49 +97,64 @@ def value_and_grad(loss_fn):
     return grad_fn
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, device="cuda"):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, device="cuda",
+                    mesh=None):
     """``train_step(params, opt_state, comp_state, batch) -> (params,
     opt_state, comp_state, metrics)`` with ``metrics`` ``loss``, ``aux``
     and ``grad_norm`` (0-d tensors).  ``batch`` holds ``tokens`` and
     ``labels`` (B, S) (numpy or tensors, moved to ``device``) and, where
     the config needs them, ``enc_embeds`` or ``prefix_embeds``.  With
     ``tcfg.microbatch`` below B the gradient is the f32 mean over
-    B / microbatch microbatches, each added as ``g / nm`` in order."""
+    B / microbatch microbatches, each added as ``g / nm`` in order.
+
+    With ``mesh`` (a ``launch.mesh.Mesh`` of the default process group,
+    or of one rank without one) it is a :class:`ShardedTrainStep`, which
+    takes this rank's slices of the parameters and the AdamW state
+    (``ShardedTrainStep.shard``) and the whole global batch."""
+    if mesh is not None:
+        return ShardedTrainStep(cfg, tcfg, device=device, mesh=mesh)
     device = resolve_device(device)
     grad_fn = value_and_grad(make_loss_fn(cfg, tcfg))
 
     def train_step(params, opt_state: adamw.AdamState, comp_state,
                    batch: dict[str, Any]):
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        b = batch["tokens"].shape[0]
-        if tcfg.microbatch and tcfg.microbatch < b:
-            mb = tcfg.microbatch
-            nm = b // mb
-            split = {k: v.reshape(nm, mb, *v.shape[1:]) for k, v in batch.items()}
-            gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32, device=device)
-            for i in range(nm):
-                (_, metrics), grads = grad_fn(params, {k: v[i] for k, v in split.items()})
-                acc = iter([a + g.float() / nm for a, g in
-                            zip(tree_leaves(gacc), tree_leaves(grads))])
-                del grads
-                gacc = tree_map(lambda _: next(acc), gacc)
-                loss = loss + metrics["loss"] / nm
-            grads = gacc
-            metrics = {"loss": loss,
-                       "aux": torch.zeros((), dtype=torch.float32, device=device)}
-        else:
-            (_, metrics), grads = grad_fn(params, batch)
+        metrics, grads = _accumulate(grad_fn, params, batch, tcfg)
 
         if tcfg.grad_compression:
             grads, comp_state = compression.apply_compression(grads, comp_state)
 
-        params, opt_state = adamw.adam_update(grads, opt_state, params, tcfg)
-        metrics = dict(metrics, grad_norm=adamw.global_norm(grads))
-        return params, opt_state, comp_state, metrics
+        gn = adamw.global_norm(grads)
+        params, opt_state = adamw.adam_update(grads, opt_state, params, tcfg, grad_norm=gn)
+        return params, opt_state, comp_state, dict(metrics, grad_norm=gn)
 
     return train_step
+
+
+def _accumulate(grad_fn, params, batch: dict[str, torch.Tensor], tcfg: TrainConfig):
+    """``(metrics, grads)`` of ``grad_fn(params, batch)``; with
+    ``tcfg.microbatch`` below B, over B / microbatch microbatches in
+    order: the gradient their f32 mean, each added as ``g / nm``, the
+    loss their mean and the aux 0, as in the reference's scan."""
+    b = batch["tokens"].shape[0]
+    if not (tcfg.microbatch and tcfg.microbatch < b):
+        (_, metrics), grads = grad_fn(params, batch)
+        return metrics, grads
+    mb = tcfg.microbatch
+    nm = b // mb
+    split = {k: v.reshape(nm, mb, *v.shape[1:]) for k, v in batch.items()}
+    gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+    device = batch["tokens"].device
+    loss = torch.zeros((), dtype=torch.float32, device=device)
+    for i in range(nm):
+        (_, metrics), grads = grad_fn(params, {k: v[i] for k, v in split.items()})
+        acc = iter([a + g.float() / nm for a, g in
+                    zip(tree_leaves(gacc), tree_leaves(grads))])
+        del grads
+        gacc = tree_map(lambda _: next(acc), gacc)
+        loss = loss + metrics["loss"] / nm
+    return {"loss": loss, "aux": torch.zeros((), dtype=torch.float32, device=device)}, gacc
 
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
@@ -128,3 +168,148 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig,
     if tcfg.grad_compression:
         comp_state = compression.init_compression(params)
     return params, opt_state, comp_state
+
+
+# ------------------------------------------------------------ sharded step
+
+def _padded(spec: P, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def _aligned(pspec: P, mspec, ndim: int) -> bool:
+    """Whether a moment sliced by ``mspec`` covers exactly the parameter's
+    slice under ``pspec`` in whole Q8_0 blocks (an f32 moment: the same
+    spec)."""
+    if isinstance(mspec, Q8_0Tensor):
+        qs, d = _padded(mspec.qs, ndim), _padded(mspec.d, ndim)
+        return qs == _padded(pspec, ndim) and d == qs
+    return _padded(mspec, ndim) == _padded(pspec, ndim)
+
+
+class ShardedTrainStep:
+    """The train step on a mesh (see the module docstring).  :meth:`shard`
+    cuts this rank's slices of a whole state (and sets ``specs``, the
+    parameter specs and the ``AdamState`` specs); :meth:`gather` rebuilds
+    the whole state from every rank's slices."""
+
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *, device, mesh):
+        self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
+        self.device = resolve_device(device)
+        self.coords = mesh.own_coords()
+        self.specs = None
+        self.grad_fn = value_and_grad(make_loss_fn(cfg, tcfg))
+
+    def shard(self, params, opt_state: adamw.AdamState):
+        """This rank's slices of whole ``params`` and ``opt_state``; their
+        shapes set :attr:`specs` (the reference's ``param_specs`` of the
+        parameters and of each moment tree) under the active axis env."""
+        pspec, ospec = self.specs = (
+            sharding.param_specs(params, self.mesh),
+            adamw.AdamState(step=P(), m=sharding.param_specs(opt_state.m, self.mesh),
+                            v=sharding.param_specs(opt_state.v, self.mesh)))
+        return (sharding.shard_tree(params, pspec, self.mesh, self.coords),
+                sharding.shard_tree(opt_state, ospec, self.mesh, self.coords))
+
+    def gather(self, params, opt_state: adamw.AdamState):
+        """The whole ``params`` and ``opt_state`` (every rank calls it)."""
+        pspec, ospec = self.specs
+        return (sharding.gather_tree(params, pspec, self.mesh),
+                sharding.gather_tree(opt_state, ospec, self.mesh))
+
+    def _rows(self, batch: dict) -> tuple[dict, tuple]:
+        """This rank's rows of a global batch and the axes they split."""
+        specs = sharding.batch_specs(batch, self.mesh)
+        local = {k: sharding.local_shard(v, specs[k], self.mesh, self.coords)
+                 for k, v in batch.items()}
+        axes = sharding._axes(specs["tokens"][0])
+        return local, tuple(a for a in axes if self.mesh.shape[a] > 1)
+
+    def _mean(self, tree, axes: tuple):
+        """Every tensor of ``tree`` averaged over ``axes`` (f32 sums, one
+        all-reduce per axis over the leaves packed together), in its own
+        dtype; ``tree`` itself when ``axes`` is empty."""
+        if not axes:
+            return tree
+        import torch.distributed as dist
+        leaves = tree_leaves(tree)
+        buf = torch.cat([t.float().reshape(-1) for t in leaves])
+        n = 1
+        for a in axes:
+            dist.all_reduce(buf, group=self.mesh.group(a))
+            n *= self.mesh.shape[a]
+        buf = buf / n
+        parts = iter(buf.split([t.numel() for t in leaves]))
+        return tree_map(lambda t: next(parts).reshape(t.shape).to(t.dtype), tree)
+
+    def _grads(self, whole, batch: dict[str, torch.Tensor]):
+        env = ctx.current()
+        kw = dict(moe_mode=env.moe_mode if env else "ep")
+        if env is not None:
+            kw.update(dp=env.dp, tp=env.tp or "model")
+        axes = ()
+
+        def rows_grad(params, rows):
+            """``grad_fn`` on this rank's part of ``rows``, under an env
+            whose MoE aux loss takes its means over the split axes."""
+            nonlocal axes
+            local, axes = self._rows(rows)
+            with ctx.axis_env(self.mesh, batch_axes=axes, **kw):
+                return self.grad_fn(params, local)
+
+        metrics, grads = _accumulate(rows_grad, whole, batch, self.tcfg)
+        loss, grads = self._mean((metrics["loss"], grads), axes)
+        return dict(metrics, loss=loss), grads
+
+    @torch.no_grad()
+    def _update(self, grads, opt_state: adamw.AdamState, params, whole, gn):
+        """AdamW on this rank's slices; a leaf whose moment slices do not
+        match its parameter's in whole Q8_0 blocks is updated whole and cut
+        again."""
+        pspec, ospec = self.specs
+        mesh, coords = self.mesh, self.coords
+        is_q = lambda x: isinstance(x, QTYPES)   # noqa: E731
+        work_p, work_g, work_m, work_v, redo = [], [], [], [], []
+        for i, (p, pw, g, ps, m, ms, v, vs) in enumerate(zip(
+                tree_leaves(params), tree_leaves(whole), tree_leaves(grads),
+                sharding.spec_leaves(pspec),
+                tree_leaves(opt_state.m, is_leaf=is_q), sharding.spec_leaves(ospec.m),
+                tree_leaves(opt_state.v, is_leaf=is_q), sharding.spec_leaves(ospec.v))):
+            whole_leaf = not (_aligned(ps, ms, p.dim()) and _aligned(ps, vs, p.dim()))
+            work_p.append(pw if whole_leaf else p)
+            work_g.append(g if whole_leaf else sharding.local_shard(g, ps, mesh, coords))
+            work_m.append(m)
+            work_v.append(v)
+            if whole_leaf:
+                redo.append((i, p, ps, m, ms, v, vs))
+        if redo:     # their moments, whole: one packed gather
+            full = sharding.gather_tree([(r[3], r[5]) for r in redo],
+                                        [(r[4], r[6]) for r in redo], mesh)
+            for (i, *_), (m, v) in zip(redo, full):
+                work_m[i], work_v[i] = m, v
+        step = opt_state.step
+        _, new = adamw.adam_update(work_g, adamw.AdamState(step, work_m, work_v), work_p,
+                                   self.tcfg, grad_norm=gn)
+        for i, p, ps, m, ms, v, vs in redo:
+            if work_p[i] is not p:
+                p.copy_(sharding.local_shard(work_p[i], ps, mesh, coords))
+            for old, full, spec in ((m, work_m[i], ms), (v, work_v[i], vs)):
+                cut = sharding.local_shard(full, spec, mesh, coords)
+                if is_q(old):
+                    old.qs.copy_(cut.qs)
+                    old.d.copy_(cut.d)
+                else:
+                    old.copy_(cut)
+        return params, adamw.AdamState(step=new.step, m=opt_state.m, v=opt_state.v)
+
+    def __call__(self, params, opt_state: adamw.AdamState, comp_state,
+                 batch: dict[str, Any]):
+        if self.specs is None:
+            raise RuntimeError("ShardedTrainStep: shard() the whole state first")
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        whole = sharding.gather_tree(params, self.specs[0], self.mesh)
+        metrics, grads = self._grads(whole, batch)
+        if self.tcfg.grad_compression:
+            grads, comp_state = compression.apply_compression(grads, comp_state)
+        gn = adamw.global_norm(grads)
+        params, opt_state = self._update(grads, opt_state, params, whole, gn)
+        return params, opt_state, comp_state, dict(metrics, grad_norm=gn)

@@ -2,8 +2,10 @@
 
 * Importing ``repro_torch`` and driving its engines (the ASR engine and
   the audio frontend too), the router, a fleet with a cost model and
-  telemetry, and ``launch/serve.py`` (``--asr`` too) leaves ``jax`` and
-  ``repro`` out of ``sys.modules`` (checked in a fresh interpreter).
+  telemetry, ``launch/serve.py`` (``--asr`` too), ``launch/train.py``
+  and a one-rank sharded train step (``launch.mesh``, ``distributed.ctx``
+  and ``distributed.sharding``) leaves ``jax`` and ``repro`` out of
+  ``sys.modules`` (checked in a fresh interpreter).
 * Without a cost model and metrics the engines never synchronise the
   device; the observation sync is ``torch.cuda.synchronize`` on a card.
 * No file of the package, and not ``chip_smoke.py``, imports ``jax`` or
@@ -132,6 +134,21 @@ def test_import_and_engine_leave_jax_unloaded():
         "with tempfile.TemporaryDirectory() as d:\n"
         "    LT.main(['--arch', 'qwen2-vl-72b', '--device', 'cpu', '--steps', '2',\n"
         "             '--batch', '1', '--seq', '8', '--ckpt-every', '1', '--ckpt-dir', d])\n"
+        "import repro_torch.launch.mesh as M, repro_torch.distributed.ctx as C\n"
+        "import repro_torch.distributed.sharding\n"
+        "from repro_torch.configs import TrainConfig\n"
+        "from repro_torch.distributed.fault_tolerance import elastic_mesh\n"
+        "from repro_torch.train.train_step import init_train_state, make_train_step\n"
+        "mcfg = reduced(get_config('deepseek-moe-16b'))\n"
+        "tc = TrainConfig(remat='none', quantized_moments=True)\n"
+        "with C.axis_env(M.make_smoke_mesh()):\n"
+        "    st = make_train_step(mcfg, tc, device='cpu', mesh=elastic_mesh(model_parallel=1))\n"
+        "    mp, mo, mc = init_train_state(torch.Generator().manual_seed(0), mcfg, tc, T.init_lm)\n"
+        "    mp, mo = st.shard(mp, mo)\n"
+        "    b = {'tokens': torch.ones(2, 8, dtype=torch.long), 'labels': torch.ones(2, 8, "
+        "dtype=torch.long)}\n"
+        "    mp, mo, mc, mm = st(mp, mo, mc, b)\n"
+        "assert float(mm['loss']) > 0 and int(mo.step) == 1\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', 'ml_dtypes') or "
         "m.startswith(('jax.', 'repro.', 'ml_dtypes.')))\n"
         "assert not bad, bad\n")

@@ -1,0 +1,617 @@
+"""Port parity: distributed training (meshes, sharded train step, the MoE
+wire pieces, sharded checkpoints, the multi-rank launcher).
+
+* The MoE expert-parallel pieces against the reference at one rank:
+  ``QuantizedCombine`` (forward and gradient) and ``_q8_across_ep`` bit
+  for bit on the same inputs, and one reduced deepseek-moe layer under
+  each package's axis env (the reference's on a one-device mesh of Auto
+  axes: ``jax.make_mesh`` gives Explicit axes under jax 0.9, on which the
+  reference's own ``constrain`` raises) at f32: outputs within
+  ``MOE_F32_ATOL`` (measured 3.6e-7), aux within ``AUX_RTOL``, every
+  gradient within ``GRAD_F32_REL`` of its leaf's largest (measured
+  4.6e-7).
+* The single-process port that the worlds are held to, against the
+  reference's train step from the same parameters (the reference's
+  ``init_lm``, f32) and batches: reduced deepseek-moe-16b under each
+  package's one-rank env with ``moe_mode`` "dp" (the worlds' mode), 3
+  steps of each option within ``test_torch_train``'s limits, widened per
+  step as below (the loss within 1e-6); under "ep" one step through the
+  Q8_0 combine, whose f16 block scales can round apart
+  (``LOSS_WIRE_RTOL``, ``WIRE_STEP``).
+* The sharded step at one rank is the unsharded step bit for bit, under
+  "ep".
+* Spawned gloo worlds (a ``FileStore`` under ``tmp_path``; the ranks are
+  this file run as a script, without JAX), three at once: 2 ranks as
+  data 2, 2 ranks as model 2, 4 ranks as pod 2 x data 2.  Reduced
+  granite-8b and deepseek-moe (f32, the same parameters, batch 4 x 16),
+  plain, microbatch 2, Q8_0 moments and compression, 3 steps each,
+  against the single-process port: loss and loss + aux within
+  ``LOSS_RTOL``, grad_norm within ``GRAD_NORM_RTOL``, after every step
+  the parameters within ``PARAM_F32_ATOL`` and the moments and residuals
+  by ``test_torch_train._check_state``'s rule, both widened by one
+  allowance per step taken (an Adam step or a Q8_0 code moved at step 1
+  is carried on; measured: the loss <= 1.4e-7, grad_norm <= 5.5e-6,
+  parameters <= 5.8e-5 after 3 steps).  The compression residual is
+  held after the first step only: the rule reads one code of the
+  compressed gradient off m = (1 - b1) clip g_c, which holds then;
+  later, parameters apart by a few 1e-5 move the next gradients and up
+  to 286 of 755,328 residual elements to the next Q8_0 code after step
+  3, which the moments and parameters it feeds then show within their
+  limits.  An undividable batch (3 rows) is replicated and gives the
+  single-process bits.  The control: deepseek at data 2 with the aux
+  loss's reduction switched off misses ``LOSS_RTOL`` (per-rank aux
+  values averaged are another number).
+* Elastic restart: a sharded checkpoint written at world 2 restores at
+  world 1 with the saved bits, and at world 2, 3 steps + save + restore
+  + 3 steps equal 6 straight steps bit for bit.
+* ``launch.train.main()`` at world 2 (gloo, ``--device cpu --reduced``,
+  2 steps): the mesh line, and a checkpoint that resumes at world 1; and
+  at world 4 with a model axis of 3, where the rank left out idles.
+"""
+import contextlib
+import datetime
+import io
+import os
+import subprocess
+import sys
+import traceback
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+if __name__ != "__main__":          # the gloo ranks this file spawns run without JAX
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp  # noqa: E402
+
+    from repro.configs import base as jbase  # noqa: E402
+    from repro.configs import get_config as jget_config  # noqa: E402
+    from repro.configs import reduced as jreduced  # noqa: E402
+    from repro.distributed import ctx as jctx  # noqa: E402
+    from repro.models import moe as jmoe  # noqa: E402
+    from repro.models import transformer as jT  # noqa: E402
+    from repro.optim import adamw as jadam  # noqa: E402
+    from repro.optim import compression as jcomp  # noqa: E402
+    from repro.train import train_step as jts  # noqa: E402
+    from repro_torch.weights import from_reference  # noqa: E402
+    from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
+    from test_torch_train import (GRAD_F32_REL, GRAD_NORM_RTOL,  # noqa: E402
+                                  PARAM_F32_ATOL, QUANT_FLIPS, _block_max,
+                                  _check_state, _code_steps, _paths)
+
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch.checkpoint import ckpt  # noqa: E402
+from repro_torch.configs import TrainConfig, get_config, reduced  # noqa: E402
+from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.distributed import ctx as tctx  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_smoke_mesh  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.optim import adamw, compression  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+LOSS_RTOL = 2e-6            # measured <= 1.4e-7
+# The port's run against the reference's under the "ep" env: where an
+# expert output is an f32 ulp apart, an f16 block scale of the Q8_0
+# combine may round to the next f16 (a step of 2^-10 relative for its 32
+# values) and the later layers carry it on.  Measured on the first batch:
+# one scale of 640 at the first MoE layer, 13 codes of 20,480 at the
+# second, the loss 2.54e-6 apart; without an env, or under "dp", 7.0e-8.
+LOSS_WIRE_RTOL = 1e-5
+# Then a parameter element whose gradient is within that noise of zero
+# may take AdamW's first update, lr g / (|g| + eps), the other way: at
+# most QUANT_FLIPS of the elements, each within WIRE_STEP (measured 35 of
+# 755,328 elements past PARAM_F32_ATOL, the largest 5.93e-4; without
+# the wire none).  Later steps carry such flips on and make more (the
+# loss 2.6e-5 apart at step 2; under compression 2,063 elements past the
+# limit by step 3), so the wire is held to the reference for one step.
+WIRE_STEP = 2 * TrainConfig().lr * (1 + 1e-3)
+MOE_F32_ATOL = 1e-5
+AUX_RTOL = 1e-5
+ARCHS = ("granite-8b", "deepseek-moe-16b")
+OPTIONS = {"plain": {}, "microbatch": {"microbatch": 2},
+           "quantized_moments": {"quantized_moments": True},
+           "grad_compression": {"grad_compression": True}}
+# Three spawns at once (one mesh each): world 2 as data 2 (+ the aux
+# control) and as model 2 (+ the elastic restart and the launcher), world 4
+# as pod 2 x data 2.
+SPAWNS = {"data2": (1, 2, 1), "model2": (1, 1, 2), "pod2data2": (2, 2, 1)}
+AXES = ("pod", "data", "model")
+BATCH, SEQ, STEPS = 4, 16, 3
+ODD_BATCH = 3                       # divides no data axis: replicated
+LAUNCH = ["--arch", "granite-8b", "--device", "cpu", "--reduced", "--steps", "2",
+          "--batch", "4", "--seq", "8", "--ckpt-every", "2"]
+
+
+# ------------------------------------------------ shared with the ranks
+
+def _setup(arch: str, option: str, init: dict):
+    """``init``: {arch: whole f32 parameters}, the start of every run."""
+    cfg = reduced(get_config(arch))
+    tc = TrainConfig(remat="none", **OPTIONS[option])
+    params = _copy(init[arch])
+    opt = adamw.init_adam(params, tc)
+    comp = compression.init_compression(params) if tc.grad_compression else None
+    return cfg, tc, params, opt, comp
+
+
+def _batch(cfg, i: int, rows: int = BATCH) -> dict:
+    rng = np.random.default_rng(100 + i)
+    return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, SEQ)))
+            for k in ("tokens", "labels")}
+
+
+def _copy(tree):
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _run(arch: str, option: str, init: dict, mesh=None, rows: int = BATCH,
+         steps: int = STEPS, moe_mode: str = "dp") -> list:
+    """[(metrics, whole params, whole opt state, compression state)] after
+    each step, under an env of ``moe_mode``: the single-process step (a
+    one-rank env), or the sharded step on ``mesh``."""
+    cfg, tc, params, opt, comp = _setup(arch, option, init)
+    out = []
+    with tctx.axis_env(mesh or make_smoke_mesh(), moe_mode=moe_mode):
+        step = make_train_step(cfg, tc, device="cpu", mesh=mesh)
+        if mesh is not None:
+            params, opt = step.shard(params, opt)
+        for i in range(steps):
+            params, opt, comp, m = step(params, opt, comp, _batch(cfg, i, rows))
+            whole = (params, opt) if mesh is None else step.gather(params, opt)
+            out.append(({k: float(v) for k, v in m.items()},
+                        _copy(whole[0]), _copy(whole[1]), _copy(comp)))
+    return out
+
+
+def _elastic(mesh, ckpt_dir: str, init: dict) -> dict:
+    """granite-8b with Q8_0 moments: 6 straight steps, and 3 + a sharded
+    save + restore + 3, whole states."""
+    runs = {}
+    for name in ("straight", "restarted"):
+        cfg, tc, params, opt, comp = _setup("granite-8b", "quantized_moments", init)
+        step = make_train_step(cfg, tc, device="cpu", mesh=mesh)
+        params, opt = step.shard(params, opt)
+        specs = {"params": step.specs[0], "opt": step.specs[1]}
+        for i in range(6):
+            if name == "restarted" and i == 3:
+                ckpt.save_sharded(ckpt_dir, 3, {"params": params, "opt": opt}, specs, mesh,
+                                  meta={"seed": 0})
+                runs["saved"] = _copy(step.gather(params, opt))
+                restored, man = ckpt.restore_sharded(
+                    ckpt_dir, 3, {"params": params, "opt": opt}, specs, mesh)
+                assert man["step"] == 3
+                params, opt = restored["params"], restored["opt"]
+            params, opt, comp, _ = step(params, opt, comp, _batch(cfg, i))
+        runs[name] = _copy(step.gather(params, opt))
+    return runs
+
+
+def _roundtrip(mesh) -> list[str]:
+    """The leaf kinds ``gather(local_shard(x))`` does not give back bit
+    for bit: bf16 and each quantized format under a Linear's rules
+    (an expert stack too), and a bare Q8_0 moment."""
+    from repro_torch.core import quant
+    from repro_torch.core.qlinear import Linear
+    from repro_torch.distributed import sharding
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn((64, 512), generator=gen)
+    leaves = {"bf16": Linear(w.to(torch.bfloat16), role="attn_out"),
+              "q8": Linear(quant.quantize_q8_0(w), role="mlp_up"),
+              "q4": Linear(quant.quantize_q4_0(w), role="mlp_down"),
+              "q3k": Linear(quant.quantize_q3_k(w), role="lm_head"),
+              "experts": Linear(quant.quantize_q8_0(w.reshape(4, 16, 512)), role="expert_up"),
+              "bare": {"g": quant.quantize_q8_0(torch.randn(256, generator=gen))}}
+    specs = sharding.param_specs(leaves, mesh)
+    local = sharding.shard_tree(leaves, specs, mesh, mesh.own_coords())
+    back = sharding.gather_tree(local, specs, mesh)
+    return [k for k in leaves if not all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(back[k]), tree_leaves(leaves[k])))]
+
+
+def _launch(out: str, rank: int) -> str:
+    """``launch.train.main(LAUNCH)`` into ``out``; what it printed."""
+    from repro_torch.launch import train as launch
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        launch.main(LAUNCH + ["--ckpt-dir", os.path.join(out, "launch")])
+    Path(out, f"launch{rank}.txt").write_text(text.getvalue())
+    return text.getvalue()
+
+
+def _rank_main(rank: int, spawn: str, store: str, out: str, init_path: str) -> None:
+    shape = SPAWNS[spawn]
+    world = int(np.prod(shape))
+    torch.set_num_threads(1)
+    init = torch.load(init_path, weights_only=False)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    res = {}
+    mesh = Mesh(np.arange(world).reshape(shape), AXES)
+    for arch in ARCHS:
+        for option in OPTIONS:
+            res[shape, arch, option] = _run(arch, option, init, mesh)
+        res[shape, arch, "replicated"] = _run(arch, "plain", init, mesh, rows=ODD_BATCH)
+    res[shape, "roundtrip"] = _roundtrip(mesh)
+    if spawn == "data2":
+        inner = tctx.batch_mean
+        tctx.batch_mean = lambda x: x          # the control: per-rank aux values
+        try:
+            res["aux_off"] = _run("deepseek-moe-16b", "plain", init, mesh)
+        finally:
+            tctx.batch_mean = inner
+    if spawn == "model2":
+        res["elastic"] = _elastic(Mesh(np.arange(2).reshape(1, 2, 1), AXES),
+                                  os.path.join(out, "elastic"), init)
+        res["launch"] = _launch(out, rank)
+    if spawn == "pod2data2":
+        # A model axis of 3 in a world of 4 leaves rank 3 out of the mesh.
+        from repro_torch.distributed.fault_tolerance import elastic_mesh
+        from repro_torch.launch import train as launch
+        launch.elastic_mesh = lambda **kw: elastic_mesh(**dict(kw, model_parallel=3))
+        _launch(out, rank)
+    if rank == 0:
+        torch.save(res, os.path.join(out, "results.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    try:
+        _rank_main(int(sys.argv[1]), *sys.argv[2:6])
+    except BaseException:
+        traceback.print_exc()
+        sys.exit(1)
+    sys.exit(0)
+
+
+# -------------------------------------------------- one rank: bit for bit
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_step_at_one_rank_is_the_unsharded_step(init, arch, option):
+    """Under "ep", the launcher's mode: the Q8_0 combine in both."""
+    want = _run(arch, option, init, steps=2, moe_mode="ep")
+    got = _run(arch, option, init, mesh=make_smoke_mesh(), steps=2, moe_mode="ep")
+    for (gm, gp, go, gc), (wm, wp, wo, wc) in zip(got, want):
+        assert gm == wm
+        for a, b in zip(tree_leaves([gp, go, gc]), tree_leaves([wp, wo, wc])):
+            assert torch.equal(a, b)
+
+
+# ---------------------------------------------- the MoE wire, reference
+
+def _auto_mesh():
+    """The reference's smoke mesh (1 x 1, data and model) with Auto axes."""
+    return jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+
+
+def test_quantized_combine_bits():
+    rng = np.random.default_rng(0)
+    g, n, d, t = 2, 12, 64, 10
+    out_flat = rng.standard_normal((g, n, d)).astype(np.float32)
+    dst = np.stack([rng.permutation(n + 1)[:t] for _ in range(g)]).astype(np.int32)
+    dst[:, -2:] = n                                   # two dropped entries per group
+    gy = rng.standard_normal((g, t, d)).astype(np.float32)
+    @jax.jit
+    def ref(o, cot):
+        y, vjp = jax.vjp(lambda o_: jmoe._quantized_combine(o_, jnp.asarray(dst)), o)
+        return y, vjp(cot)[0]
+    with jctx.axis_env(_auto_mesh()):
+        jy, jg = ref(jnp.asarray(out_flat), jnp.asarray(gy))
+    x = torch.from_numpy(out_flat).requires_grad_(True)
+    ty = tmoe._quantized_combine(x, torch.from_numpy(dst).long())
+    (tg,) = torch.autograd.grad(ty, x, torch.from_numpy(gy))
+    np.testing.assert_array_equal(ty.detach().numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
+    bf = torch.from_numpy(out_flat).to(torch.bfloat16)
+    assert tmoe._quantized_combine(bf, torch.from_numpy(dst).long()).dtype == torch.bfloat16
+
+
+def test_q8_across_ep_bits_and_no_caller():
+    x = np.random.default_rng(1).standard_normal((2, 4, 3, 64)).astype(np.float32)
+    with jctx.axis_env(_auto_mesh()):
+        want = np.asarray(jax.jit(jmoe._q8_across_ep)(jnp.asarray(x, jnp.bfloat16))
+                          .astype(jnp.float32))
+    with tctx.axis_env(make_smoke_mesh()):
+        got = tmoe._q8_across_ep(torch.from_numpy(x).to(torch.bfloat16))
+        assert torch.equal(tmoe._q8_across_ep(torch.ones(1, 1, 1, 48)), torch.ones(1, 1, 1, 48))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert not np.array_equal(want, np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)))
+    x_t = torch.from_numpy(x)
+    assert tmoe._q8_across_ep(x_t) is x_t              # no env: the buffer itself
+    # As in the reference, apply_moe does not call it.
+    src = (ROOT / "src" / "repro_torch" / "models" / "moe.py").read_text()
+    assert src.count("_q8_across_ep(") == 1
+
+
+@pytest.mark.parametrize("moe_mode", ["ep", "dp"])
+def test_moe_layer_under_env_matches_reference(moe_mode):
+    """One reduced deepseek-moe layer at f32 under each package's env:
+    "ep" takes the Q8_0 combine in both, "dp" the plain gather."""
+    jcfg, tcfg = jreduced(jget_config("deepseek-moe-16b")), reduced(get_config("deepseek-moe-16b"))
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32), jmoe.init_moe(jax.random.PRNGKey(0), jcfg))
+    tp = from_reference(jp, "cpu")
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 24, jcfg.d_model)).astype(np.float32)
+    r = rng.standard_normal(x.shape).astype(np.float32)
+
+    def f(p, xx):
+        y, aux = jmoe.apply_moe(p, jcfg, xx)
+        return jnp.sum(y * r) + aux, (y, aux)
+    with jctx.axis_env(_auto_mesh(), moe_mode=moe_mode):
+        (_, (jy, jaux)), jg = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
+            jp, jnp.asarray(x))
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(tp)]
+    it = iter(leaves)
+    live = tree_map(lambda _: next(it), tp)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    with tctx.axis_env(make_smoke_mesh(), moe_mode=moe_mode):
+        ty, taux = tmoe.apply_moe(live, tcfg, xt)
+        grads = torch.autograd.grad((ty * torch.from_numpy(r)).sum() + taux, leaves + [xt])
+    assert float((ty.detach() - torch.from_numpy(np.array(jy))).abs().max()) <= MOE_F32_ATOL
+    assert _rel(taux.item(), float(jaux)) <= AUX_RTOL
+    it = iter(grads[:-1])
+    a, b = _paths(tree_map(lambda _: next(it), tp)), _paths(from_reference(jg[0], "cpu"))
+    for k in a:
+        assert float((a[k] - b[k]).abs().max() / b[k].abs().max()) <= GRAD_F32_REL, k
+    jx = torch.from_numpy(np.asarray(jg[1]))
+    assert float((grads[-1] - jx).abs().max() / jx.abs().max()) <= GRAD_F32_REL
+
+
+# ------------------------------------------------------------- the worlds
+
+@pytest.fixture(scope="module")
+def jinit():
+    """{arch: the reference's ``init_lm`` parameters of the reduced config,
+    cast to f32}."""
+    return {arch: jax.tree.map(lambda a: a.astype(jnp.float32), jT.init_lm(
+        jax.random.PRNGKey(0), jreduced(jget_config(arch)))) for arch in ARCHS}
+
+
+@pytest.fixture(scope="module")
+def init(jinit):
+    """``jinit`` in the port's trees: every run here and in the ranks
+    starts from them."""
+    return {arch: from_reference(p, "cpu") for arch, p in jinit.items()}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _spawns(tmp_path_factory, init):
+    """Start every spawn's ranks when the module starts, so that they run
+    while the one-process tests above do; {spawn: (directory, processes)}."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]),
+               OMP_NUM_THREADS="1")
+    init_path = tmp_path_factory.mktemp("init") / "init.pt"
+    torch.save(init, init_path)
+    procs = {}
+    for spawn, shape in SPAWNS.items():
+        d = tmp_path_factory.mktemp(spawn)
+        procs[spawn] = (d, [subprocess.Popen(
+            [sys.executable, __file__, str(r), spawn, str(d / "store"), str(d),
+             str(init_path)],
+            env=env, cwd=ROOT, stdout=open(d / f"rank{r}.log", "w"),
+            stderr=subprocess.STDOUT) for r in range(int(np.prod(shape)))])
+    yield procs
+    for _, ps in procs.values():
+        for p in ps:
+            p.kill()
+            p.wait()
+
+
+@pytest.fixture(scope="module")
+def worlds(_spawns):
+    """(every spawn's rank-0 results in one dict, {spawn: its directory})."""
+    procs = _spawns
+    res, dirs = {}, {}
+    for spawn, (d, ps) in procs.items():
+        world = len(ps)
+        rcs = []
+        for p in ps:
+            try:
+                rcs.append(p.wait(timeout=300))
+            except subprocess.TimeoutExpired:
+                for q in ps:
+                    q.kill()
+                rcs.append("timeout")
+        logs = "\n".join((d / f"rank{r}.log").read_text()[-3000:] for r in range(world))
+        assert rcs == [0] * world, (spawn, rcs, logs)
+        res.update(torch.load(d / "results.pt", weights_only=False))
+        dirs[spawn] = d
+    return res, dirs
+
+
+@pytest.fixture(scope="module")
+def single(init):
+    """(arch, option, rows) -> the single-process port's run."""
+    cache = {}
+
+    def get(arch, option, rows=BATCH):
+        if (arch, option, rows) not in cache:
+            cache[arch, option, rows] = _run(arch, option, init, rows=rows)
+        return cache[arch, option, rows]
+    return get
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _check_run(got: list, want: list, tc: TrainConfig, wire: bool = False) -> None:
+    """Each step's metrics and state; a quantized value may be one code
+    apart per step taken (a flip at step 1 is carried on).  ``wire``: the
+    port against the reference through the Q8_0 combine (the loss within
+    ``LOSS_WIRE_RTOL``, a few parameter elements within ``WIRE_STEP``)."""
+    assert len(got) == len(want)
+    loss_rtol = LOSS_WIRE_RTOL if wire else LOSS_RTOL
+    for n, ((gm, gp, go, gc), (wm, wp, wo, wc)) in enumerate(zip(got, want), 1):
+        assert _rel(gm["loss"], wm["loss"]) <= loss_rtol, (gm, wm)
+        assert _rel(gm["loss"] + gm["aux"], wm["loss"] + wm["aux"]) <= loss_rtol, (gm, wm)
+        assert _rel(gm["grad_norm"], wm["grad_norm"]) <= GRAD_NORM_RTOL, (gm, wm)
+        a, b = _paths(gp), _paths(wp)
+        assert a.keys() == b.keys()
+        far = sum(int(((a[k] - b[k]).abs() > PARAM_F32_ATOL * n).sum()) for k in a)
+        total = sum(t.numel() for t in a.values())
+        assert far <= (QUANT_FLIPS * total if wire else 0), (far, total)
+        assert max(float((a[k] - b[k]).abs().max()) for k in a) <= WIRE_STEP * n
+        trees = [(go.m, wo.m, None), (go.v, wo.v, None)]
+        if tc.quantized_moments:
+            trees = [(go.m, wo.m, _code_steps(wo.m)), (go.v, wo.v, _code_steps(wo.v))]
+        if tc.grad_compression:
+            # As in test_torch_train: one code of the compressed gradient.
+            clip = min(1.0, tc.grad_clip / (wm["grad_norm"] + 1e-9))
+            m_max = {k: _block_max(t) for k, t in _paths(wo.m).items()}
+            v_max = {k: _block_max(t) for k, t in _paths(wo.v).items()}
+            trees = [(go.m, wo.m, {k: t / 127 for k, t in m_max.items()}),
+                     (go.v, wo.v, {k: t * 255 / 127 ** 2 for k, t in v_max.items()})]
+            if n == 1:    # m = (1 - b1) * clip * g_c only after the first step
+                trees.append((gc.residual, wc.residual,
+                              {k: t / (127 * (1 - tc.beta1) * clip) for k, t in m_max.items()}))
+        for mine, theirs, steps in trees:
+            _check_state(mine, theirs, steps and {k: t * n for k, t in steps.items()})
+
+
+REF_CASES = [("dp", option) for option in sorted(OPTIONS)] + [("ep", "plain")]
+
+
+@pytest.mark.parametrize("moe_mode,option", REF_CASES)
+def test_single_process_moe_run_matches_reference(jinit, init, single, moe_mode, option):
+    """The single-process run that the worlds are held to, against the
+    reference's train step: reduced deepseek-moe-16b at f32 from the same
+    parameters and batches, under each package's one-rank env (the
+    reference's on an Auto-axis mesh), whose aux loss takes global means.
+    Under "dp" (the worlds' mode), 3 steps held to ``test_torch_train``'s
+    limits for one step (the loss within 1e-6), widened by one allowance
+    per step taken as for the worlds; under "ep" both take the Q8_0
+    combine, one step held by the ``wire`` rule."""
+    arch = "deepseek-moe-16b"
+    jcfg = jreduced(jget_config(arch))
+    jtc = jbase.TrainConfig(remat="none", **OPTIONS[option])
+    jp = jinit[arch]
+    state = (jp, jadam.init_adam(jp, jtc),
+             jcomp.init_compression(jp) if jtc.grad_compression else None)
+    want, steps = [], STEPS if moe_mode == "dp" else 1
+    with jctx.axis_env(_auto_mesh(), moe_mode=moe_mode):
+        step = jax.jit(jts.make_train_step(jcfg, jtc))
+        for i in range(steps):
+            batch = {k: jnp.asarray(v.numpy(), jnp.int32) for k, v in _batch(jcfg, i).items()}
+            *state, m = step(*state, batch)
+            jn, jo, jc = state
+            want.append(({k: float(v) for k, v in m.items()}, from_reference(jn, "cpu"),
+                         SimpleNamespace(m=from_reference(jo.m, "cpu"),
+                                         v=from_reference(jo.v, "cpu")),
+                         jc and SimpleNamespace(residual=from_reference(jc.residual, "cpu"))))
+    tc = TrainConfig(remat="none", **OPTIONS[option])
+    if moe_mode == "ep":
+        _check_run(_run(arch, option, init, steps=1, moe_mode="ep"), want, tc, wire=True)
+        return
+    got = single(arch, option)
+    assert all(_rel(g[0]["loss"], w[0]["loss"]) <= 1e-6 for g, w in zip(got, want))
+    _check_run(got, want, tc)
+
+
+WORLD_CASES = [(shape, arch, option) for shape in SPAWNS.values()
+               for arch in ARCHS for option in OPTIONS]
+
+
+def _id(shape) -> str:
+    return f"{int(np.prod(shape))}-{'x'.join(map(str, shape))}"
+
+
+@pytest.mark.parametrize("shape,arch,option", WORLD_CASES,
+                         ids=[f"{_id(s)}-{a}-{o}" for s, a, o in WORLD_CASES])
+def test_sharded_world_matches_single_process(worlds, single, shape, arch, option):
+    got = worlds[0][shape, arch, option]
+    _check_run(got, single(arch, option), TrainConfig(remat="none", **OPTIONS[option]))
+
+
+REPLICATED = [(shape, arch) for shape in SPAWNS.values() for arch in ARCHS]
+
+
+@pytest.mark.parametrize("shape,arch", REPLICATED,
+                         ids=[f"{_id(s)}-{a}" for s, a in REPLICATED])
+def test_undividable_batch_is_replicated_bit_for_bit(worlds, single, shape, arch):
+    got = worlds[0][shape, arch, "replicated"]
+    for (gm, gp, go, _), (wm, wp, wo, _) in zip(got, single(arch, "plain", ODD_BATCH)):
+        assert gm == wm
+        for a, b in zip(tree_leaves(gp) + tree_leaves(go), tree_leaves(wp) + tree_leaves(wo)):
+            assert torch.equal(a, b)
+
+
+def test_gather_of_local_shards_is_every_leaf_kind(worlds):
+    """In each spawn, ``gather_tree`` of every rank's ``shard_tree``
+    gives back bf16, Q8_0, Q4_0, Q3_K and stacked-expert Linears and a
+    bare Q8_0 moment bit for bit."""
+    assert all(worlds[0][shape, "roundtrip"] == [] for shape in SPAWNS.values())
+
+
+def test_aux_loss_without_its_reduction_misses_the_limit(worlds, single):
+    """The trap the reduction closes: per-rank aux values averaged are not
+    the reference's product of global means."""
+    want = single("deepseek-moe-16b", "plain")
+    got = worlds[0]["aux_off"]
+    rels = [_rel(g[0]["loss"] + g[0]["aux"], w[0]["loss"] + w[0]["aux"])
+            for g, w in zip(got, want)]
+    assert max(rels) > 10 * LOSS_RTOL, rels
+    ok = worlds[0][(1, 2, 1), "deepseek-moe-16b", "plain"]
+    assert max(_rel(g[0]["loss"] + g[0]["aux"], w[0]["loss"] + w[0]["aux"])
+               for g, w in zip(ok, want)) <= LOSS_RTOL
+
+
+def test_elastic_restart(worlds, init):
+    """Saved at world 2, restored at world 1 with the saved bits; at world
+    2, 3 steps + restart + 3 = 6 straight steps, bit for bit."""
+    runs, d = worlds[0]["elastic"], worlds[1]["model2"]
+    for a, b in zip(tree_leaves(runs["restarted"]), tree_leaves(runs["straight"])):
+        assert torch.equal(a, b)
+    cfg, tc, params, opt, _ = _setup("granite-8b", "quantized_moments", init)
+    mesh = make_smoke_mesh()
+    step = make_train_step(cfg, tc, device="cpu", mesh=mesh)
+    params, opt = step.shard(params, opt)
+    specs = {"params": step.specs[0], "opt": step.specs[1]}
+    restored, man = ckpt.restore_sharded(str(d / "elastic"), 3, {"params": params, "opt": opt},
+                                         specs, mesh)
+    assert man == {"step": 3, "seed": 0}
+    saved = runs["saved"]
+    got = tree_leaves(restored["params"]) + tree_leaves(restored["opt"])
+    want = tree_leaves(saved[0]) + tree_leaves(saved[1])
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_launch_train_at_world_two(worlds, tmp_path, capsys):
+    out, d = worlds[0]["launch"], worlds[1]["model2"]
+    assert "mesh: {'pod': 1, 'data': 2, 'model': 1} on 2 devices" in out
+    assert "step 0 loss" in out and ckpt.latest_step(str(d / "launch")) == 2
+    from repro_torch.launch import train as launch
+    launch.main(LAUNCH + ["--ckpt-dir", str(tmp_path)])
+    one = capsys.readouterr().out
+    assert "mesh: {'pod': 1, 'data': 1, 'model': 1} on 1 devices" in one
+    assert one.split("step 0 loss")[1].split()[0] == out.split("step 0 loss")[1].split()[0]
+    # World 1 resumes world 2's checkpoint at its last step.
+    launch.main(LAUNCH + ["--ckpt-dir", str(d / "launch")])
+    assert "resumed at step 2" in capsys.readouterr().out
+    a = np.load(d / "launch" / "step_00000002" / "params.npz")
+    b = np.load(tmp_path / "step_00000002" / "params.npz")
+    assert a.files == b.files
+    for k in a.files:
+        x, y = (torch.from_numpy(np.ascontiguousarray(z).view(np.int16)).view(torch.bfloat16)
+                .float() if k.endswith("~bf16") else torch.from_numpy(z) for z in (a[k], b[k]))
+        # Two AdamW steps at lr 3e-4 from the same weights; the gradients
+        # differ by the order of the reduction's sums.
+        assert float((x - y).abs().max()) <= 1e-3, k
+
+
+def test_launch_train_leaves_ranks_outside_the_mesh_idle(worlds):
+    """A mesh of 3 ranks (a model axis of 3) in a world of 4: rank 3 helps
+    build the mesh's groups and idles, the other three train and save."""
+    d, loss = worlds[1]["pod2data2"], worlds[0]["launch"].split("step 0 loss")[1].split()[0]
+    out = (d / "launch0.txt").read_text()
+    assert "mesh: {'pod': 1, 'data': 1, 'model': 3} on 4 devices" in out
+    assert out.split("step 0 loss")[1].split()[0] == loss      # every row on each rank
+    assert ckpt.latest_step(str(d / "launch")) == 2
+    assert (d / "launch3.txt").read_text() == "rank 3: outside the 3-rank mesh, idle\n"

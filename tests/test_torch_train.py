@@ -295,7 +295,7 @@ def _run_quadratic(pkg, steps, quantized):
     target = torch.from_numpy(w_star)
     for _ in range(steps):
         g = {"w": 2 * (params["w"] - target)}
-        params, state = tadam.adam_update(g, state, params, tc)
+        params, state = tadam.adam_update(g, state, params, tc, grad_norm=tadam.global_norm(g))
     return params["w"].numpy()
 
 
@@ -323,7 +323,9 @@ def test_grad_clip_and_moment_memory_in_both():
         {"w": jnp.zeros((8,))}, jbase.TrainConfig(lr=1e-3))
     tc = tbase.TrainConfig(lr=1e-3)
     tp = {"w": torch.zeros(8)}
-    tn, st = tadam.adam_update({"w": torch.from_numpy(g)}, tadam.init_adam(tp, tc), tp, tc)
+    tg = {"w": torch.from_numpy(g)}
+    tn, st = tadam.adam_update(tg, tadam.init_adam(tp, tc), tp, tc,
+                               grad_norm=tadam.global_norm(tg))
     assert float(tn["w"].abs().max()) < 1.0
     np.testing.assert_array_equal(tn["w"].numpy(), np.asarray(jn["w"]))
     assert int(st.step) == 1 and st.step.dtype == torch.int32
@@ -352,8 +354,9 @@ def test_weight_decay_in_both(quantized):
                                   jadam.init_adam(jp, jtc), jp, jtc)
         ttc = tbase.TrainConfig(weight_decay=wd, quantized_moments=quantized)
         tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
-        tn, _ = tadam.adam_update({k: torch.from_numpy(v) for k, v in g.items()},
-                                  tadam.init_adam(tp, ttc), tp, ttc)
+        tg = {k: torch.from_numpy(v) for k, v in g.items()}
+        tn, _ = tadam.adam_update(tg, tadam.init_adam(tp, ttc), tp, ttc,
+                                  grad_norm=tadam.global_norm(tg))
         for k in p0:
             np.testing.assert_array_equal(tn[k].numpy(), np.asarray(jn[k]))
         ends[wd] = {k: tn[k].numpy() for k in p0}
