@@ -206,13 +206,15 @@ caught and passed over):
 12. full_ssm — after tiny_ssm (reduced(xlstm-1.3b) under q8_0 and
              reduced(jamba-1.5-large) under q3_k on the CPU and the card:
              greedy_generate and a 2-slot ContinuousBatcher give identical
-             tokens, with exact launches), xlstm-1.3b at full size (48 layers:
-             42 mLSTM + 6 sLSTM, d 2048, 4 heads of 512, vocab 50304) under
+             tokens, with exact launches), xlstm-1.3b at full width cut to
+             XLSTM_CUT = 24 of its 48 layers (21 mLSTM + 3 sLSTM, d 2048, 4
+             heads of 512, vocab 50304; the cut keeps the whole script
+             inside its time) under
              q8_0 and none: greedy_generate of 16 tokens after 32 at 4 rows
-             (exact launches: 325 q8_matmul per step under q8_0), its
+             (exact launches per step), its
              synchronised make_decode replay (the same tokens, ms per step),
              under q8_0 a plain replay with every q8_matmul routed to its
-             plain version and the kernel held to it on the last step's 325
+             plain version and the kernel held to it on the last step's
              calls, and an f32 replay (the same weights widened or
              dequantized, f32 activations: the witness, itself within
              GEN_LOGIT_TOL of lm_forward in f32); the kernel replay
@@ -287,12 +289,36 @@ caught and passed over):
              after step 2 and resumed has the uninterrupted run's step-4
              parameters and optimizer state bit for bit, and a rerun resumes
              at step 4.
+15. full_dist — the distributed training path at world 1 on a one-rank
+             nccl group: granite-8b's 4-layer cut, the sharded step bit for
+             bit the unsharded one; deepseek-moe-16b's 2-layer cut under the
+             axis env (every q8_matmul launch held to its plain version).
+16. full_tp — tensor- and expert-parallel compute: a gloo world of two
+             ranks, both on the one card (NCCL refuses two ranks on one
+             device), mesh data 1 x model 2, spawned after the build.
+             granite-8b's 4-layer cut at full width, 2 x 512, Q8_0 moments,
+             compression, remat "block": the first gradient on each rank's
+             model slices against world 1's (``_hold_grads``), then 3 steps
+             against full_dist's world-1 sharded step from the same weights
+             (loss, grad_norm, parameters and moments after each step, by
+             the limits stated beside TP_*), each step's 8 flash_attention
+             launches at 16 of 32 heads from 4 of 8 KV heads, and a control
+             with wo / down not reduced that must miss them; deepseek-moe-
+             16b's 2-layer cut under q8_0 and "ep": a forward on 32 of 64
+             experts per rank with every q8_matmul launch (at its column or
+             row slice, the batched ones over 32 experts) held to its plain
+             version, the Q8_0 combine's all-gathers, logits within
+             GEN_LOGIT_TOL of world 1's on that routing.  Logged per rank:
+             peak GB and parameter bytes against world 1, step times, the
+             collectives per step and their ms (gloo through host memory on
+             one card: nothing of NVLink).
 
 Progress goes to stderr.  Standard output gets three lines at the end of
 a run that passed: the card's name and power limit as ``nvidia-smi``
 gives them, a JSON object ``{"kernels": [...]}`` (per kernel: launches
 on the main paths, phases full, full_lm, full_gen, full_router,
-full_fleet, full_moe, full_asr, full_ssm, full_vlm and full_train, and for
+full_fleet, full_moe, full_asr, full_ssm, full_vlm, full_train, full_dist
+and full_tp (both ranks' steps and forward), and for
 ``q8_matmul_w8a8`` through its entry point; worst error; the headline
 shape's times and bound), and ``{"ok": true, "device": {...}}``.
 """
@@ -3110,11 +3136,13 @@ class _CheckedExperts:
         from repro_torch.kernels import ops
         self.inner = ops._experts_matmul
         self.calls, self.err, self.excess, self.active = 0, None, None, True
+        self.shapes = set()
 
         def checked(x, w):
             out = self.inner(x, w)
             if not self.active:
                 return out
+            self.shapes.add((*x.shape, w.shape[-2]))
             want = (ops._experts_plain(x, w) if self.per_expert
                     else experts_plain_batched(x, w))
             diff = (out - want).abs().amax()
@@ -3832,10 +3860,13 @@ TINY_SSM_RUNS = (  # (arch, greedy_generate's prompt seed, the served prompts' s
     ("xlstm-1.3b", 46, 21), ("jamba-1.5-large-398b", 9, 46))
 TINY_SSM_PROMPT, TINY_SSM_STEPS = 16, 6
 TINY_SSM_PROMPTS, TINY_SSM_NEW = (21, 9, 14, 17), 4
-# phase full_ssm: xlstm-1.3b at full size under q8_0 and none, then
-# jamba-1.5-large at full width and one period of its 72 layers under
-# q3_k (the depth cut: 44.2 B parameters in the period, about 19 GB in
-# Q3_K; nine periods would need about 171 GB).
+# phase full_ssm: xlstm-1.3b at full width and XLSTM_CUT of its 48 layers
+# (three periods of 7 mLSTM + 1 sLSTM: the depth cut keeps chip_smoke.py
+# inside its time; at full depth the phase took 186-264 s on the H100)
+# under q8_0 and none, then jamba-1.5-large at full width and one period
+# of its 72 layers under q3_k (the depth cut: 44.2 B parameters in the
+# period, about 19 GB in Q3_K; nine periods would need about 171 GB).
+XLSTM_CUT = 24
 XLSTM_PRESETS = ("q8_0", "none")
 XLSTM_GEN_BATCH, XLSTM_GEN_PROMPT, XLSTM_GEN_STEPS = 4, 32, 16
 XLSTM_PROMPTS, XLSTM_NEW = (24, 64, 40, 31, 52, 45), 16
@@ -4314,7 +4345,8 @@ def _jamba_serve(card: str, cfg, params) -> dict:
 
 
 def phase_full_ssm(card: str) -> dict[str, int]:
-    """xlstm-1.3b at full size under q8_0 and none, then jamba-1.5-large at
+    """xlstm-1.3b at full width and XLSTM_CUT layers under q8_0 and none,
+    then jamba-1.5-large at
     full width and one period under q3_k, with seeded weights made on the
     card (jamba's layer by layer, each quantized as it is drawn)."""
     from repro_torch.configs import get_config
@@ -4332,7 +4364,7 @@ def phase_full_ssm(card: str) -> dict[str, int]:
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    cfg = get_config("xlstm-1.3b")
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), num_layers=XLSTM_CUT)
     base = init_lm(torch.Generator(device="cuda").manual_seed(SEED), cfg)
     torch.cuda.synchronize()
     log(f"[full_ssm] init xlstm-1.3b {time.perf_counter() - t_phase:.1f} s, "
@@ -5064,10 +5096,11 @@ class _CheckedQ8:
         from repro_torch.core.quant import Q8_0Tensor
         from repro_torch.kernels import q8_matmul, ref
         self.mod, self.inner = q8_matmul, q8_matmul.q8_matmul
-        self.calls, self.err, self.excess = 0, None, None
+        self.calls, self.err, self.excess, self.shapes = 0, None, None, set()
 
         def checked(x, wq, ws):
             out = self.inner(x, wq, ws)
+            self.shapes.add((x.shape[0], wq.shape[0], x.shape[1]))
             want = ref.q8_matmul_ref(x, Q8_0Tensor(wq, ws))
             diff = (out.float() - want.float()).abs().amax()
             excess = diff - MATMUL_RTOL * want.float().abs().amax().clamp_min(1.0)
@@ -5309,6 +5342,520 @@ def phase_full_dist(card: str) -> dict[str, int]:
     return totals
 
 
+# ------------------------------------------------------------ full_tp
+# Tensor- and expert-parallel compute on the card: a gloo world of
+# TP_RANKS ranks, both on cuda:0 (NCCL refuses two ranks on one device),
+# on mesh data 1 x model 2, its FileStore in a temporary directory.  The
+# kernels are built before the spawn, so the ranks only load them, and a
+# rank that fails fails the phase (the others are stopped).
+# (a) granite-8b at full width cut to DIST_CUT layers, DIST_BATCH x
+# TRAIN_SEQ, Q8_0 moments, compression, remat "block": TP_STEPS
+# tensor-parallel steps (16 of 32 heads, 4 of 8 KV heads, half of each
+# MLP, vocab and embedding per rank) held to full_dist's world-1 sharded
+# step from the same parameters (each rank runs it first and holds its
+# own slices to the same slices of it: no state crosses ranks), and a control with
+# the reduction after wo / down switched off, which must miss those
+# limits.  (b) deepseek-moe-16b at full width cut to DIST_MOE_CUT layers,
+# q8_0, "ep": a forward on each rank's slices (32 of 64 experts) with
+# every q8_matmul launch held to its plain version, the logits held to the
+# world-1 forward on that forward's routing.
+#
+# Limits of (a).  The two runs differ in the order of f32 sums (the
+# row-parallel partial products, the ranks' gradient contributions, the
+# vocab-parallel softmax, the norm): a bf16 value rounds the other way
+# here and there, and that spreads.  So the first step's gradient is held
+# as full_train holds two bf16 paths (``_hold_grads``: each leaf within
+# TRAIN_GRAD_REL of its largest entry, else no more than that further from
+# the f32 gradient than world 1's; the embedding's is about 0.1 from it in
+# both paths), and per step n taken: the loss within TRAIN_LOSS_RTOL and
+# grad_norm within TP_GRAD_NORM_RTOL; at most n TP_PARAM_SHARE of the
+# parameter elements different at all, each within n (2 ADAM_CLIP lr + one
+# bf16 ulp of it) (an AdamW step moves a parameter by at most ADAM_CLIP lr,
+# either way); each moment element (m, sqrt(v)) within n (R max|leaf| +
+# TP_MOMENT_CODES codes + 127 f16 steps of its block's scale), R the
+# larger of TRAIN_GRAD_REL and the leaf's step-1 gradient distance between
+# the runs (m and sqrt(v) are sums of multiples of the compressed
+# gradient; the compression's and the moment's roundings add a code each,
+# and a block scale rounding to the next f16 moves each of the block's
+# values by up to 127 of its steps: the moments here are small enough
+# that their scales are f16 subnormals).
+TP_RANKS, TP_STEPS, TP_TIMEOUT = 2, 3, 300
+TP_GRAD_NORM_RTOL = 1e-2
+TP_PARAM_SHARE = 1e-2
+TP_MOMENT_CODES = 2
+ADAM_CLIP = 10.0            # adamw's clip of the per-element update
+
+
+def _tp_mesh():
+    import numpy as np
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(np.arange(TP_RANKS).reshape(1, TP_RANKS), ("data", "model"))
+
+
+class _Collectives:
+    """Count every ``all_reduce`` / ``all_gather`` / ``barrier`` of
+    ``torch.distributed`` while active (with ``timed``, each between two
+    ``torch.cuda.synchronize()``: its host ms)."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.inner = {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "barrier")}
+        self.calls = {n: 0 for n in self.inner}
+        self.ms, self.bytes = 0.0, 0
+
+        def wrap(name, fn):
+            def call(*a, **k):
+                t = a[1] if name == "all_gather" else (a[0] if a else None)
+                if isinstance(t, torch.Tensor):
+                    self.bytes += t.numel() * t.element_size()
+                if self.timed:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if self.timed:
+                    torch.cuda.synchronize()
+                    self.ms += 1e3 * (time.perf_counter() - t0)
+                self.calls[name] += 1
+                return out
+            return call
+        for name, fn in self.inner.items():
+            setattr(dist, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self.inner.items():
+            setattr(dist, name, fn)
+
+
+class _AttnShapes:
+    """Record the (q heads, KV heads, kernel q shape) of every
+    ``ops.attention`` call."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.inner, self.seen = ops.attention, set()
+
+        def attention(q, k, v, **kw):
+            self.seen.add((q.shape[1], k.shape[1], tuple(q.shape), k.shape[2]))
+            return self.inner(q, k, v, **kw)
+        ops.attention = attention
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.attention = self.inner
+
+
+def _q8_leaves(tree) -> list:
+    from repro_torch.core.quant import Q8_0Tensor
+    from repro_torch.core.tree import tree_leaves
+    return tree_leaves(tree, is_leaf=lambda t: isinstance(t, Q8_0Tensor))
+
+
+def _tp_state(params, opt) -> tuple[list, list]:
+    """(parameter leaves, moment leaves: m's then v's)."""
+    from repro_torch.core.tree import tree_leaves
+    return tree_leaves(params), _q8_leaves(opt.m) + _q8_leaves(opt.v)
+
+
+def _to(leaf, device):
+    from repro_torch.core.quant import Q8_0Tensor
+    if isinstance(leaf, Q8_0Tensor):
+        return Q8_0Tensor(leaf.qs.to(device), leaf.d.to(device), leaf.logical)
+    return leaf.to(device)
+
+
+def _f16_step(d: torch.Tensor) -> torch.Tensor:
+    """The spacing of f16 values at each of ``d`` (f32): 2^(e - 11) for
+    d in [2^(e-1), 2^e), 2^-24 among the subnormals."""
+    _, e = torch.frexp(d)
+    return torch.ldexp(torch.ones_like(d), (e.to(torch.int32) - 11).clamp_min(-24))
+
+
+def _tp_hold_state(n: int, lr: float, rel: list, got: tuple, want: tuple) -> dict:
+    """Step ``n``'s parameters and moments of this rank's slices in the
+    tensor-parallel run (``got``, on the card) against the same slices of
+    world 1's (``want``, on the host), by the limits above (``rel``: each
+    parameter leaf's R) -> the worst excesses, the elements that differ,
+    the moments' worst distance."""
+    from repro_torch.core import quant
+    from repro_torch.core.quant import Q8_0Tensor
+    (gp, gm), (wp, wm) = got, want
+    excess, differ, total = -math.inf, 0, 0
+    for a, b in zip(gp, wp):
+        a, b = a.float(), b.cuda().float()
+        diff = (a - b).abs()
+        _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+        limit = n * (2 * ADAM_CLIP * lr + torch.ldexp(torch.ones_like(a), e.to(torch.int32) - 8))
+        excess = max(excess, (diff - limit).max().item())
+        differ += int((diff > 0).sum())
+        total += a.numel()
+    m_excess, m_differ, m_total, m_rel = -math.inf, 0, 0, 0.0
+    for a, b, r in zip(gm, wm, rel + rel):
+        b = _to(b, "cuda")
+        if isinstance(a, Q8_0Tensor):
+            fa, fb = quant.dequantize_q8_0(a, torch.float32), quant.dequantize_q8_0(b, torch.float32)
+            d = torch.maximum(a.d.float(), b.d.float())
+            code = (TP_MOMENT_CODES * d + 127 * _f16_step(d)).repeat_interleave(32, -1)
+            code = code[..., :fa.shape[-1]]
+        else:
+            fa, fb = a, b
+            code = torch.full_like(fb, TP_MOMENT_CODES * fb.abs().max().item() / 127)
+        diff = (fa - fb).abs()
+        top = fb.abs().max()
+        limit = n * (max(r, TRAIN_GRAD_REL) * top + code)
+        m_excess = max(m_excess, (diff - limit).max().item())
+        m_rel = max(m_rel, (diff.max() / top.clamp_min(1e-30)).item())
+        m_differ += int((diff > 0).sum())
+        m_total += fa.numel()
+    return {"param_excess": excess, "param_differ": differ, "param_total": total,
+            "moment_excess": m_excess, "moment_differ": m_differ, "moment_total": m_total,
+            "moment_rel": m_rel}
+
+
+def _tp_world1(cfg, tc, batches, tp_mesh) -> tuple[list, float, int]:
+    """full_dist's world-1 sharded step (a one-rank mesh: no collective)
+    from the seeded parameters, run by each rank: [(metrics, host copies of
+    this rank's ``tp_mesh`` slices of the parameter and moment leaves)]
+    after each step, its peak GB over the steps (the state held, its
+    initialisation not counted) and its parameter bytes."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_smoke_mesh()
+    p, o, c = init_train_state(torch.Generator(device="cuda").manual_seed(SEED + 5), cfg, tc,
+                               init_lm)
+    with ctx.axis_env(tp_mesh):
+        specs = [sharding.param_specs(t, tp_mesh) for t in (p, o.m, o.v)]
+    coords = tp_mesh.own_coords()
+    out, peak = [], 0.0
+    with ctx.axis_env(mesh):
+        step = make_train_step(cfg, tc, device="cuda", mesh=mesh)
+        p, o = step.shard(p, o)
+        c = step.shard_residual(c)
+        for b in batches:
+            torch.cuda.reset_peak_memory_stats()
+            p, o, c, m = step(p, o, c, b)
+            peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+            cut = [sharding.shard_tree(t, sp, tp_mesh, coords)
+                   for t, sp in zip((p, o.m, o.v), specs)]
+            out.append(({k: v.item() for k, v in m.items()},
+                        ([t.cpu() for t in tree_leaves(cut[0])],
+                         [_to(t, "cpu") for t in _q8_leaves(cut[1]) + _q8_leaves(cut[2])])))
+            del cut
+    pbytes = sum(t.numel() * t.element_size() for t in _tp_state(p, o)[0])
+    del p, o, c, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, peak, pbytes
+
+
+def _tp_grads(rank: int, cfg, batch: dict, mesh) -> list:
+    """The first step's gradient (remat "block") on this rank's ``model``
+    slices, held to the same slices of world 1's by ``_hold_grads`` (its
+    f32 witness: the all-plain path on f32 weights) -> each leaf's
+    distance between the two."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.train_step import make_loss_fn, value_and_grad
+    fn = value_and_grad(make_loss_fn(cfg, TrainConfig(remat="block")))
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 5), cfg)
+    coords = mesh.own_coords()
+    with ctx.axis_env(make_smoke_mesh()):
+        want = fn(params, batch)[1]
+    with ctx.axis_env(mesh, tp_compute=True):
+        specs = sharding.param_specs(params, mesh)
+        local = sharding.shard_tree(params, specs, mesh, coords, axes=("model",))
+        got = fn(local, batch)[1]
+    del local
+    want = sharding.shard_tree(want, specs, mesh, coords, axes=("model",))
+
+    def witness():
+        with ctx.axis_env(make_smoke_mesh()), _PlainOps():
+            whole = fn(_f32_params(params), batch)[1]
+        return sharding.shard_tree(whole, specs, mesh, coords, axes=("model",))
+    _hold_grads(f"full_tp rank {rank}: granite-8b {DIST_CUT} layers, its model slices "
+                "against world 1's", got, want, witness)
+    rel = _leaf_rel(got, want)
+    del params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rel
+
+
+def _no_reduce(lin, x):
+    """``tp.row_parallel`` without its reduction (the control): this
+    rank's partial product alone."""
+    return torch.matmul(x.to(lin.w.dtype).float(), lin.w.float().t()).to(x.dtype)
+
+
+def _tp_granite(rank: int) -> dict:
+    """(a) on this rank; rank 0 also runs world 1 and compares."""
+    import torch.distributed as dist
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.distributed import ctx, tp
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=DIST_CUT)
+    tc = TrainConfig(quantized_moments=True, grad_compression=True, remat="block",
+                     lr=TRAIN_LR)
+    batches = [_train_batch(cfg, DIST_BATCH, TRAIN_SEQ, SEED + 71 + i)
+               for i in range(TP_STEPS)]
+    res = {"launches": {}}
+    mesh = _tp_mesh()
+    world1 = _tp_world1(cfg, tc, batches, mesh)
+    rel = _tp_grads(rank, cfg, batches[0], mesh)
+
+    def start():
+        gc.collect()
+        torch.cuda.empty_cache()
+        p, o, c = init_train_state(torch.Generator(device="cuda").manual_seed(SEED + 5), cfg,
+                                   tc, init_lm)
+        step = make_train_step(cfg, tc, device="cuda", mesh=mesh)
+        p, o = step.shard(p, o)
+        c = step.shard_residual(c)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return step, p, o, c
+
+    want_launch = {"flash_attention": 2 * DIST_CUT}
+    with ctx.axis_env(mesh):
+        step, p, o, c = start()
+        res["param_bytes"] = sum(t.numel() * t.element_size() for t in _tp_state(p, o)[0])
+        peaks, times, metrics, held, calls = [], [], [], [], []
+        for n, b in enumerate(batches, 1):
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _AttnShapes() as shapes, _Collectives() as coll:
+                p, o, c, m = step(p, o, c, b)
+                torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            if counts != want_launch:
+                raise AssertionError(f"full_tp granite step {n}: launches {counts}, "
+                                     f"expected {want_launch}")
+            for k, v in counts.items():
+                res["launches"][k] = res["launches"].get(k, 0) + v
+            if shapes.seen != {(16, 4, (DIST_BATCH, 16, TRAIN_SEQ, cfg.hd), TRAIN_SEQ)}:
+                raise AssertionError(f"full_tp granite: attention calls {shapes.seen}")
+            calls.append(dict(coll.calls))
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            metrics.append({k: v.item() for k, v in m.items()})
+            wm, state = world1[0][n - 1]
+            held.append(dict(_tp_hold_state(n, tc.lr, rel, _tp_state(p, o), state),
+                             loss=abs(metrics[-1]["loss"] - wm["loss"]) / abs(wm["loss"]),
+                             grad_norm=abs(metrics[-1]["grad_norm"] - wm["grad_norm"])
+                             / abs(wm["grad_norm"])))
+        dist.barrier()
+        with _Collectives(timed=True) as coll:
+            t0 = time.perf_counter()
+            step(p, o, c, batches[0])
+            torch.cuda.synchronize()
+            res["timed_step_ms"] = 1e3 * (time.perf_counter() - t0)
+        res["collective_ms"], res["collective_bytes"] = coll.ms, coll.bytes
+        del step, p, o, c
+        res.update(peaks=peaks, times=times, metrics=metrics, calls=calls,
+                   attention=sorted(map(str, shapes.seen)))
+        # The control: wo / down without their reduction, one step.
+        step, p, o, c = start()
+        inner, tp.row_parallel = tp.row_parallel, _no_reduce
+        try:
+            _, _, _, m = step(p, o, c, batches[0])
+        finally:
+            tp.row_parallel = inner
+        res["control"] = {k: v.item() for k, v in m.items()}
+        del step, p, o, c
+    res.update(world1_metrics=[w[0] for w in world1[0]], world1_peak=world1[1],
+               world1_param_bytes=world1[2], held=held)
+    return res
+
+
+def _tp_moe(rank: int) -> dict:
+    """(b) on this rank: the world-1 forward of the whole weights (its
+    routing recorded), then the forward on this rank's slices, pinned to
+    that routing, every q8_matmul launch held to its plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import init_lm, lm_forward
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), num_layers=DIST_MOE_CUT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 7), cfg,
+                     policy=get_policy("q8_0"))
+    toks = torch.randint(1, cfg.vocab_size, (DIST_MOE_ROWS, DIST_MOE_SEQ),
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 75),
+                         device="cuda")
+    with ctx.axis_env(make_smoke_mesh()), _Routing() as route, torch.no_grad():
+        want, _ = lm_forward(params, cfg, toks)
+    mesh = _tp_mesh()
+    with ctx.axis_env(mesh, moe_mode="ep", tp_compute=True):
+        local = sharding.shard_tree(params, sharding.param_specs(params, mesh), mesh,
+                                    mesh.own_coords(), axes=("model",))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _Routing(pinned=route.sets), _CheckedExperts() as experts, _CheckedQ8() as dense, \
+                _Collectives() as coll, torch.no_grad():
+            ops.reset_launch_counts()
+            logits, aux = lm_forward(local, cfg, toks)
+            counts = ops.launch_counts()
+        sl = ctx.vocab((DIST_MOE_ROWS, DIST_MOE_SEQ, cfg.vocab_size))
+    expect = _moe_want(local, cfg.num_layers, 1, {"flash_attention": cfg.num_layers})
+    if counts != expect or logits.shape != (DIST_MOE_ROWS, DIST_MOE_SEQ, sl.stop - sl.start):
+        raise AssertionError(f"full_tp moe: launches {counts}, expected {expect}; logits "
+                             f"{tuple(logits.shape)}")
+    n_exp = MOE_EXPERT_LAUNCHES["q8_0"] * cfg.num_layers
+    label = f"full_tp rank {rank}: deepseek-moe-16b {DIST_MOE_CUT} layers q8_0, ep on model 2"
+    experts.check(label, n_exp)
+    dense.check(label, expect["q8_matmul"] - n_exp)
+    if coll.calls["all_gather"] != 2 * cfg.num_layers:
+        raise AssertionError(f"full_tp moe: {coll.calls} collectives; expected the Q8_0 "
+                             f"combine's two all-gathers per layer")
+    err = (logits - want[..., sl]).abs().max().item()
+    if not err <= GEN_LOGIT_TOL:
+        raise AssertionError(f"full_tp moe: logits {err} from world 1's (GEN_LOGIT_TOL "
+                             f"{GEN_LOGIT_TOL})")
+    local_experts = {tuple(lin.w.shape) for lay in local["layers"]
+                     for lin in (lay["moe"]["w_up"], lay["moe"]["w_down"])}
+    res = {"launches": {k: v for k, v in counts.items() if v}, "logit_err": err,
+           "aux": aux.item(), "collectives": dict(coll.calls),
+           "wire_bytes": coll.bytes, "experts": sorted(local_experts),
+           "dense_shapes": sorted(dense.shapes), "expert_shapes": sorted(experts.shapes),
+           "peak": torch.cuda.max_memory_allocated() / 1e9}
+    del local, logits, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank_main(rank: int, store: str, out: str) -> int:
+    """One rank of full_tp (``python -c``, from the root of the checkout):
+    join the gloo world on ``store``, run (a) and (b), write
+    ``out/rank{rank}.json``."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (sets the TF32 switches)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, TP_RANKS), rank=rank,
+                            world_size=TP_RANKS,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    try:
+        res = {"granite": _tp_granite(rank), "moe": _tp_moe(rank)}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def phase_full_tp(card: str) -> dict[str, int]:
+    """Spawn full_tp's ranks, wait for them (a failing rank stops the
+    others and fails the phase), check and log what they measured."""
+    import tempfile
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        logs = [open(Path(d, f"rank{r}.log"), "w") for r in range(TP_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             f"sys.exit(chip_smoke.tp_rank_main({r}, {str(Path(d, 'store'))!r}, {d!r}))"],
+            cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(TP_RANKS)]
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                if time.perf_counter() - t0 > TP_TIMEOUT:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        for r in range(TP_RANKS):
+            for line in Path(d, f"rank{r}.log").read_text().splitlines():
+                log(f"[full_tp rank {r}] {line}")
+        rcs = [p.returncode for p in procs]
+        if rcs != [0] * TP_RANKS:
+            raise AssertionError(f"full_tp: rank exit codes {rcs}")
+        ranks = [json.loads(Path(d, f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
+    a0 = ranks[0]["granite"]
+    missed = []
+    for n, hs in enumerate(zip(*(r["granite"]["held"] for r in ranks)), 1):
+        h = {k: max(x[k] for x in hs) for k in ("loss", "grad_norm", "param_excess",
+                                                 "moment_excess", "moment_rel")}
+        for k in ("param", "moment"):
+            h[f"{k}_share"] = (sum(x[f"{k}_differ"] for x in hs)
+                               / sum(x[f"{k}_total"] for x in hs))
+        log(f"[full_tp] granite-8b step {n}: loss {a0['metrics'][n - 1]['loss']:.6f} vs world 1 "
+            f"{a0['world1_metrics'][n - 1]['loss']:.6f} ({h['loss']:.3e}, limit "
+            f"{TRAIN_LOSS_RTOL}), grad_norm {h['grad_norm']:.3e} (limit {TP_GRAD_NORM_RTOL}); "
+            f"parameters: {h['param_share']:.3e} of elements differ (limit "
+            f"{n * TP_PARAM_SHARE}), worst excess {h['param_excess']:.3e}; moments: "
+            f"{h['moment_share']:.3e} differ, up to {h['moment_rel']:.3e} of a leaf's largest, "
+            f"worst excess {h['moment_excess']:.3e}")
+        if not (h["loss"] <= TRAIN_LOSS_RTOL and h["grad_norm"] <= TP_GRAD_NORM_RTOL
+                and h["param_share"] <= n * TP_PARAM_SHARE and h["param_excess"] <= 0
+                and h["moment_excess"] <= 0):
+            missed.append(n)
+    w1 = a0["world1_metrics"][0]
+    ctl = a0["control"]
+    rel = {k: abs(ctl[k] - w1[k]) / abs(w1[k]) for k in ("loss", "grad_norm")}
+    log(f"[full_tp] control (wo / down not reduced): loss {ctl['loss']:.6f} ({rel['loss']:.3e}"
+        f" from world 1), grad_norm {ctl['grad_norm']:.4f} ({rel['grad_norm']:.3e})")
+    for r, res in enumerate(ranks):
+        a, b = res["granite"], res["moe"]
+        log(f"[full_tp] rank {r}: granite-8b {DIST_CUT} layers, {DIST_BATCH} x {TRAIN_SEQ}: "
+            f"steps {[round(t, 1) for t in a['times']]} ms synchronised, peak "
+            f"{max(a['peaks']):.2f} GB (world 1: {a0['world1_peak']:.2f} GB), parameters "
+            f"{a['param_bytes'] / 1e9:.3f} GB (world 1: {a0['world1_param_bytes'] / 1e9:.3f}); "
+            f"attention {a['attention']}; collectives per step {a['calls'][-1]}, "
+            f"{a['collective_ms']:.1f} ms of a {a['timed_step_ms']:.1f} ms step with each one "
+            f"synchronised ({a['collective_bytes'] / 1e6:.1f} MB; gloo through host memory on "
+            f"one card: nothing of NVLink); {card}")
+        log(f"[full_tp] rank {r}: deepseek-moe-16b {DIST_MOE_CUT} layers q8_0 ep: logits "
+            f"{b['logit_err']:.4f} from world 1 (GEN_LOGIT_TOL {GEN_LOGIT_TOL}), aux "
+            f"{b['aux']:.6f}, local experts {b['experts']}, dense q8_matmul (M, N, K) "
+            f"{b['dense_shapes']}, batched {b['expert_shapes']}, collectives "
+            f"{b['collectives']} ({b['wire_bytes'] / 1e6:.2f} MB), peak {b['peak']:.2f} GB")
+    if missed:
+        raise AssertionError(f"full_tp: steps {missed} of the tensor-parallel granite-8b run "
+                             f"miss the world-1 limits")
+    if rel["loss"] <= TRAIN_LOSS_RTOL and rel["grad_norm"] <= TP_GRAD_NORM_RTOL:
+        raise AssertionError(f"full_tp: the control meets the limits: {rel}")
+    totals = {name: 0 for name in ops.KERNEL_MODULES}
+    for res in ranks:
+        for part in ("granite", "moe"):
+            for k, v in res[part]["launches"].items():
+                totals[k] += v
+    log(f"[full_tp] phase {time.perf_counter() - t0:.1f} s; {card}")
+    return totals
+
+
 def phase_full_serving(card: str) -> dict[str, int]:
     """Phases full_router and full_fleet on one pair of weight trees."""
     sd, lm, cfg = _serving_bases()
@@ -5346,7 +5893,7 @@ def main() -> int:
                   lambda: phase_full_serving(card), lambda: phase_full_moe(card),
                   lambda: phase_full_asr(card), lambda: phase_full_ssm(card),
                   lambda: phase_full_vlm(card), lambda: phase_full_train(card),
-                  lambda: phase_full_dist(card)):
+                  lambda: phase_full_dist(card), lambda: phase_full_tp(card)):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
     for name in KERNEL_META:

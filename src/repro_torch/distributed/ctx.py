@@ -2,25 +2,33 @@
 
 The reference pins the shardings of intermediates with
 ``with_sharding_constraint`` at canonical cut points, under an ambient
-:func:`axis_env`.  A GSPMD constraint never changes a value, and the
-port has no compiler to pass one to, so here:
+:func:`axis_env`, and GSPMD partitions the compute to match.  The port
+has no compiler to pass a constraint to, so here:
 
 * :func:`pinned_spec` is ``constrain``'s rule: the ``PartitionSpec``
   the reference would pin for an array of a given shape;
-* the one cut point this slice uses (:func:`expert_buf`) returns ``x``
-  unchanged;
+* the cut points (:func:`heads`, :func:`heads_q`, :func:`ffn`,
+  :func:`vocab`, :func:`expert_buf`) take the whole shape of the array
+  the reference pins there and return this rank's range of its tp dim,
+  by that rule: a dim that does not divide the ``model`` axis is whole on
+  every rank, as the reference leaves it unsharded.  The layers compute
+  on that range and place the collectives of ``distributed.tp``;
 * the env's ``moe_mode`` is read by ``sharding._weight_spec`` and by the
-  MoE layer (the Q8_0 combine under ``"ep"``).
+  MoE layer (the Q8_0 combine and the local experts under ``"ep"``).
 
 The env also carries what the reference's compiler knew and the port
 must state: ``batch_axes``, the mesh axes the rows of the running batch
-are split over.  :func:`batch_mean` averages a per-rank statistic over
-them (the MoE aux loss's means, which the reference takes over all
-tokens of the global batch).  Without an env, or with no such axes,
-everything here is a no-op.
+are split over (:func:`batch_mean` averages a per-rank statistic over
+them: the MoE aux loss's means, which the reference takes over all
+tokens of the global batch), and ``tp_compute``, whether the layers
+compute on their ``model`` slices (:func:`tp_group`).  The sharded train
+step turns it on for the dense, VLM and MoE families.  Without it (and
+without an env) every cut point is the whole dim, and everything here is
+a no-op.
 
-The remaining cut points (heads, FFN hidden, logits, caches) come with
-tensor-parallel compute, when something consumes them.
+Not ported: ``heads_q``'s query-position split (whisper's 20 heads on a
+16-way axis) and the cache cut points, which serving under a mesh
+needs.
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.distributed.sharding import P
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import AxisGroup, Mesh
 
 _ENV = contextvars.ContextVar("repro_torch_axis_env", default=None)
 
@@ -39,19 +47,33 @@ _ENV = contextvars.ContextVar("repro_torch_axis_env", default=None)
 class AxisEnv:
     def __init__(self, mesh: Mesh, dp: Sequence[str] = ("data",),
                  tp: str = "model", moe_mode: str = "ep",
-                 batch_axes: Sequence[str] = ()):
+                 batch_axes: Sequence[str] = (), tp_compute: bool = False):
         self.mesh = mesh
         self.dp = tuple(a for a in dp if a in mesh.shape)
         self.tp = tp if tp in mesh.shape else None
         self.moe_mode = moe_mode  # "ep": experts on tp | "dp": FSDP
         self.batch_axes = tuple(a for a in batch_axes if mesh.shape[a] > 1)
+        self.tp_compute = tp_compute
 
 
 @contextlib.contextmanager
 def axis_env(mesh: Mesh, dp: Sequence[str] = ("pod", "data"),
              tp: str = "model", moe_mode: str = "ep",
-             batch_axes: Sequence[str] = ()):
-    env = AxisEnv(mesh, dp, tp, moe_mode, batch_axes)
+             batch_axes: Sequence[str] = (), tp_compute: bool = False):
+    env = AxisEnv(mesh, dp, tp, moe_mode, batch_axes, tp_compute)
+    token = _ENV.set(env)
+    try:
+        yield env
+    finally:
+        _ENV.reset(token)
+
+
+@contextlib.contextmanager
+def entered(env: AxisEnv | None):
+    """``env`` (None: no env) active for the block, for code that runs
+    again where the caller's context is not seen: a checkpointed period
+    recomputed in the backward pass runs on autograd's device thread, and
+    a context variable does not reach another thread."""
     token = _ENV.set(env)
     try:
         yield env
@@ -92,10 +114,69 @@ def pinned_spec(shape: Sequence[int], spec_map: dict[int, str]) -> P | None:
     return P(*axes)
 
 
-def expert_buf(x):
-    """The (G, E, C, d) expert-buffer cut point (the reference pins E on
-    tp under "ep", G on dp under "dp"): ``x`` unchanged."""
-    return x
+def tp_group() -> AxisGroup | None:
+    """The tp axis's group when the env computes on ``model`` slices
+    (``tp_compute``) and that axis has more than one rank; else None."""
+    env = current()
+    if env is None or not env.tp_compute or not env.tp or env.mesh.shape[env.tp] == 1:
+        return None
+    return env.mesh.axis_group(env.tp)
+
+
+def _local(shape: Sequence[int], dim: int) -> slice:
+    """This rank's range of dim ``dim`` of an array of the whole
+    ``shape``: its slice where ``pinned_spec`` puts the tp axis on that
+    dim under tensor-parallel compute, else the whole dim."""
+    n = shape[dim]
+    g = tp_group()
+    if g is None or pinned_spec(shape, {dim: "tp"})[dim] is None:
+        return slice(0, n)
+    size = n // g.size
+    return slice(g.rank * size, (g.rank + 1) * size)
+
+
+def is_part(sl: slice, n: int) -> bool:
+    """Whether a cut point's range ``sl`` is less than the whole dim."""
+    return sl.stop - sl.start != n
+
+
+def cols(n: int) -> slice:
+    """This rank's rows of a ``Linear`` weight's tp-sharded dim of size
+    ``n`` (its N for ``attn_qkv``, ``mlp_up`` or ``lm_head``, its K for
+    ``attn_out`` or ``mlp_down``): ``sharding``'s rule, the same
+    divisibility as the cut points'."""
+    return _local((n,), 0)
+
+
+def heads(shape: Sequence[int]) -> slice:
+    """(B, H, S, hd) key/value heads: H on tp."""
+    return _local(shape, 1)
+
+
+def heads_q(shape: Sequence[int]) -> slice:
+    """(B, H, Sq, hd) query heads: H on tp.  (The reference's split of the
+    query positions where H does not divide tp is not ported: such heads
+    are whole on every rank.)"""
+    return _local(shape, 1)
+
+
+def ffn(shape: Sequence[int]) -> slice:
+    """(B, S, ff) MLP hidden: ff on tp."""
+    return _local(shape, 2)
+
+
+def vocab(shape: Sequence[int]) -> slice:
+    """(B, S, V) logits: V on tp."""
+    return _local(shape, 2)
+
+
+def expert_buf(shape: Sequence[int]) -> slice:
+    """(G, E, C, d) expert buffers: E on tp under "ep"; under "dp" the
+    experts are replicated in compute (the whole range)."""
+    env = current()
+    if env is None or env.moe_mode == "dp":
+        return slice(0, shape[1])
+    return _local(shape, 1)
 
 
 class _BatchMean(torch.autograd.Function):

@@ -24,6 +24,11 @@ rank's slice of a leaf and :func:`gather` all-gathers a whole leaf from
 the ranks' slices, for tensors and for ``Q8_0Tensor`` / ``Q4_0Tensor`` /
 ``Q3KTensor`` leaves (each array by its own spec).  A dim sharded over
 several axes is split major to minor in the order the spec names them.
+:func:`over` keeps a spec's entries on a subset of the axes, so that a
+tree can be gathered or cut over those axes only (``gather_tree`` and
+``shard_tree`` take ``axes=``): the sharded train step gathers over
+``pod`` / ``data`` and keeps the ``model`` slices for tensor-parallel
+compute.
 """
 from __future__ import annotations
 
@@ -349,6 +354,24 @@ def batch_specs(tree: Any, mesh) -> Any:
 
 # ------------------------------------------------- rank slices and gathers
 
+def over(spec, axes) -> Any:
+    """``spec`` (a ``P`` or a quantized tensor's spec tree) with only its
+    entries on ``axes``: the cut that sharding over those axes alone
+    makes.  A dim sharded over an axis of ``axes`` minor to one outside
+    them is refused (its slices over ``axes`` alone are not contiguous)."""
+    if isinstance(spec, QTYPES):
+        return dataclasses.replace(spec, **{f: over(getattr(spec, f), axes)
+                                            for f in _arrays(spec)})
+    parts = []
+    for entry in spec:
+        names = _axes(entry)
+        kept = tuple(a for a in names if a in axes)
+        if kept != names[:len(kept)] and kept:
+            raise ValueError(f"{spec}: {entry} mixes axes in and out of {tuple(axes)}")
+        parts.append(kept or None)
+    return P(*parts)
+
+
 def _dim_slot(entry, mesh, coords: dict) -> tuple[int, int]:
     """(index, count) of a rank's slice along a dim sharded over
     ``entry``'s axes, major to minor."""
@@ -390,16 +413,15 @@ def _steps(spec: P, mesh) -> list[tuple[int, str]]:
 
 def _gather_packed(xs: list[torch.Tensor], axis: str, mesh) -> list[torch.Tensor]:
     """All-gather each of ``xs`` along its dim 0 over ``axis``, in one
-    collective: the arrays travel as one byte buffer."""
-    import torch.distributed as dist
+    collective: the arrays travel as one byte buffer (``tp.all_gather``'s
+    transport: through host memory for CUDA tensors on a gloo group)."""
+    from repro_torch.distributed import tp
     n = mesh.shape[axis]
     flats = [x.contiguous().reshape(-1).view(torch.uint8) for x in xs]
     buf = torch.cat(flats)
-    parts = [torch.empty_like(buf) for _ in range(n)]
-    dist.all_gather(parts, buf, group=mesh.group(axis))
-    order = mesh.group_order(axis)
+    whole = tp.all_gather(buf[None], mesh.axis_group(axis), 0)
     sizes = [f.numel() for f in flats]
-    pieces = [parts[order.index(c)].split(sizes) for c in range(n)]
+    pieces = [whole[c].split(sizes) for c in range(n)]
     return [torch.cat([pieces[c][j].view(x.dtype).reshape(x.shape) for c in range(n)], 0)
             for j, x in enumerate(xs)]
 
@@ -467,16 +489,22 @@ def _replaced(tree: Any, leaves: list) -> Any:
     return tree_map(lambda _: next(it), tree, is_leaf=_is_qleaf)
 
 
-def shard_tree(tree: Any, specs: Any, mesh, coords: dict) -> Any:
-    """:func:`local_shard` of every leaf of ``tree``."""
+def shard_tree(tree: Any, specs: Any, mesh, coords: dict, axes=None) -> Any:
+    """:func:`local_shard` of every leaf of ``tree`` (over ``axes`` only:
+    ``over``)."""
     leaves, sl = _paired(tree, specs)
+    if axes is not None:
+        sl = [over(s, axes) for s in sl]
     return _replaced(tree, [local_shard(x, s, mesh, coords) for x, s in zip(leaves, sl)])
 
 
-def gather_tree(tree: Any, specs: Any, mesh) -> Any:
-    """:func:`gather` of every leaf of ``tree``, the leaves' arrays packed
-    into one collective per (round, axis)."""
+def gather_tree(tree: Any, specs: Any, mesh, axes=None) -> Any:
+    """:func:`gather` of every leaf of ``tree`` (over ``axes`` only:
+    ``over``), the leaves' arrays packed into one collective per (round,
+    axis)."""
     leaves, sl = _paired(tree, specs)
+    if axes is not None:
+        sl = [over(s, axes) for s in sl]
     arrays, aspecs, counts = [], [], []
     for x, sp in zip(leaves, sl):
         a, s = _fields(x, sp)

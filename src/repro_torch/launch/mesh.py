@@ -12,8 +12,18 @@ out) take part in building it and then hold no coordinates.
 """
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import numpy as np
 import torch
+
+
+class AxisGroup(NamedTuple):
+    """The process group along one mesh axis that holds this rank."""
+    group: Any                # a torch.distributed ProcessGroup
+    size: int
+    rank: int                 # this rank's coordinate along the axis
+    order: tuple[int, ...]    # each member's coordinate, in group-rank order
 
 
 class Mesh:
@@ -29,6 +39,7 @@ class Mesh:
         self._dm = None
         self._grid_group = None
         self._orders: dict[str, list[int]] = {}
+        self._axis_groups: dict[str, AxisGroup] = {}
 
     @property
     def size(self) -> int:
@@ -99,6 +110,14 @@ class Mesh:
                 self.coords(dist.get_global_rank(g, i))[axis]
                 for i in range(dist.get_world_size(g))]
         return self._orders[axis]
+
+    def axis_group(self, axis: str) -> AxisGroup:
+        """This rank's group along ``axis`` with its coordinates."""
+        if axis not in self._axis_groups:
+            self._axis_groups[axis] = AxisGroup(
+                self.group(axis), self.shape[axis], self.own_coords()[axis],
+                tuple(self.group_order(axis)))
+        return self._axis_groups[axis]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"

@@ -22,12 +22,13 @@ that mesh's axis env with the parameters and the AdamW state sharded by
 ``sharding.param_specs`` (``train_step.ShardedTrainStep``).  Ranks that
 the mesh leaves out (``elastic_mesh`` keeps whole pods of equal size)
 take part in building its groups and then idle, as the reference leaves
-such devices idle.  The model axis is 1 at every world size, where the
-reference takes 16 from two devices on: that rule raises below 16 ranks
-(``elastic_mesh`` cannot build a mesh of fewer ranks than its model
-axis), and until tensor-parallel compute is ported every rank along
-``model`` would compute the same rows on the whole gathered parameters,
-sixteen times the work for no memory saved during the step.
+such devices idle.  The model axis follows the reference's rule where
+that rule can build a mesh (:func:`model_parallel`): 16 from 16 ranks on
+(tensor- and expert-parallel compute for the dense, VLM and MoE
+families), 1 at one rank.  At 2-15 ranks the reference's rule (16 on any
+world above one device) raises, since ``elastic_mesh`` cannot build a
+mesh of fewer ranks than its model axis; there the port keeps a model
+axis of 1 (data parallelism and FSDP only).
 
 It draws the parameters with ``init_lm`` (seed ``TrainConfig.seed``) on
 every rank and keeps the rank's slices, resumes from the newest
@@ -63,6 +64,12 @@ from repro_torch.distributed.fault_tolerance import (StepTimer, Watchdog,
                                                      elastic_mesh)
 from repro_torch.models.transformer import init_lm
 from repro_torch.train.train_step import init_train_state, make_train_step
+
+
+def model_parallel(world: int) -> int:
+    """The launcher's model axis at ``world`` ranks: the reference's 16
+    from 16 ranks on, else 1 (the reference raises at 2-15 ranks)."""
+    return 16 if world >= 16 else 1
 
 
 def _init_group(device: torch.device) -> bool:
@@ -124,7 +131,7 @@ def _train(args, cfg, tcfg: TrainConfig, device: torch.device) -> None:
     say = print if rank == 0 else (lambda *a, **k: None)
     say(f"train {cfg.name} on {device}: {cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, batch {args.batch} x {args.seq}")
-    mesh = elastic_mesh(model_parallel=1, pod_size=256)
+    mesh = elastic_mesh(model_parallel=model_parallel(world), pod_size=256)
     say(f"mesh: {dict(mesh.shape)} on {world} devices ({dist.get_backend()})")
     if world > mesh.size:
         mesh.device_mesh()          # every rank takes part in making its groups
@@ -138,6 +145,7 @@ def _train(args, cfg, tcfg: TrainConfig, device: torch.device) -> None:
             init_lm)
         step = make_train_step(cfg, tcfg, device=device, mesh=mesh)
         params, opt = step.shard(params, opt)
+        comp = step.shard_residual(comp)
         specs = {"params": step.specs[0], "opt": step.specs[1]}
 
         start = 0

@@ -21,6 +21,14 @@ reference's einsum read in plain PyTorch too: the reference computes it
 in XLA, not in a Pallas kernel.  A config with ``mrope`` rotates q and k
 by M-RoPE (``layers.apply_mrope``) on every one of these paths; with the
 stub frontend its three position streams are the text positions.
+
+Under tensor-parallel compute (``distributed.ctx.tp_group``)
+:func:`attention_fwd` runs on this rank's ``model`` slices of the
+weights: the query heads of its ``ctx.heads_q`` range, the KV heads of
+its ``ctx.heads`` range, and ``wo`` row-parallel (``tp.row_parallel``).
+Where the KV heads do not divide the axis, ``wk`` / ``wv``'s column
+slices hold parts of heads: k and v are then gathered whole and each
+rank takes the heads its queries read.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
 from repro_torch.core.qlinear import apply_linear, init_linear
+from repro_torch.distributed import ctx, tp
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import attend_decode
 from repro_torch.models import layers
@@ -141,6 +150,9 @@ def attention_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
     ``positions`` (B, S); ``kv_x`` switches to cross-attention (keys and
     values from ``kv_x``, non-causal, no RoPE)."""
     src = kv_x if kv_x is not None else x
+    if ctx.tp_group() is not None:
+        return _attention_tp(p, cfg, x, src, positions, causal=causal and kv_x is None,
+                             rope=rope and kv_x is None, cross=kv_x is not None)
     q = _split_heads(apply_linear(p["wq"], x), cfg.num_heads)
     k = _split_heads(apply_linear(p["wk"], src), cfg.num_kv_heads)
     v = _split_heads(apply_linear(p["wv"], src), cfg.num_kv_heads)
@@ -151,6 +163,69 @@ def attention_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
     out = ops.attention(q, k, v, causal=causal and kv_x is None,
                         window=window)
     return apply_linear(p["wo"], _merge_heads(out))
+
+
+def _attention_tp(p: dict, cfg: ModelConfig, x: torch.Tensor, src: torch.Tensor,
+                  positions, *, causal: bool, rope: bool, cross: bool) -> torch.Tensor:
+    """:func:`attention_fwd` on this rank's ``model`` slices.
+
+    The query heads are the ``ctx.heads_q`` range (whole where H does not
+    divide the axis), the KV heads the ``ctx.heads`` range, or where Hkv
+    does not divide the axis those of the query heads' GQA groups.  A
+    projection whose weight holds exactly those heads' columns runs on
+    ``tp.copy`` of its input; one whose column slice holds other heads or
+    parts of heads is gathered whole (``tp.gather``), one that is not
+    sliced runs whole, and where rank-local heads read either, a
+    ``tp.copy`` sums the ranks' cotangents before the heads are taken.
+    ``wo`` is row-parallel over this rank's heads, behind a ``tp.copy``
+    and a column slice where the heads are whole."""
+    b, s, sk = x.shape[0], x.shape[1], src.shape[1]
+    hd, h, hkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    qh = ctx.heads_q((b, h, s, hd))
+    local = ctx.is_part(qh, h)
+    grp = h // hkv
+    kvh = ctx.heads((b, hkv, sk, hd))
+    if not ctx.is_part(kvh, hkv):
+        kvh = slice(qh.start // grp, (qh.stop - 1) // grp + 1)
+    copied: dict[int, torch.Tensor] = {}
+
+    def project(name: str, inp: torch.Tensor, n: int, want: slice) -> torch.Tensor:
+        lin, cols = p[name], ctx.cols(n * hd)
+        layers.local_rows(lin, cols)
+        if ctx.is_part(cols, n * hd):
+            if id(inp) not in copied:
+                copied[id(inp)] = tp.copy(inp)
+            y = apply_linear(lin, copied[id(inp)])
+            if cols == slice(want.start * hd, want.stop * hd):
+                return _split_heads(y, want.stop - want.start)
+            y = tp.gather(y, -1)
+        else:
+            y = apply_linear(lin, inp)
+        if local:
+            y = tp.copy(y)
+        return _split_heads(y[..., want.start * hd:want.stop * hd], want.stop - want.start)
+
+    q = project("wq", x, h, qh)
+    k = project("wk", src, hkv, kvh)
+    v = project("wv", src, hkv, kvh)
+    if rope:
+        q = _rope(cfg, q, positions)
+        k = _rope(cfg, k, positions)
+    nq, nk = q.shape[1], k.shape[1]
+    kv_of = [hq // grp - kvh.start for hq in range(qh.start, qh.stop)]
+    rep = nq // nk if nq % nk == 0 else 0
+    if not rep or kv_of != [i // rep for i in range(nq)]:
+        idx = torch.tensor(kv_of, device=k.device)
+        k, v = k.index_select(1, idx), v.index_select(1, idx)
+    out = _merge_heads(ops.attention(q, k, v, causal=causal,
+                                     window=None if cross else cfg.sliding_window))
+    cols = ctx.cols(h * hd)
+    layers.local_rows(p["wo"], cols, -1)
+    if not ctx.is_part(cols, h * hd):
+        return apply_linear(p["wo"], out)
+    if not local:
+        out = tp.copy(out)[..., cols]
+    return tp.row_parallel(p["wo"], out)
 
 
 # ----------------------------------------------------- paged prefill

@@ -4,6 +4,14 @@ unembedding (``repro.models.layers``).
 Plain functions over parameter dicts and :class:`Linear`s; weight
 matmuls go through :mod:`repro_torch.core.qlinear` so the offload policy
 can quantize them.
+
+Under tensor-parallel compute (``distributed.ctx.tp_group``) a caller
+that gives the whole width (``ff``, ``vocab``) gets the layer on this
+rank's ``model`` slices of the weights, as ``sharding.param_specs`` cuts
+them: the MLP's gate and up column-parallel and its down row-parallel
+(``tp.row_parallel``), a vocab-parallel embedding lookup and this rank's
+range of the logits.  A weight whose rows are not that rank's slice is
+refused.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core.qlinear import Linear, apply_linear, init_linear
 from repro_torch.core.quant import Q3KTensor, Q4_0Tensor, Q8_0Tensor
+from repro_torch.distributed import ctx, tp
 
 
 # ------------------------------------------------------------- norms
@@ -139,7 +148,30 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, activation: str,
     return p
 
 
-def apply_mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+def local_rows(lin: Linear, sl: slice, dim: int = -2) -> None:
+    """Refuse a weight whose dim ``dim`` (its N, or -1: its K) is not the
+    length of this rank's range ``sl``."""
+    n = lin.w.shape[dim]
+    if n != sl.stop - sl.start:
+        raise ValueError(f"a {lin.role} weight of {n} along dim {dim} where this rank's "
+                         f"model slice is {sl.start}:{sl.stop}: give the layer its "
+                         "model slices (ShardedTrainStep), or compute without "
+                         "tensor parallelism")
+
+
+def apply_mlp(p: dict, x: torch.Tensor, activation: str,
+              ff: int | None = None) -> torch.Tensor:
+    """The MLP.  With ``ff`` (the whole hidden width) under tensor-parallel
+    compute, this rank's ``ctx.ffn`` range of it: gate and up
+    column-parallel behind ``tp.copy``, down row-parallel and reduced."""
+    sl = ctx.ffn((1, 1, ff)) if ff else None
+    split = sl is not None and ctx.is_part(sl, ff)
+    if split:
+        for name in ("up", "gate"):
+            if name in p:
+                local_rows(p[name], sl)
+        local_rows(p["down"], sl, -1)
+        x = tp.copy(x)
     up = apply_linear(p["up"], x)
     if activation == "silu":
         h = silu(apply_linear(p["gate"], x)) * up
@@ -147,6 +179,8 @@ def apply_mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = gelu(up)
     else:
         raise ValueError(activation)
+    if split:
+        return tp.row_parallel(p["down"], h)
     return apply_linear(p["down"], h)
 
 
@@ -159,9 +193,23 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
     return Linear(w=w, b=None, role="embed")
 
 
-def apply_embedding(emb: Linear, tokens: torch.Tensor) -> torch.Tensor:
+def apply_embedding(emb: Linear, tokens: torch.Tensor,
+                    vocab: int | None = None) -> torch.Tensor:
     """Row lookup that understands quantized storage: only the gathered
-    rows are dequantized."""
+    rows are dequantized.  With ``vocab`` (the whole vocabulary) under
+    tensor-parallel compute, vocab-parallel: this rank looks up the tokens
+    of its ``ctx.vocab`` range, writes zero rows for the others, and
+    ``tp.reduce`` adds the ranks' rows (exactly: one is nonzero)."""
+    sl = ctx.vocab((1, 1, vocab)) if vocab else None
+    if sl is None or not ctx.is_part(sl, vocab):
+        return _lookup(emb, tokens)
+    local_rows(emb, sl)
+    own = (tokens >= sl.start) & (tokens < sl.stop)
+    rows = _lookup(emb, torch.where(own, tokens - sl.start, 0))
+    return tp.reduce(torch.where(own[..., None], rows, rows.new_zeros(())))
+
+
+def _lookup(emb: Linear, tokens: torch.Tensor) -> torch.Tensor:
     w = emb.w
     if isinstance(w, Q8_0Tensor):
         sub = Q8_0Tensor(w.qs[tokens], w.d[tokens])
@@ -176,7 +224,14 @@ def apply_embedding(emb: Linear, tokens: torch.Tensor) -> torch.Tensor:
     return w[tokens]
 
 
-def apply_unembed(head: Linear, x: torch.Tensor) -> torch.Tensor:
+def apply_unembed(head: Linear, x: torch.Tensor,
+                  vocab: int | None = None) -> torch.Tensor:
     """Logits = x @ W_vocab^T in f32 (through ``apply_linear``, so a
-    quantized head takes its kernel)."""
+    quantized head takes its kernel).  With ``vocab`` under
+    tensor-parallel compute, column-parallel: this rank's ``ctx.vocab``
+    range of the logits, (B, S, V/tp); no rank makes the whole (B, S, V)."""
+    sl = ctx.vocab((1, 1, vocab)) if vocab else None
+    if sl is not None and ctx.is_part(sl, vocab):
+        local_rows(head, sl)
+        x = tp.copy(x)
     return apply_linear(head, x).float()

@@ -29,10 +29,19 @@ and ``d % 32 == 0`` the combine gathers the expert outputs through Q8_0
 blocks (:class:`QuantizedCombine`, a straight-through backward), also at
 one rank; the aux loss's two means are averaged over the ranks that
 split the batch (``ctx.batch_mean``), so that it is the product of means
-over all tokens of the global batch, as in the reference.  The
-reference's expert-buffer cut points (``ctx.expert_buf``) change no
-value and are left out; the experts still run on every rank: the expert
-all-to-all comes with expert-parallel compute.
+over all tokens of the global batch, as in the reference.
+
+Under tensor-parallel compute (``ctx.tp_group``) and "ep", each rank
+runs the experts of its ``ctx.expert_buf`` range.  The batch is split
+only over the data axes, so every rank along ``model`` routes the same
+rows the same way: the dispatch needs no collective, and each rank takes
+its experts' slots of the buffer (behind ``tp.copy``).  The combine's
+gather crosses the EP cut by an all-gather of the expert outputs over
+``model``: of their Q8_0 bytes (int8 quants, f16 scales) through
+:class:`QuantizedCombine`, whose backward is the gather-transpose
+restricted to this rank's slots.  The router stays replicated; the
+shared experts follow ``layers.apply_mlp``.  Under "dp" the experts are
+replicated in compute, as in the reference's DP-MoE.
 """
 from __future__ import annotations
 
@@ -42,7 +51,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
 from repro_torch.core.qlinear import Linear, apply_linear
 from repro_torch.core.quant import Q3KTensor, Q8_0Tensor, QTYPES
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, tp
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -52,14 +61,12 @@ def _q8_across_ep(x: torch.Tensor) -> torch.Tensor:
     dequantize after it, so that the expert all-to-all would move int8 +
     fp16 scales instead of bf16.  Without an env, under ``moe_mode ==
     "dp"`` or with ``d % 32 != 0``, the buffer itself.  The reference
-    defines it but never calls it (its ``apply_moe`` crosses the cut
-    through ``ctx.expert_buf``); neither does the port."""
+    defines it but never calls it (its ``apply_moe`` crosses the cut in
+    the combine); neither does the port."""
     env = ctx.current()
     if env is None or env.moe_mode != "ep" or x.shape[-1] % 32:
-        return ctx.expert_buf(x)
-    t = quant.quantize_q8_0(x)
-    t = Q8_0Tensor(ctx.expert_buf(t.qs), ctx.expert_buf(t.d))
-    return quant.dequantize_q8_0(t, torch.bfloat16).to(x.dtype)
+        return x
+    return quant.dequantize_q8_0(quant.quantize_q8_0(x), torch.bfloat16).to(x.dtype)
 
 
 class QuantizedCombine(torch.autograd.Function):
@@ -70,34 +77,48 @@ class QuantizedCombine(torch.autograd.Function):
     dtype -> (G, T, d).  The backward is the exact transpose of the
     gather (straight through the quantizer, whose round would pass no
     gradient): ``dst`` is injective on kept entries, so the rank scatters
-    only int32 inverse indices and gathers the cotangents."""
+    only int32 inverse indices and gathers the cotangents.
+
+    With ``group`` (the tp axis's ``launch.mesh.AxisGroup``) ``out_flat``
+    is this rank's slots, the slots of every rank in coordinate order make
+    the whole ``n``, and the quants and scales cross the EP cut by an
+    all-gather along the slots (``tp.all_gather``); the backward returns
+    this rank's slots of the transpose (the cotangent is the same on every
+    rank)."""
 
     @staticmethod
-    def forward(ctx_, out_flat, dst):
+    def forward(ctx_, out_flat, dst, group=None):
         g, n, d = out_flat.shape
         oq = quant.quantize_q8_0(out_flat)
-        qs = torch.cat([oq.qs, oq.qs.new_zeros((g, 1, d))], 1)
-        dsc = torch.cat([oq.d, oq.d.new_zeros((g, 1, d // 32))], 1)
+        qs, dsc = oq.qs, oq.d
+        if group is not None:
+            qs, dsc = tp.all_gather(qs, group, 1), tp.all_gather(dsc, group, 1)
+        qs = torch.cat([qs, qs.new_zeros((g, 1, d))], 1)
+        dsc = torch.cat([dsc, dsc.new_zeros((g, 1, d // 32))], 1)
         qs_g = qs.gather(1, dst[..., None].expand(-1, -1, d))
         dsc_g = dsc.gather(1, dst[..., None].expand(-1, -1, d // 32))
         ctx_.save_for_backward(dst)
-        ctx_.n = n
+        ctx_.n, ctx_.group = n, group
         return quant.dequantize_q8_0(Q8_0Tensor(qs_g, dsc_g), out_flat.dtype)
 
     @staticmethod
     def backward(ctx_, gy):
         (dst,) = ctx_.saved_tensors
         g, sk, d = gy.shape
-        inv = torch.full((g, ctx_.n + 1), sk, dtype=torch.int32, device=gy.device)
+        n, group = ctx_.n, ctx_.group
+        whole = n * (group.size if group is not None else 1)
+        inv = torch.full((g, whole + 1), sk, dtype=torch.int32, device=gy.device)
         inv.scatter_(1, dst, torch.arange(sk, dtype=torch.int32,
                                           device=gy.device).expand(g, sk).contiguous())
-        inv = inv[:, :ctx_.n].long()
+        first = group.rank * n if group is not None else 0
+        inv = inv[:, first:first + n].long()
         gypad = torch.cat([gy, gy.new_zeros((g, 1, d))], 1)
-        return gypad.gather(1, inv[..., None].expand(-1, -1, d)), None
+        return gypad.gather(1, inv[..., None].expand(-1, -1, d)), None, None
 
 
-def _quantized_combine(out_flat: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-    return QuantizedCombine.apply(out_flat, dst)
+def _quantized_combine(out_flat: torch.Tensor, dst: torch.Tensor,
+                       group=None) -> torch.Tensor:
+    return QuantizedCombine.apply(out_flat, dst, group)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -183,30 +204,41 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
     # Dropped entries go to a trash slot (e * cap), never over an occupant.
     dst = torch.where(keep, se * cap + pos_in_e, e * cap)        # (G,S*k)
 
-    # Slot -> token indices (sentinel s: the zero row), then one gather.
+    # Slot -> token indices (sentinel s: the zero row), then one gather of
+    # this rank's experts' slots (all of them without expert parallelism).
+    es = ctx.expert_buf((g, e, cap, d))
+    ep = ctx.is_part(es, e)
+    el = es.stop - es.start
+    if ep:
+        for name in ("w_up", "w_gate", "w_down"):
+            L.local_rows(p[name], es, 0)
     islot = torch.full((g, e * cap + 1), s, dtype=torch.int64, device=dev)
     islot.scatter_(1, dst, stok)
-    xpad = torch.cat([x, x.new_zeros((g, 1, d))], dim=1)
-    buf = xpad.gather(1, islot[:, :e * cap, None].expand(-1, -1, d))   # (G,E*C,d)
-    xe = buf.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    xpad = torch.cat([tp.copy(x) if ep else x, x.new_zeros((g, 1, d))], dim=1)
+    slots = islot[:, es.start * cap:es.stop * cap]
+    buf = xpad.gather(1, slots[..., None].expand(-1, -1, d))     # (G,El*C,d)
+    xe = buf.reshape(g, el, cap, d).transpose(0, 1).reshape(el, g * cap, d)
 
     up = _expert_matmul(p["w_up"], xe)
     h = L.silu(_expert_matmul(p["w_gate"], xe)) * up
-    out_e = _expert_matmul(p["w_down"], h)                        # (E,G*C,d)
-    out_e = out_e.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    out_e = _expert_matmul(p["w_down"], h)                        # (El,G*C,d)
+    out_e = out_e.reshape(el, g, cap, d).transpose(0, 1).reshape(g, el * cap, d)
 
     # Combine: each (token, slot) entry's expert output (the zero row when
     # dropped) times its gate, added up per token in ascending expert
     # order from zero, rounding to x's dtype after each add: the
     # reference's scatter-add over the expert-sorted entries.
-    # Under an "ep" env the gather crosses the EP wire as Q8_0 blocks.
+    # Under an "ep" env the gather crosses the EP wire as Q8_0 blocks
+    # (gathered over model from the ranks' experts).
     inv = torch.argsort(order, dim=-1)                           # entry -> sorted position
     dst_tok = dst.gather(-1, inv)
     w_tok = (gate.reshape(g, s * k) * keep.gather(-1, inv)).to(x.dtype)
     env = ctx.current()
     if env is not None and env.moe_mode == "ep" and d % 32 == 0:
-        rows = _quantized_combine(out_e, dst_tok)
+        rows = _quantized_combine(out_e, dst_tok, ctx.tp_group() if ep else None)
     else:
+        if ep:
+            out_e = tp.gather(out_e, 1)
         out_flat = torch.cat([out_e, out_e.new_zeros((g, 1, d))], dim=1)
         rows = out_flat.gather(1, dst_tok[..., None].expand(-1, -1, d))
     contrib = rows * w_tok[..., None]
@@ -218,5 +250,5 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
         y = y + contrib[:, :, j]
 
     if "shared" in p:
-        y = y + L.apply_mlp(p["shared"], x, "silu")
+        y = y + L.apply_mlp(p["shared"], x, "silu", moe.expert_ff * moe.num_shared)
     return y, aux

@@ -51,6 +51,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import OffloadPolicy
 from repro_torch.core.qlinear import (Linear, apply_linear, init_linear,
                                       quantize_params)
+from repro_torch.distributed import ctx
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -200,7 +201,7 @@ def _apply_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
         return x + y, aux
     if "mlp" in p:
         h = _apply_norm(cfg, p["norm2"], x)
-        x = x + L.apply_mlp(p["mlp"], h, cfg.activation)
+        x = x + L.apply_mlp(p["mlp"], h, cfg.activation, cfg.d_ff)
     return x, 0.0
 
 
@@ -261,12 +262,16 @@ def _stack_fwd(layers: list, cfg: ModelConfig, x: torch.Tensor,
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
 
+    env = ctx.current()
+
     def period(x, aux, group):
-        for p in group:
-            x, a = _layer_fwd(p, cfg, x, positions, causal=causal,
-                              enc_out=enc_out)
-            if isinstance(a, torch.Tensor):
-                aux = aux + a
+        # Under the caller's axis env also when recomputed (see ctx.entered).
+        with ctx.entered(env):
+            for p in group:
+                x, a = _layer_fwd(p, cfg, x, positions, causal=causal,
+                                  enc_out=enc_out)
+                if isinstance(a, torch.Tensor):
+                    aux = aux + a
         return x, aux
 
     plen = len(cfg.block_pattern)
@@ -314,9 +319,11 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     text, and the prefix is sliced off before the head, so the logits
     are the text's.  ``remat`` is the backward's recomputation
     (:func:`_stack_fwd`).  ``last_only`` unembeds only the final
-    position."""
+    position.  Under tensor-parallel compute (``distributed.ctx.tp_group``)
+    the layers run on this rank's ``model`` slices of ``params`` and the
+    logits are this rank's (B, S, V/tp) range of them (``ctx.vocab``)."""
     b, s = tokens.shape
-    x = L.apply_embedding(params["embed"], tokens)
+    x = L.apply_embedding(params["embed"], tokens, cfg.vocab_size)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         s = x.shape[1]
@@ -336,7 +343,7 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         x = x[:, prefix_embeds.shape[1]:]
     if last_only:
         x = x[:, -1:]
-    return L.apply_unembed(_head(params), x), aux
+    return L.apply_unembed(_head(params), x, cfg.vocab_size), aux
 
 
 # -------------------------------------------------------------- decode

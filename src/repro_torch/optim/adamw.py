@@ -58,10 +58,23 @@ def init_adam(params: Any, cfg: TrainConfig) -> AdamState:
                      v=tree_map(mk, params))
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 sum of squares."""
+def global_norm(tree: Any, *, split: list[bool] | None = None,
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's f32 sum of squares.  ``split`` (one
+    flag per leaf, with ``group``): the leaves of which this rank holds a
+    slice along ``group`` (tensor-parallel compute); their squares are
+    summed over the group's ranks by one all-reduce, and every other leaf,
+    replicated along ``group``, is counted once."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    if not split or not any(split):
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    import torch.distributed as dist
+    total = torch.sum(torch.stack([x for x, cut in zip(leaves, split) if cut]))
+    dist.all_reduce(total, group=group)
+    rest = [x for x, cut in zip(leaves, split) if not cut]
+    if rest:
+        total = total + torch.sum(torch.stack(rest))
+    return torch.sqrt(total)
 
 
 def _bias_correction(beta: float, step: torch.Tensor) -> torch.Tensor:

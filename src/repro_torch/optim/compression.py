@@ -12,6 +12,11 @@ Each leaf is flattened and padded to a multiple of 32 before its blocks
 are formed, as in the reference.  The port's leaves are per layer where
 the reference's are stacked over layers, so the blocks coincide when a
 layer's leaf size is a multiple of 32 (every leaf of the configs here).
+
+A rank that holds a slice of a leaf (tensor-parallel compute) compresses
+its slice alone where the slice keeps whole blocks of the leaf
+(:func:`keeps_blocks`); elsewhere the sharded train step gathers the
+leaf, compresses it whole and cuts it again.
 """
 from __future__ import annotations
 
@@ -57,6 +62,19 @@ def apply_compression(grads: Any, state: CompressionState
     return (tree_map(lambda _: next(outs), grads),
             CompressionState(residual=tree_map(lambda _: next(res),
                                                state.residual)))
+
+
+def keeps_blocks(shape: tuple, dim: int, parts: int) -> bool:
+    """Whether cutting a leaf of ``shape`` into ``parts`` slices along
+    ``dim`` keeps the whole leaf's flat 32-blocks whole in each slice:
+    a slice is a run of ``shape[dim] / parts * prod(shape[dim + 1:])``
+    contiguous elements in each index of the dims before ``dim`` (dim 0:
+    one contiguous range; dim 1 of (N, K): K / parts per row), so it does
+    when that run is a multiple of 32."""
+    run = shape[dim] // parts
+    for n in shape[dim + 1:]:
+        run *= n
+    return run % 32 == 0
 
 
 def compression_ratio() -> float:

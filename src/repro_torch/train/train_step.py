@@ -19,17 +19,27 @@ that GSPMD places in the reference, so that it computes the reference's
 numbers:
 
 * each rank holds its ``sharding.param_specs`` slice of the parameters
-  and of the AdamW moments, and all-gathers the whole parameters before
-  the forward (ranks along ``model`` hold different slices and compute
-  the same rows: tensor-parallel compute comes later);
+  and of the AdamW moments.  For the dense, VLM and MoE families
+  (``TP_FAMILIES``) on a ``model`` axis of more than one rank it
+  all-gathers them over ``pod`` / ``data`` only (FSDP) and computes on
+  its ``model`` slices (tensor and expert parallelism: the axis env's
+  ``tp_compute``, the layers' ``distributed.tp`` collectives), so that it
+  never holds a whole tensor-parallel weight in the forward and backward;
+  the other families (SSM, hybrid, audio) gather the whole parameters,
+  and ranks along ``model`` compute the same rows;
 * each rank feeds its rows of the global batch (``batch_specs``; a batch
   that does not divide the data axes is replicated), ``tcfg.microbatch``
-  counting global rows;
-* the gradients are averaged over the axes that split the batch, and
-  the MoE aux loss takes its means over the whole batch (``ctx.
-  batch_mean``);
-* compression (flat 32-blocks of each whole leaf) and the clip (the
-  global norm) see the whole reduced gradient, on every rank alike;
+  counting global rows; the loss is vocab-parallel (``cross_entropy``);
+* the gradients (of the rank's ``model`` slices) are averaged over the
+  axes that split the batch, and the MoE aux loss takes its means over
+  the whole batch (``ctx.batch_mean``);
+* compression takes the flat 32-blocks of each whole leaf: a ``model``
+  slice that keeps whole blocks is compressed alone, another leaf is
+  gathered over ``model``, compressed and cut again
+  (``compression.keeps_blocks``; the residual has the gradients' layout:
+  :meth:`ShardedTrainStep.shard_residual`); the clip's global norm sums
+  the squares of a rank's slices over ``model`` and counts each
+  replicated leaf once (``adamw.global_norm(split=)``);
 * each rank updates only its slices.  A quantized moment whose slice
   would cut a Q8_0 block (or that is sliced where its parameter is not)
   is updated whole from the gathered leaf, and cut again.
@@ -38,6 +48,7 @@ At one rank it is the unsharded step, bit for bit.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -46,17 +57,35 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.quant import QTYPES, Q8_0Tensor
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.distributed import ctx, sharding
+from repro_torch.distributed import ctx, sharding, tp
 from repro_torch.distributed.sharding import P
 from repro_torch.models.transformer import lm_forward
 from repro_torch.optim import adamw, compression
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token CE. logits: (B, S, V) f32; labels: (B, S)."""
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    return -torch.mean(ll)
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: int | None = None) -> torch.Tensor:
+    """Mean next-token CE. logits: (B, S, V) f32; labels: (B, S).  With
+    ``vocab`` (the whole V) under tensor-parallel compute, ``logits`` is
+    this rank's ``ctx.vocab`` range (B, S, V/tp) and the loss is
+    vocab-parallel: the max and the sum of exp are all-reduced over
+    ``model`` in f32, and the target logit is taken by its owner and
+    all-reduced."""
+    sl = ctx.vocab((1, 1, vocab)) if vocab else None
+    if sl is None or not ctx.is_part(sl, vocab):
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+        return -torch.mean(ll)
+    import torch.distributed as dist
+    top = tp.all_reduce(logits.detach().amax(-1, keepdim=True), ctx.tp_group().group,
+                        dist.ReduceOp.MAX)
+    z = logits - top
+    lse = torch.log(tp.reduce(torch.exp(z).sum(-1)))
+    labels = labels.long()
+    own = (labels >= sl.start) & (labels < sl.stop)
+    zt = torch.gather(z, -1, torch.where(own, labels - sl.start, 0)[..., None])[..., 0]
+    zt = tp.reduce(torch.where(own, zt, zt.new_zeros(())))
+    return -torch.mean(zt - lse)
 
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
@@ -67,7 +96,7 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
             enc_embeds=batch.get("enc_embeds"),
             prefix_embeds=batch.get("prefix_embeds"),
             remat=tcfg.remat)
-        ce = cross_entropy(logits, batch["labels"])
+        ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         return ce + aux, {"loss": ce, "aux": aux}
     return loss_fn
 
@@ -186,11 +215,18 @@ def _aligned(pspec: P, mspec, ndim: int) -> bool:
     return _padded(mspec, ndim) == _padded(pspec, ndim)
 
 
+TP_FAMILIES = ("dense", "vlm", "moe")     # families that compute on model slices
+TP_AXIS = "model"
+
+
 class ShardedTrainStep:
     """The train step on a mesh (see the module docstring).  :meth:`shard`
     cuts this rank's slices of a whole state (and sets ``specs``, the
     parameter specs and the ``AdamState`` specs); :meth:`gather` rebuilds
-    the whole state from every rank's slices."""
+    the whole state from every rank's slices; :meth:`shard_residual` and
+    :meth:`gather_residual` do so for the compression residual, which
+    each rank keeps in its gradients' layout (whole but for its ``model``
+    slices)."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *, device, mesh):
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
@@ -198,6 +234,9 @@ class ShardedTrainStep:
         self.coords = mesh.own_coords()
         self.specs = None
         self.grad_fn = value_and_grad(make_loss_fn(cfg, tcfg))
+        self.tp = cfg.family in TP_FAMILIES and mesh.shape.get(TP_AXIS, 1) > 1
+        self.tp_axes = (TP_AXIS,) if self.tp else ()
+        self.fsdp_axes = tuple(a for a in mesh.axis_names if a not in self.tp_axes)
 
     def shard(self, params, opt_state: adamw.AdamState):
         """This rank's slices of whole ``params`` and ``opt_state``; their
@@ -207,6 +246,10 @@ class ShardedTrainStep:
             sharding.param_specs(params, self.mesh),
             adamw.AdamState(step=P(), m=sharding.param_specs(opt_state.m, self.mesh),
                             v=sharding.param_specs(opt_state.v, self.mesh)))
+        # Each parameter's spec within the step's working tree: its model
+        # entries (the slices the layers compute on), and whether it is cut.
+        self._work = [sharding.over(sp, self.tp_axes) for sp in sharding.spec_leaves(pspec)]
+        self._split = [bool(sharding._steps(sp, self.mesh)) for sp in self._work]
         return (sharding.shard_tree(params, pspec, self.mesh, self.coords),
                 sharding.shard_tree(opt_state, ospec, self.mesh, self.coords))
 
@@ -215,6 +258,20 @@ class ShardedTrainStep:
         pspec, ospec = self.specs
         return (sharding.gather_tree(params, pspec, self.mesh),
                 sharding.gather_tree(opt_state, ospec, self.mesh))
+
+    def shard_residual(self, comp_state):
+        """A whole compression state in this rank's layout (None: None)."""
+        if comp_state is None:
+            return None
+        return compression.CompressionState(residual=sharding.shard_tree(
+            comp_state.residual, self.specs[0], self.mesh, self.coords, axes=self.tp_axes))
+
+    def gather_residual(self, comp_state):
+        """The whole compression state (every rank calls it)."""
+        if comp_state is None:
+            return None
+        return compression.CompressionState(residual=sharding.gather_tree(
+            comp_state.residual, self.specs[0], self.mesh, axes=self.tp_axes))
 
     def _rows(self, batch: dict) -> tuple[dict, tuple]:
         """This rank's rows of a global batch and the axes they split."""
@@ -241,9 +298,9 @@ class ShardedTrainStep:
         parts = iter(buf.split([t.numel() for t in leaves]))
         return tree_map(lambda t: next(parts).reshape(t.shape).to(t.dtype), tree)
 
-    def _grads(self, whole, batch: dict[str, torch.Tensor]):
+    def _grads(self, work, batch: dict[str, torch.Tensor]):
         env = ctx.current()
-        kw = dict(moe_mode=env.moe_mode if env else "ep")
+        kw = dict(moe_mode=env.moe_mode if env else "ep", tp_compute=self.tp)
         if env is not None:
             kw.update(dp=env.dp, tp=env.tp or "model")
         axes = ()
@@ -256,13 +313,45 @@ class ShardedTrainStep:
             with ctx.axis_env(self.mesh, batch_axes=axes, **kw):
                 return self.grad_fn(params, local)
 
-        metrics, grads = _accumulate(rows_grad, whole, batch, self.tcfg)
+        metrics, grads = _accumulate(rows_grad, work, batch, self.tcfg)
         loss, grads = self._mean((metrics["loss"], grads), axes)
         return dict(metrics, loss=loss), grads
 
     @torch.no_grad()
-    def _update(self, grads, opt_state: adamw.AdamState, params, whole, gn):
-        """AdamW on this rank's slices; a leaf whose moment slices do not
+    def _compress(self, grads, comp_state: compression.CompressionState):
+        """Each leaf's compression as the whole leaf's: a slice that keeps
+        whole blocks alone, the other leaves (and their residuals)
+        gathered over ``model`` in one packed collective, compressed whole
+        and cut again."""
+        mesh, coords = self.mesh, self.coords
+        gl, rl = tree_leaves(grads), tree_leaves(comp_state.residual)
+        if any(g.shape != r.shape for g, r in zip(gl, rl)):
+            raise ValueError("ShardedTrainStep: a compression residual is not in the "
+                             "gradients' layout: shard_residual() it first")
+        out = [None] * len(gl)
+        res = [None] * len(gl)
+        redo = []
+        for i, (g, r, sp) in enumerate(zip(gl, rl, self._work)):
+            if _keeps_blocks(g.shape, sp, mesh):
+                out[i], res[i] = compression.compress_decompress(g, r)
+            else:
+                redo.append(i)
+        if redo:
+            whole = sharding.gather_tree([(gl[i], rl[i]) for i in redo],
+                                         [(self._work[i], self._work[i]) for i in redo], mesh)
+            for i, (g, r) in zip(redo, whole):
+                c, nr = compression.compress_decompress(g, r)
+                out[i] = sharding.local_shard(c, self._work[i], mesh, coords)
+                res[i] = sharding.local_shard(nr, self._work[i], mesh, coords)
+        outs, ress = iter(out), iter(res)
+        return (tree_map(lambda _: next(outs), grads),
+                compression.CompressionState(residual=tree_map(lambda _: next(ress),
+                                                               comp_state.residual)))
+
+    @torch.no_grad()
+    def _update(self, grads, opt_state: adamw.AdamState, params, work, gn):
+        """AdamW on this rank's slices (``work``: the parameters the step
+        computed on, ``grads`` theirs); a leaf whose moment slices do not
         match its parameter's in whole Q8_0 blocks is updated whole and cut
         again."""
         pspec, ospec = self.specs
@@ -270,22 +359,24 @@ class ShardedTrainStep:
         is_q = lambda x: isinstance(x, QTYPES)   # noqa: E731
         work_p, work_g, work_m, work_v, redo = [], [], [], [], []
         for i, (p, pw, g, ps, m, ms, v, vs) in enumerate(zip(
-                tree_leaves(params), tree_leaves(whole), tree_leaves(grads),
+                tree_leaves(params), tree_leaves(work), tree_leaves(grads),
                 sharding.spec_leaves(pspec),
                 tree_leaves(opt_state.m, is_leaf=is_q), sharding.spec_leaves(ospec.m),
                 tree_leaves(opt_state.v, is_leaf=is_q), sharding.spec_leaves(ospec.v))):
             whole_leaf = not (_aligned(ps, ms, p.dim()) and _aligned(ps, vs, p.dim()))
             work_p.append(pw if whole_leaf else p)
-            work_g.append(g if whole_leaf else sharding.local_shard(g, ps, mesh, coords))
+            work_g.append(g if whole_leaf else sharding.local_shard(
+                g, sharding.over(ps, self.fsdp_axes), mesh, coords))
             work_m.append(m)
             work_v.append(v)
             if whole_leaf:
                 redo.append((i, p, ps, m, ms, v, vs))
-        if redo:     # their moments, whole: one packed gather
-            full = sharding.gather_tree([(r[3], r[5]) for r in redo],
-                                        [(r[4], r[6]) for r in redo], mesh)
-            for (i, *_), (m, v) in zip(redo, full):
-                work_m[i], work_v[i] = m, v
+        if redo:     # their moments, parameters and gradients, whole: one packed gather
+            full = sharding.gather_tree(
+                [(r[3], r[5], work_p[r[0]], work_g[r[0]]) for r in redo],
+                [(r[4], r[6], self._work[r[0]], self._work[r[0]]) for r in redo], mesh)
+            for (i, *_), (m, v, pw, g) in zip(redo, full):
+                work_m[i], work_v[i], work_p[i], work_g[i] = m, v, pw, g
         step = opt_state.step
         _, new = adamw.adam_update(work_g, adamw.AdamState(step, work_m, work_v), work_p,
                                    self.tcfg, grad_norm=gn)
@@ -306,10 +397,23 @@ class ShardedTrainStep:
         if self.specs is None:
             raise RuntimeError("ShardedTrainStep: shard() the whole state first")
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
-        whole = sharding.gather_tree(params, self.specs[0], self.mesh)
-        metrics, grads = self._grads(whole, batch)
+        work = sharding.gather_tree(params, self.specs[0], self.mesh, axes=self.fsdp_axes)
+        metrics, grads = self._grads(work, batch)
         if self.tcfg.grad_compression:
-            grads, comp_state = compression.apply_compression(grads, comp_state)
-        gn = adamw.global_norm(grads)
-        params, opt_state = self._update(grads, opt_state, params, whole, gn)
+            grads, comp_state = self._compress(grads, comp_state)
+        gn = adamw.global_norm(grads, split=self._split,
+                               group=self.mesh.group(TP_AXIS) if self.tp else None)
+        params, opt_state = self._update(grads, opt_state, params, work, gn)
         return params, opt_state, comp_state, dict(metrics, grad_norm=gn)
+
+
+def _keeps_blocks(shape: tuple, spec: P, mesh) -> bool:
+    """Whether a leaf's slice of ``shape`` under ``spec`` (its model
+    entries) holds whole blocks of the whole leaf's compression."""
+    for dim, entry in enumerate(spec):
+        parts = math.prod(mesh.shape[a] for a in sharding._axes(entry))
+        if parts > 1:
+            whole = list(shape)
+            whole[dim] *= parts
+            return compression.keeps_blocks(tuple(whole), dim, parts)
+    return True

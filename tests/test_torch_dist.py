@@ -21,11 +21,13 @@ wire pieces, sharded checkpoints, the multi-rank launcher).
 * The sharded step at one rank is the unsharded step bit for bit, under
   "ep".
 * Spawned gloo worlds (a ``FileStore`` under ``tmp_path``; the ranks are
-  this file run as a script, without JAX), three at once: 2 ranks as
-  data 2, 2 ranks as model 2, 4 ranks as pod 2 x data 2.  Reduced
-  granite-8b and deepseek-moe (f32, the same parameters, batch 4 x 16),
-  plain, microbatch 2, Q8_0 moments and compression, 3 steps each,
-  against the single-process port: loss and loss + aux within
+  this file run as a script, without JAX), four at once: 2 ranks as
+  data 2, 2 ranks as model 2 (tensor- and expert-parallel compute), 4
+  ranks as pod 2 x data 2, and 4 ranks as data 2 x model 2 (FSDP with
+  tensor parallelism, the plain option only).  Reduced granite-8b and
+  deepseek-moe (f32, the same parameters, batch 4 x 16), plain,
+  microbatch 2, Q8_0 moments and compression, 3 steps each, against the
+  single-process port: loss and loss + aux within
   ``LOSS_RTOL``, grad_norm within ``GRAD_NORM_RTOL``, after every step
   the parameters within ``PARAM_F32_ATOL`` and the moments and residuals
   by ``test_torch_train._check_state``'s rule, both widened by one
@@ -37,8 +39,12 @@ wire pieces, sharded checkpoints, the multi-rank launcher).
   later, parameters apart by a few 1e-5 move the next gradients and up
   to 286 of 755,328 residual elements to the next Q8_0 code after step
   3, which the moments and parameters it feeds then show within their
-  limits.  An undividable batch (3 rows) is replicated and gives the
-  single-process bits.  The control: deepseek at data 2 with the aux
+  limits.  An undividable batch (3 rows) is replicated: on the data axes
+  it gives the single-process bits, at model 2 the single-process
+  numbers within the limits above (the ranks sum partial products in
+  another order).  Under "ep", one deepseek step at model 2 (the local
+  experts, the Q8_0 combine's all-gather) is held to the single-process
+  "ep" step by the ``wire`` rule.  The control: deepseek at data 2 with the aux
   loss's reduction switched off misses ``LOSS_RTOL`` (per-rank aux
   values averaged are another number).
 * Elastic restart: a sharded checkpoint written at world 2 restores at
@@ -46,7 +52,8 @@ wire pieces, sharded checkpoints, the multi-rank launcher).
   + 3 steps equal 6 straight steps bit for bit.
 * ``launch.train.main()`` at world 2 (gloo, ``--device cpu --reduced``,
   2 steps): the mesh line, and a checkpoint that resumes at world 1; and
-  at world 4 with a model axis of 3, where the rank left out idles.
+  at world 4 with a model axis of 3, where the rank left out idles.  The
+  launcher's model-axis rule as a function: 16 from 16 ranks on, else 1.
 """
 import contextlib
 import datetime
@@ -115,10 +122,13 @@ ARCHS = ("granite-8b", "deepseek-moe-16b")
 OPTIONS = {"plain": {}, "microbatch": {"microbatch": 2},
            "quantized_moments": {"quantized_moments": True},
            "grad_compression": {"grad_compression": True}}
-# Three spawns at once (one mesh each): world 2 as data 2 (+ the aux
-# control) and as model 2 (+ the elastic restart and the launcher), world 4
-# as pod 2 x data 2.
-SPAWNS = {"data2": (1, 2, 1), "model2": (1, 1, 2), "pod2data2": (2, 2, 1)}
+# Four spawns at once (one mesh each): world 2 as data 2 (+ the aux
+# control) and as model 2 (+ the "ep" step, the elastic restart and the
+# launcher), world 4 as pod 2 x data 2 and as data 2 x model 2 (the plain
+# option only).
+SPAWNS = {"data2": (1, 2, 1), "model2": (1, 1, 2), "pod2data2": (2, 2, 1),
+          "data2model2": (1, 2, 2)}
+SPAWN_OPTIONS = {"data2model2": ("plain",)}
 AXES = ("pod", "data", "model")
 BATCH, SEQ, STEPS = 4, 16, 3
 ODD_BATCH = 3                       # divides no data axis: replicated
@@ -159,11 +169,13 @@ def _run(arch: str, option: str, init: dict, mesh=None, rows: int = BATCH,
         step = make_train_step(cfg, tc, device="cpu", mesh=mesh)
         if mesh is not None:
             params, opt = step.shard(params, opt)
+            comp = step.shard_residual(comp)
         for i in range(steps):
             params, opt, comp, m = step(params, opt, comp, _batch(cfg, i, rows))
-            whole = (params, opt) if mesh is None else step.gather(params, opt)
+            whole = ((params, opt, comp) if mesh is None
+                     else (*step.gather(params, opt), step.gather_residual(comp)))
             out.append(({k: float(v) for k, v in m.items()},
-                        _copy(whole[0]), _copy(whole[1]), _copy(comp)))
+                        _copy(whole[0]), _copy(whole[1]), _copy(whole[2])))
     return out
 
 
@@ -232,9 +244,10 @@ def _rank_main(rank: int, spawn: str, store: str, out: str, init_path: str) -> N
     res = {}
     mesh = Mesh(np.arange(world).reshape(shape), AXES)
     for arch in ARCHS:
-        for option in OPTIONS:
+        for option in SPAWN_OPTIONS.get(spawn, OPTIONS):
             res[shape, arch, option] = _run(arch, option, init, mesh)
-        res[shape, arch, "replicated"] = _run(arch, "plain", init, mesh, rows=ODD_BATCH)
+        if spawn not in SPAWN_OPTIONS:
+            res[shape, arch, "replicated"] = _run(arch, "plain", init, mesh, rows=ODD_BATCH)
     res[shape, "roundtrip"] = _roundtrip(mesh)
     if spawn == "data2":
         inner = tctx.batch_mean
@@ -244,6 +257,7 @@ def _rank_main(rank: int, spawn: str, store: str, out: str, init_path: str) -> N
         finally:
             tctx.batch_mean = inner
     if spawn == "model2":
+        res["ep"] = _run("deepseek-moe-16b", "plain", init, mesh, steps=1, moe_mode="ep")
         res["elastic"] = _elastic(Mesh(np.arange(2).reshape(1, 2, 1), AXES),
                                   os.path.join(out, "elastic"), init)
         res["launch"] = _launch(out, rank)
@@ -513,8 +527,8 @@ def test_single_process_moe_run_matches_reference(jinit, init, single, moe_mode,
     _check_run(got, want, tc)
 
 
-WORLD_CASES = [(shape, arch, option) for shape in SPAWNS.values()
-               for arch in ARCHS for option in OPTIONS]
+WORLD_CASES = [(shape, arch, option) for spawn, shape in SPAWNS.items()
+               for arch in ARCHS for option in SPAWN_OPTIONS.get(spawn, OPTIONS)]
 
 
 def _id(shape) -> str:
@@ -528,17 +542,32 @@ def test_sharded_world_matches_single_process(worlds, single, shape, arch, optio
     _check_run(got, single(arch, option), TrainConfig(remat="none", **OPTIONS[option]))
 
 
-REPLICATED = [(shape, arch) for shape in SPAWNS.values() for arch in ARCHS]
+REPLICATED = [(shape, arch) for spawn, shape in SPAWNS.items() for arch in ARCHS
+              if spawn not in SPAWN_OPTIONS]
 
 
 @pytest.mark.parametrize("shape,arch", REPLICATED,
                          ids=[f"{_id(s)}-{a}" for s, a in REPLICATED])
 def test_undividable_batch_is_replicated_bit_for_bit(worlds, single, shape, arch):
-    got = worlds[0][shape, arch, "replicated"]
-    for (gm, gp, go, _), (wm, wp, wo, _) in zip(got, single(arch, "plain", ODD_BATCH)):
+    """Bit for bit where the ranks compute whole; on a model axis the
+    ranks compute tensor-parallel (partial sums in another order) and are
+    held to the single-process run as every world is."""
+    got, want = worlds[0][shape, arch, "replicated"], single(arch, "plain", ODD_BATCH)
+    if shape[AXES.index("model")] > 1:
+        _check_run(got, want, TrainConfig(remat="none"))
+        return
+    for (gm, gp, go, _), (wm, wp, wo, _) in zip(got, want):
         assert gm == wm
         for a, b in zip(tree_leaves(gp) + tree_leaves(go), tree_leaves(wp) + tree_leaves(wo)):
             assert torch.equal(a, b)
+
+
+def test_expert_parallel_step_at_model_two(worlds, init):
+    """Under "ep" at model 2 each rank runs 2 of the 4 experts and the
+    Q8_0 combine all-gathers their outputs: one step held to the
+    single-process "ep" step by the wire rule."""
+    want = _run("deepseek-moe-16b", "plain", init, steps=1, moe_mode="ep")
+    _check_run(worlds[0]["ep"], want, TrainConfig(remat="none"), wire=True)
 
 
 def test_gather_of_local_shards_is_every_leaf_kind(worlds):
@@ -604,6 +633,14 @@ def test_launch_train_at_world_two(worlds, tmp_path, capsys):
         # Two AdamW steps at lr 3e-4 from the same weights; the gradients
         # differ by the order of the reduction's sums.
         assert float((x - y).abs().max()) <= 1e-3, k
+
+
+def test_launch_model_axis_rule():
+    """The reference's model axis of 16 where it builds a mesh (16 ranks
+    and more), 1 at 1-15 ranks (where the reference raises)."""
+    from repro_torch.launch import train as launch
+    assert [launch.model_parallel(w) for w in range(1, 16)] == [1] * 15
+    assert launch.model_parallel(16) == launch.model_parallel(64) == 16
 
 
 def test_launch_train_leaves_ranks_outside_the_mesh_idle(worlds):

@@ -58,6 +58,7 @@ from repro_torch.distributed import ctx as tctx  # noqa: E402
 from repro_torch.distributed import sharding as tsh  # noqa: E402
 from repro_torch.distributed.fault_tolerance import elastic_mesh  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.launch.mesh import AxisGroup  # noqa: E402
 from repro_torch.optim import adamw as tadam  # noqa: E402
 from repro_torch import weights  # noqa: E402
 from test_torch_api import _one_torch_thread  # noqa: E402,F401  (autouse)
@@ -304,11 +305,17 @@ PORT_RULE = {"act": {0: "dp"}, "heads": {0: "dp", 1: "tp"}, "ffn": {0: "dp", 2: 
              "paged_kv": {1: "tp"}, "decode_logits": {0: "dp", 3: "tp"}}
 
 
+TP_DIMS = {"heads": 1, "heads_q": 1, "ffn": 2, "vocab": 2, "expert_buf": 1}
+
+
 @pytest.mark.parametrize("moe_mode", ["ep", "dp"])
 def test_pinned_spec_is_the_references_constraint(monkeypatch, moe_mode):
     """The reference's cut points with ``with_sharding_constraint``
     captured give the spec ``ctx.pinned_spec`` computes; the port's cut
-    points change no value."""
+    points give this rank's range of their dim where that spec puts the
+    tp axis on it under tensor-parallel compute (rank 1 of the axis here),
+    the whole dim elsewhere and without it (``heads_q``: the query-position
+    split is not ported, so only a head split counts)."""
     monkeypatch.setattr(jctx, "NamedSharding", lambda mesh, spec: spec)
     monkeypatch.setattr(jax.lax, "with_sharding_constraint", lambda x, spec: spec)
     shapes = [(32, 16, 128, 64), (48, 20, 64, 64), (16, 4, 8, 32), (3, 16, 16, 4096),
@@ -321,8 +328,19 @@ def test_pinned_spec_is_the_references_constraint(monkeypatch, moe_mode):
             got = {c: tctx.pinned_spec(shape, PORT_RULE[c]) for c in PORT_RULE}
             got["expert_buf"] = tctx.pinned_spec(
                 shape, {0: "dp"} if moe_mode == "dp" else {0: "dp", 1: "tp"})
-            t = torch.zeros(2)
-            assert tctx.expert_buf(t) is t
+            assert all(getattr(tctx, c)(shape) == slice(0, shape[d]) for c, d in TP_DIMS.items())
+        n = m.shape["model"]
+        inner = tctx.tp_group
+        tctx.tp_group = lambda: AxisGroup(None, n, 1, tuple(range(n)))
+        try:
+            with tctx.axis_env(m, moe_mode=moe_mode, tp_compute=True):
+                for c, d in TP_DIMS.items():
+                    on = _spec(want[c])[d:d + 1] == ("model",)
+                    size = shape[d] // n
+                    assert getattr(tctx, c)(shape) == (slice(size, 2 * size) if on
+                                                       else slice(0, shape[d])), (c, shape)
+        finally:
+            tctx.tp_group = inner
         for c, spec in got.items():
             _eq(spec, _spec(want[c]))
     assert tctx.pinned_spec((4, 4), {0: "dp"}) is None       # no env
