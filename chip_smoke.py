@@ -308,10 +308,18 @@ caught and passed over):
              experts per rank with every q8_matmul launch (at its column or
              row slice, the batched ones over 32 experts) held to its plain
              version, the Q8_0 combine's all-gathers, logits within
-             GEN_LOGIT_TOL of world 1's on that routing.  Logged per rank:
-             peak GB and parameter bytes against world 1, step times, the
-             collectives per step and their ms (gloo through host memory on
-             one card: nothing of NVLink).
+             GEN_LOGIT_TOL of world 1's on that routing.  Then the
+             per-layer gathers (ZeRO-3) on a second mesh, data 2 x model 1:
+             the same granite-8b case at one row per rank, 2 steps against
+             world 1 by the same limits (the first step's gradient by
+             ``_hold_grads``), at most one layer gathered whole at a time,
+             11 gathers and 6 reduce-scatters a step, 8 flash_attention
+             launches a step at (1, 32, 512, 512, 128), and a control whose
+             gradient is cut but not summed over data that must miss them.
+             Logged per rank: peak GB and parameter bytes against world 1
+             (and the gathered bytes' high-water mark), step times, the
+             collectives per step and their MB and ms (gloo through host
+             memory on one card: nothing of NVLink).
 
 Progress goes to stderr.  Standard output gets three lines at the end of
 a run that passed: the card's name and power limit as ``nvidia-smi``
@@ -5358,9 +5366,21 @@ def phase_full_dist(card: str) -> dict[str, int]:
 # limits.  (b) deepseek-moe-16b at full width cut to DIST_MOE_CUT layers,
 # q8_0, "ep": a forward on each rank's slices (32 of 64 experts) with
 # every q8_matmul launch held to its plain version, the logits held to the
-# world-1 forward on that forward's routing.
+# world-1 forward on that forward's routing.  (c) The per-layer gathers
+# (ZeRO-3) on a second mesh, data 2 x model 1: the same granite-8b cut and
+# options, one row of DIST_BATCH per rank, each period's slices gathered
+# over data before its forward and its recomputation, each gradient
+# reduce-scattered to its owner (gloo through host memory): DP_STEPS
+# steps held to world 1's by the limits of (a), and a control whose
+# gradient is cut but not summed over data, which must miss them.  Per
+# rank: the gathered bytes' high-water mark beside the slices (the
+# reckoning: DP_SLICES_GB of slices plus at most one layer's
+# DP_LAYER_GB, or the head's or embedding's DP_EMBED_GB, against the
+# DP_WHOLE_GB that each rank held whole before), the gathers and
+# reduce-scatters per step with their MB and ms, and the flash_attention
+# launches per step (DIST_CUT forwards and DIST_CUT recomputations).
 #
-# Limits of (a).  The two runs differ in the order of f32 sums (the
+# Limits of (a) and (c).  The two runs differ in the order of f32 sums (the
 # row-parallel partial products, the ranks' gradient contributions, the
 # vocab-parallel softmax, the norm): a bf16 value rounds the other way
 # here and there, and that spreads.  So the first step's gradient is held
@@ -5380,16 +5400,32 @@ def phase_full_dist(card: str) -> dict[str, int]:
 # values by up to 127 of its steps: the moments here are small enough
 # that their scales are f16 subnormals).
 TP_RANKS, TP_STEPS, TP_TIMEOUT = 2, 3, 300
+DP_STEPS = 2                # (c): a step takes 12-16 s of gloo through host memory
 TP_GRAD_NORM_RTOL = 1e-2
 TP_PARAM_SHARE = 1e-2
 TP_MOMENT_CODES = 2
 ADAM_CLIP = 10.0            # adamw's clip of the per-element update
+# (c)'s reckoning in bf16 bytes: one granite-8b layer's gathered weights
+# (4096 x 4096 twice, 1024 x 4096 twice, 14336 x 4096 three times; its
+# norms are not cut), the embedding or the head (49152 x 4096), the
+# DIST_CUT-layer model whole, and its slices at data 2.
+DP_LAYER_BYTES = 2 * (2 * 4096 * 4096 + 2 * 1024 * 4096 + 3 * 14336 * 4096)
+DP_EMBED_BYTES = 2 * 49152 * 4096
+DP_LAYER_GB, DP_EMBED_GB = DP_LAYER_BYTES / 1e9, DP_EMBED_BYTES / 1e9
+DP_WHOLE_GB = DIST_CUT * DP_LAYER_GB + 2 * DP_EMBED_GB
+DP_SLICES_GB = DP_WHOLE_GB / 2
 
 
 def _tp_mesh():
     import numpy as np
     from repro_torch.launch.mesh import Mesh
     return Mesh(np.arange(TP_RANKS).reshape(1, TP_RANKS), ("data", "model"))
+
+
+def _dp_mesh():
+    import numpy as np
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(np.arange(TP_RANKS).reshape(TP_RANKS, 1), ("data", "model"))
 
 
 class _Collectives:
@@ -5517,12 +5553,13 @@ def _tp_hold_state(n: int, lr: float, rel: list, got: tuple, want: tuple) -> dic
             "moment_rel": m_rel}
 
 
-def _tp_world1(cfg, tc, batches, tp_mesh) -> tuple[list, float, int]:
+def _tp_world1(cfg, tc, batches, meshes, steps) -> tuple[list, float, int]:
     """full_dist's world-1 sharded step (a one-rank mesh: no collective)
-    from the seeded parameters, run by each rank: [(metrics, host copies of
-    this rank's ``tp_mesh`` slices of the parameter and moment leaves)]
-    after each step, its peak GB over the steps (the state held, its
-    initialisation not counted) and its parameter bytes."""
+    from the seeded parameters, run by each rank: [(metrics, [host copies
+    of this rank's slices of the parameter and moment leaves under each of
+    ``meshes``, for the first ``steps`` of each, else None])] after each
+    step, its peak GB over the steps (the state
+    held, its initialisation not counted) and its parameter bytes."""
     from repro_torch.core.tree import tree_leaves
     from repro_torch.distributed import ctx, sharding
     from repro_torch.launch.mesh import make_smoke_mesh
@@ -5533,9 +5570,10 @@ def _tp_world1(cfg, tc, batches, tp_mesh) -> tuple[list, float, int]:
     mesh = make_smoke_mesh()
     p, o, c = init_train_state(torch.Generator(device="cuda").manual_seed(SEED + 5), cfg, tc,
                                init_lm)
-    with ctx.axis_env(tp_mesh):
-        specs = [sharding.param_specs(t, tp_mesh) for t in (p, o.m, o.v)]
-    coords = tp_mesh.own_coords()
+    cuts = []
+    for m in meshes:
+        with ctx.axis_env(m):
+            cuts.append(([sharding.param_specs(t, m) for t in (p, o.m, o.v)], m.own_coords()))
     out, peak = [], 0.0
     with ctx.axis_env(mesh):
         step = make_train_step(cfg, tc, device="cuda", mesh=mesh)
@@ -5545,12 +5583,17 @@ def _tp_world1(cfg, tc, batches, tp_mesh) -> tuple[list, float, int]:
             torch.cuda.reset_peak_memory_stats()
             p, o, c, m = step(p, o, c, b)
             peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
-            cut = [sharding.shard_tree(t, sp, tp_mesh, coords)
-                   for t, sp in zip((p, o.m, o.v), specs)]
-            out.append(({k: v.item() for k, v in m.items()},
-                        ([t.cpu() for t in tree_leaves(cut[0])],
-                         [_to(t, "cpu") for t in _q8_leaves(cut[1]) + _q8_leaves(cut[2])])))
-            del cut
+            states = []
+            for (specs, coords), mm, n in zip(cuts, meshes, steps):
+                if len(out) >= n:
+                    states.append(None)
+                    continue
+                cut = [sharding.shard_tree(t, sp, mm, coords)
+                       for t, sp in zip((p, o.m, o.v), specs)]
+                states.append(([t.cpu() for t in tree_leaves(cut[0])],
+                               [_to(t, "cpu") for t in _q8_leaves(cut[1]) + _q8_leaves(cut[2])]))
+                del cut
+            out.append(({k: v.item() for k, v in m.items()}, states))
     pbytes = sum(t.numel() * t.element_size() for t in _tp_state(p, o)[0])
     del p, o, c, step
     gc.collect()
@@ -5558,39 +5601,52 @@ def _tp_world1(cfg, tc, batches, tp_mesh) -> tuple[list, float, int]:
     return out, peak, pbytes
 
 
-def _tp_grads(rank: int, cfg, batch: dict, mesh) -> list:
-    """The first step's gradient (remat "block") on this rank's ``model``
-    slices, held to the same slices of world 1's by ``_hold_grads`` (its
-    f32 witness: the all-plain path on f32 weights) -> each leaf's
-    distance between the two."""
-    from repro_torch.configs import TrainConfig
+def _mesh_grads(rank: int, cfg, tc, batch: dict, tp_mesh, dp_mesh) -> tuple[list, tuple]:
+    """World 1's first gradient (remat "block") on the seeded weights.
+    (a)'s gradient on this rank's ``model`` slices (tensor-parallel
+    compute) is held to the same slices of it by ``_hold_grads`` (its f32
+    witness: the all-plain path on f32 weights, computed once and kept on
+    the host).  -> (a)'s distance per leaf, and for (c) host copies of
+    world 1's gradient cut to this rank's ``data`` slices with a function
+    that gives the witness's, which (c)'s first step is held to."""
+    from repro_torch.core.tree import tree_map
     from repro_torch.distributed import ctx, sharding
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.models.transformer import init_lm
     from repro_torch.train.train_step import make_loss_fn, value_and_grad
-    fn = value_and_grad(make_loss_fn(cfg, TrainConfig(remat="block")))
+    fn = value_and_grad(make_loss_fn(cfg, tc))
     params = init_lm(torch.Generator(device="cuda").manual_seed(SEED + 5), cfg)
-    coords = mesh.own_coords()
+    host = tree_map(lambda t: t.cpu(), params)
     with ctx.axis_env(make_smoke_mesh()):
         want = fn(params, batch)[1]
-    with ctx.axis_env(mesh, tp_compute=True):
-        specs = sharding.param_specs(params, mesh)
-        local = sharding.shard_tree(params, specs, mesh, coords, axes=("model",))
+    wide = []
+
+    def witness(specs, mesh):
+        if not wide:
+            with ctx.axis_env(make_smoke_mesh()), _PlainOps():
+                whole = fn(_f32_params(tree_map(lambda t: t.cuda(), host)), batch)[1]
+            wide.append(tree_map(lambda t: t.cpu(), whole))
+            del whole
+        return sharding.shard_tree(wide[0], specs, mesh, mesh.own_coords())
+    coords = tp_mesh.own_coords()
+    with ctx.axis_env(tp_mesh, tp_compute=True):
+        specs = sharding.over(sharding.param_specs(params, tp_mesh), ("model",))
+        local = sharding.shard_tree(params, specs, tp_mesh, coords)
         got = fn(local, batch)[1]
     del local
-    want = sharding.shard_tree(want, specs, mesh, coords, axes=("model",))
-
-    def witness():
-        with ctx.axis_env(make_smoke_mesh()), _PlainOps():
-            whole = fn(_f32_params(params), batch)[1]
-        return sharding.shard_tree(whole, specs, mesh, coords, axes=("model",))
+    cut = sharding.shard_tree(want, specs, tp_mesh, coords)
     _hold_grads(f"full_tp rank {rank}: granite-8b {DIST_CUT} layers, its model slices "
-                "against world 1's", got, want, witness)
-    rel = _leaf_rel(got, want)
-    del params, got, want
+                "against world 1's", got, cut, lambda: witness(specs, tp_mesh))
+    rel = _leaf_rel(got, cut)
+    del got, cut
+    with ctx.axis_env(dp_mesh):
+        dp_specs = sharding.param_specs(params, dp_mesh)
+    dp_want = tree_map(lambda t: t.cpu(), sharding.shard_tree(want, dp_specs, dp_mesh,
+                                                              dp_mesh.own_coords()))
+    del params, want
     gc.collect()
     torch.cuda.empty_cache()
-    return rel
+    return rel, (dp_want, lambda: witness(dp_specs, dp_mesh))
 
 
 def _no_reduce(lin, x):
@@ -5600,7 +5656,8 @@ def _no_reduce(lin, x):
 
 
 def _tp_granite(rank: int) -> dict:
-    """(a) on this rank; rank 0 also runs world 1 and compares."""
+    """(a) and (c) on this rank, each held to world 1's run, which every
+    rank runs first."""
     import torch.distributed as dist
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.distributed import ctx, tp
@@ -5613,16 +5670,16 @@ def _tp_granite(rank: int) -> dict:
     batches = [_train_batch(cfg, DIST_BATCH, TRAIN_SEQ, SEED + 71 + i)
                for i in range(TP_STEPS)]
     res = {"launches": {}}
-    mesh = _tp_mesh()
-    world1 = _tp_world1(cfg, tc, batches, mesh)
-    rel = _tp_grads(rank, cfg, batches[0], mesh)
+    mesh, dp_mesh = _tp_mesh(), _dp_mesh()
+    world1 = _tp_world1(cfg, tc, batches, (mesh, dp_mesh), (TP_STEPS, DP_STEPS))
+    rel, dp_first = _mesh_grads(rank, cfg, tc, batches[0], mesh, dp_mesh)
 
-    def start():
+    def start(on):
         gc.collect()
         torch.cuda.empty_cache()
         p, o, c = init_train_state(torch.Generator(device="cuda").manual_seed(SEED + 5), cfg,
                                    tc, init_lm)
-        step = make_train_step(cfg, tc, device="cuda", mesh=mesh)
+        step = make_train_step(cfg, tc, device="cuda", mesh=on)
         p, o = step.shard(p, o)
         c = step.shard_residual(c)
         gc.collect()
@@ -5631,7 +5688,7 @@ def _tp_granite(rank: int) -> dict:
 
     want_launch = {"flash_attention": 2 * DIST_CUT}
     with ctx.axis_env(mesh):
-        step, p, o, c = start()
+        step, p, o, c = start(mesh)
         res["param_bytes"] = sum(t.numel() * t.element_size() for t in _tp_state(p, o)[0])
         peaks, times, metrics, held, calls = [], [], [], [], []
         for n, b in enumerate(batches, 1):
@@ -5655,8 +5712,8 @@ def _tp_granite(rank: int) -> dict:
             calls.append(dict(coll.calls))
             peaks.append(torch.cuda.max_memory_allocated() / 1e9)
             metrics.append({k: v.item() for k, v in m.items()})
-            wm, state = world1[0][n - 1]
-            held.append(dict(_tp_hold_state(n, tc.lr, rel, _tp_state(p, o), state),
+            wm, states = world1[0][n - 1]
+            held.append(dict(_tp_hold_state(n, tc.lr, rel, _tp_state(p, o), states[0]),
                              loss=abs(metrics[-1]["loss"] - wm["loss"]) / abs(wm["loss"]),
                              grad_norm=abs(metrics[-1]["grad_norm"] - wm["grad_norm"])
                              / abs(wm["grad_norm"])))
@@ -5671,7 +5728,7 @@ def _tp_granite(rank: int) -> dict:
         res.update(peaks=peaks, times=times, metrics=metrics, calls=calls,
                    attention=sorted(map(str, shapes.seen)))
         # The control: wo / down without their reduction, one step.
-        step, p, o, c = start()
+        step, p, o, c = start(mesh)
         inner, tp.row_parallel = tp.row_parallel, _no_reduce
         try:
             _, _, _, m = step(p, o, c, batches[0])
@@ -5679,9 +5736,104 @@ def _tp_granite(rank: int) -> dict:
             tp.row_parallel = inner
         res["control"] = {k: v.item() for k, v in m.items()}
         del step, p, o, c
+    res["dp"] = _dp_granite(rank, cfg, tc, batches, world1, dp_first, start)
+    res["launches"]["flash_attention"] += res["dp"]["launches"]
     res.update(world1_metrics=[w[0] for w in world1[0]], world1_peak=world1[1],
                world1_param_bytes=world1[2], held=held)
     return res
+
+
+def _dp_granite(rank: int, cfg, tc, batches, world1, first, start) -> dict:
+    """(c) on this rank: DP_STEPS steps on the data mesh held to world 1's
+    (``world1``, its data slices; ``first``, world 1's first gradient on
+    this rank's slices and its f32 witness, which the first step's
+    gradient is held to), the per-layer gathers' counts, bytes and times
+    and their high-water mark, then the control (the gradient cut, not
+    summed)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import ctx, tp
+    from repro_torch.kernels import ops
+    mesh = _dp_mesh()
+    want_launch = {"flash_attention": 2 * DIST_CUT}
+    res = {"launches": 0, "peaks": [], "times": [], "metrics": [], "held": [], "stats": [],
+           "attention": set(), "seconds": {}}
+    t_case = time.perf_counter()
+    with ctx.axis_env(mesh):
+        step, p, o, c = start(mesh)
+        res["seconds"]["start"] = time.perf_counter() - t_case
+        res["param_bytes"] = sum(t.numel() * t.element_size() for t in _tp_state(p, o)[0])
+        grads, inner = [], step._grads
+
+        def record(params, batch):
+            metrics, g = inner(params, batch)
+            grads.append(g)
+            return metrics, g
+        for n, b in enumerate(batches[:DP_STEPS], 1):
+            if n == 1:
+                step._grads = record       # the first step's gradient, as it is reduced
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _AttnShapes() as shapes:
+                p, o, c, m = step(p, o, c, b)
+                torch.cuda.synchronize()
+            res["times"].append(1e3 * (time.perf_counter() - t0))
+            res["peaks"].append(torch.cuda.max_memory_allocated() / 1e9)
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            if counts != want_launch:
+                raise AssertionError(f"full_tp data-2 granite step {n}: launches {counts}, "
+                                     f"expected {want_launch}")
+            if n == 1:
+                del step._grads
+                want, witness = first
+                _hold_grads(f"full_tp rank {rank}: granite-8b {DIST_CUT} layers, its data "
+                            "slices (per-layer gathers and reduce-scatters) against world 1's",
+                            grads[0], want, witness)
+                rel = _leaf_rel(grads[0], want)
+                del grads[:], want, witness
+            res["launches"] += counts["flash_attention"]
+            res["attention"] |= shapes.seen
+            res["stats"].append(dataclasses.asdict(step.stats))
+            res["metrics"].append({k: v.item() for k, v in m.items()})
+            wm, states = world1[0][n - 1]
+            res["held"].append(dict(
+                _tp_hold_state(n, tc.lr, rel, _tp_state(p, o), states[1]),
+                loss=abs(res["metrics"][-1]["loss"] - wm["loss"]) / abs(wm["loss"]),
+                grad_norm=abs(res["metrics"][-1]["grad_norm"] - wm["grad_norm"])
+                / abs(wm["grad_norm"])))
+        del step, p, o, c
+        if res["attention"] != {(32, 8, (DIST_BATCH // TP_RANKS, 32, TRAIN_SEQ, cfg.hd),
+                                 TRAIN_SEQ)}:
+            raise AssertionError(f"full_tp data-2 granite: attention calls {res['attention']}")
+        res["seconds"]["steps"] = time.perf_counter() - t_case - res["seconds"]["start"]
+        # The control: each gradient cut to this rank's slice, not summed.
+        t_control = time.perf_counter()
+        step, p, o, c = start(mesh)
+        inner_rs, tp.reduce_scatter = tp.reduce_scatter, _cut_only
+        try:
+            p, o, c, m = step(p, o, c, batches[0])
+        finally:
+            tp.reduce_scatter = inner_rs
+        wm, states = world1[0][0]
+        m = {k: v.item() for k, v in m.items()}
+        res["control"] = dict(_tp_hold_state(1, tc.lr, rel, _tp_state(p, o), states[1]),
+                              loss=abs(m["loss"] - wm["loss"]) / abs(wm["loss"]),
+                              grad_norm=abs(m["grad_norm"] - wm["grad_norm"])
+                              / abs(wm["grad_norm"]))
+        del step, p, o, c
+    res["seconds"]["control"] = time.perf_counter() - t_control
+    res["seconds"]["case"] = time.perf_counter() - t_case
+    res["attention"] = sorted(map(str, res["attention"]))
+    return res
+
+
+def _cut_only(x: torch.Tensor, g, dim: int) -> torch.Tensor:
+    """``tp.reduce_scatter`` without its sum (the control): this rank's
+    slice of its own ``x``."""
+    n = x.shape[dim] // g.size
+    return x.narrow(dim, g.rank * n, n).clone()
 
 
 def _tp_moe(rank: int) -> dict:
@@ -5706,8 +5858,9 @@ def _tp_moe(rank: int) -> dict:
         want, _ = lm_forward(params, cfg, toks)
     mesh = _tp_mesh()
     with ctx.axis_env(mesh, moe_mode="ep", tp_compute=True):
-        local = sharding.shard_tree(params, sharding.param_specs(params, mesh), mesh,
-                                    mesh.own_coords(), axes=("model",))
+        local = sharding.shard_tree(
+            params, sharding.over(sharding.param_specs(params, mesh), ("model",)), mesh,
+            mesh.own_coords())
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5768,6 +5921,25 @@ def tp_rank_main(rank: int, store: str, out: str) -> int:
     return 0
 
 
+def _tp_within(label: str, n: int, hs: list, got: dict | None, want: dict) -> bool:
+    """Log step ``n``'s holds over the ranks (``hs``) against world 1 and
+    say whether they meet (a)'s limits."""
+    h = {k: max(x[k] for x in hs) for k in ("loss", "grad_norm", "param_excess",
+                                             "moment_excess", "moment_rel")}
+    for k in ("param", "moment"):
+        h[f"{k}_share"] = (sum(x[f"{k}_differ"] for x in hs)
+                           / sum(x[f"{k}_total"] for x in hs))
+    loss = f"loss {got['loss']:.6f} vs world 1 {want['loss']:.6f} " if got else ""
+    log(f"[full_tp] {label}: {loss}({h['loss']:.3e}, limit {TRAIN_LOSS_RTOL}), grad_norm "
+        f"{h['grad_norm']:.3e} (limit {TP_GRAD_NORM_RTOL}); parameters: "
+        f"{h['param_share']:.3e} of elements differ (limit {n * TP_PARAM_SHARE}), worst "
+        f"excess {h['param_excess']:.3e}; moments: {h['moment_share']:.3e} differ, up to "
+        f"{h['moment_rel']:.3e} of a leaf's largest, worst excess {h['moment_excess']:.3e}")
+    return (h["loss"] <= TRAIN_LOSS_RTOL and h["grad_norm"] <= TP_GRAD_NORM_RTOL
+            and h["param_share"] <= n * TP_PARAM_SHARE and h["param_excess"] <= 0
+            and h["moment_excess"] <= 0)
+
+
 def phase_full_tp(card: str) -> dict[str, int]:
     """Spawn full_tp's ranks, wait for them (a failing rank stops the
     others and fails the phase), check and log what they measured."""
@@ -5804,24 +5976,15 @@ def phase_full_tp(card: str) -> dict[str, int]:
             raise AssertionError(f"full_tp: rank exit codes {rcs}")
         ranks = [json.loads(Path(d, f"rank{r}.json").read_text()) for r in range(TP_RANKS)]
     a0 = ranks[0]["granite"]
-    missed = []
-    for n, hs in enumerate(zip(*(r["granite"]["held"] for r in ranks)), 1):
-        h = {k: max(x[k] for x in hs) for k in ("loss", "grad_norm", "param_excess",
-                                                 "moment_excess", "moment_rel")}
-        for k in ("param", "moment"):
-            h[f"{k}_share"] = (sum(x[f"{k}_differ"] for x in hs)
-                               / sum(x[f"{k}_total"] for x in hs))
-        log(f"[full_tp] granite-8b step {n}: loss {a0['metrics'][n - 1]['loss']:.6f} vs world 1 "
-            f"{a0['world1_metrics'][n - 1]['loss']:.6f} ({h['loss']:.3e}, limit "
-            f"{TRAIN_LOSS_RTOL}), grad_norm {h['grad_norm']:.3e} (limit {TP_GRAD_NORM_RTOL}); "
-            f"parameters: {h['param_share']:.3e} of elements differ (limit "
-            f"{n * TP_PARAM_SHARE}), worst excess {h['param_excess']:.3e}; moments: "
-            f"{h['moment_share']:.3e} differ, up to {h['moment_rel']:.3e} of a leaf's largest, "
-            f"worst excess {h['moment_excess']:.3e}")
-        if not (h["loss"] <= TRAIN_LOSS_RTOL and h["grad_norm"] <= TP_GRAD_NORM_RTOL
-                and h["param_share"] <= n * TP_PARAM_SHARE and h["param_excess"] <= 0
-                and h["moment_excess"] <= 0):
-            missed.append(n)
+    missed = [n for n, hs in enumerate(zip(*(r["granite"]["held"] for r in ranks)), 1)
+              if not _tp_within(f"granite-8b step {n}", n, hs, a0["metrics"][n - 1],
+                                a0["world1_metrics"][n - 1])]
+    dp_missed = [n for n, hs in enumerate(zip(*(r["granite"]["dp"]["held"] for r in ranks)), 1)
+                 if not _tp_within(f"data 2: granite-8b step {n}", n, hs,
+                                   a0["dp"]["metrics"][n - 1], a0["world1_metrics"][n - 1])]
+    dp_control = _tp_within("data 2 control (gradient cut, not summed over data): step 1", 1,
+                            [r["granite"]["dp"]["control"] for r in ranks],
+                            None, a0["world1_metrics"][0])
     w1 = a0["world1_metrics"][0]
     ctl = a0["control"]
     rel = {k: abs(ctl[k] - w1[k]) / abs(w1[k]) for k in ("loss", "grad_norm")}
@@ -5842,9 +6005,43 @@ def phase_full_tp(card: str) -> dict[str, int]:
             f"{b['aux']:.6f}, local experts {b['experts']}, dense q8_matmul (M, N, K) "
             f"{b['dense_shapes']}, batched {b['expert_shapes']}, collectives "
             f"{b['collectives']} ({b['wire_bytes'] / 1e6:.2f} MB), peak {b['peak']:.2f} GB")
+    for r, res in enumerate(ranks):
+        d = res["granite"]["dp"]
+        st = d["stats"][-1]
+        high = (d["param_bytes"] + st["peak"]) / 1e9
+        log(f"[full_tp] rank {r}: data 2, granite-8b {DIST_CUT} layers, "
+            f"{DIST_BATCH // TP_RANKS} x {TRAIN_SEQ} per rank: steps "
+            f"{[round(t, 1) for t in d['times']]} ms synchronised, peak "
+            f"{max(d['peaks'][1:]):.2f} GB in the steps after the first ({d['peaks'][0]:.2f} in "
+            f"step 1, which keeps its gradient for the check; world 1: "
+            f"{a0['world1_peak']:.2f} GB); parameter "
+            f"slices {d['param_bytes'] / 1e9:.3f} GB + gathered whole at the high-water "
+            f"mark {st['peak'] / 1e9:.3f} GB = {high:.3f} GB (reckoning {DP_SLICES_GB:.3f} + "
+            f"at most {DP_LAYER_GB:.3f} = {DP_SLICES_GB + DP_LAYER_GB:.3f} GB; whole before: "
+            f"{DP_WHOLE_GB:.3f} GB); per step {st['gathers']} gathers "
+            f"({st['gather_bytes'] / 1e6:.1f} MB, {st['gather_ms']:.1f} ms) and "
+            f"{st['scatters']} reduce-scatters ({st['scatter_bytes'] / 1e6:.1f} MB f32, "
+            f"{st['scatter_ms']:.1f} ms), gloo through host memory on one card (nothing of "
+            f"NVLink); flash_attention {d['launches'] // DP_STEPS} launches per step at "
+            f"{d['attention']}; the case {d['seconds']['case']:.1f} s (first start "
+            f"{d['seconds']['start']:.1f}, steps and their checks {d['seconds']['steps']:.1f}, "
+            f"control {d['seconds']['control']:.1f}); {card}")
+        if st["peak"] > DP_LAYER_BYTES or st["gathers"] != 2 * DIST_CUT + 3 \
+                or st["scatters"] != DIST_CUT + 2:
+            raise AssertionError(f"full_tp data 2 rank {r}: gathered high-water "
+                                 f"{st['peak']} B, {st['gathers']} gathers and "
+                                 f"{st['scatters']} reduce-scatters per step; expected at most "
+                                 f"one layer ({DP_LAYER_BYTES} B), {2 * DIST_CUT + 3} and "
+                                 f"{DIST_CUT + 2}")
     if missed:
         raise AssertionError(f"full_tp: steps {missed} of the tensor-parallel granite-8b run "
                              f"miss the world-1 limits")
+    if dp_missed:
+        raise AssertionError(f"full_tp: steps {dp_missed} of the data-2 granite-8b run miss "
+                             f"the world-1 limits")
+    if dp_control:
+        raise AssertionError("full_tp: the data-2 control (gradient not summed over data) "
+                             "meets the limits")
     if rel["loss"] <= TRAIN_LOSS_RTOL and rel["grad_norm"] <= TP_GRAD_NORM_RTOL:
         raise AssertionError(f"full_tp: the control meets the limits: {rel}")
     totals = {name: 0 for name in ops.KERNEL_MODULES}

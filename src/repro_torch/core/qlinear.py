@@ -77,8 +77,62 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x2 = x.reshape(-1, x.shape[-1]).to(w.dtype)
         y = torch.mm(x2, w.t(), out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[0]).to(x.dtype)
-    y = torch.matmul(x.to(w.dtype).float(), w.float().t())
-    return y.to(x.dtype)
+    return f32_product(x, w).to(x.dtype)
+
+
+def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x.to(w.dtype)`` times ``w`` transposed, both cast to f32, in f32:
+    w (N, K) against x (..., K), or an expert stack (E, N, K) against x
+    (E, R, K).  Where autograd takes ``w``'s gradient it goes through
+    :class:`_F32Product`, which keeps ``w`` itself for the backward and
+    not its f32 copy."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _F32Product.apply(x, w)
+    xf, wf = x.to(w.dtype).float(), w.float()
+    if w.dim() == 3:
+        return torch.bmm(xf, wf.transpose(1, 2))
+    return torch.matmul(xf, wf.t())
+
+
+class _F32Product(torch.autograd.Function):
+    """:func:`f32_product` saving ``x`` and ``w`` as they are and casting
+    them again in the backward: autograd through the casts would keep
+    ``w``'s f32 copy alive until the backward (in the sharded train step
+    a gathered weight, twice its bytes, where the step's saved-tensor
+    hooks see only the gathered storage).  Forward and gradients are the
+    ops autograd runs: x folded to 2-D and one mm, as ``torch.matmul``
+    folds when the weight requires grad (bmm for an expert stack), mm's
+    and bmm's backward formulas, then each cast's."""
+
+    @staticmethod
+    def forward(fctx, x, w):
+        fctx.save_for_backward(x, w)
+        xf, wf = x.to(w.dtype).float(), w.float()
+        if w.dim() == 3:
+            return torch.bmm(xf, wf.transpose(1, 2))
+        return xf.reshape(-1, xf.shape[-1]).mm(wf.t()).reshape(*xf.shape[:-1], wf.shape[0])
+
+    @staticmethod
+    def backward(fctx, gy):
+        x, w = fctx.saved_tensors
+        xf, wf = x.to(w.dtype).float(), w.float()
+        gx = gw = None
+        if w.dim() == 3:
+            if fctx.needs_input_grad[0]:
+                gx = gy.bmm(wf)
+            if fctx.needs_input_grad[1]:
+                gw = xf.transpose(1, 2).bmm(gy).transpose(1, 2)
+        else:
+            g2 = gy.reshape(-1, gy.shape[-1])
+            if fctx.needs_input_grad[0]:
+                gx = g2.mm(wf).reshape(xf.shape)
+            if fctx.needs_input_grad[1]:
+                gw = g2.t().mm(xf.reshape(-1, xf.shape[-1]))
+        if gx is not None:
+            gx = gx.to(w.dtype).to(x.dtype)
+        if gw is not None:
+            gw = gw.to(w.dtype)
+        return gx, gw
 
 
 def apply_linear(p: Linear, x: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,10 @@ tokens of the global batch), and ``tp_compute``, whether the layers
 compute on their ``model`` slices (:func:`tp_group`).  The sharded train
 step turns it on for the dense, VLM and MoE families.  Without it (and
 without an env) every cut point is the whole dim, and everything here is
-a no-op.
+a no-op.  The step also sets ``fsdp``, its ``distributed.fsdp.Gathers``:
+the slices that the model gathers at each use, their specs and the
+gradient accumulator, keyed by leaf (None: the model's parameters are
+whole).
 
 Not ported: ``heads_q``'s query-position split (whisper's 20 heads on a
 16-way axis) and the cache cut points, which serving under a mesh
@@ -47,20 +50,22 @@ _ENV = contextvars.ContextVar("repro_torch_axis_env", default=None)
 class AxisEnv:
     def __init__(self, mesh: Mesh, dp: Sequence[str] = ("data",),
                  tp: str = "model", moe_mode: str = "ep",
-                 batch_axes: Sequence[str] = (), tp_compute: bool = False):
+                 batch_axes: Sequence[str] = (), tp_compute: bool = False,
+                 fsdp=None):
         self.mesh = mesh
         self.dp = tuple(a for a in dp if a in mesh.shape)
         self.tp = tp if tp in mesh.shape else None
         self.moe_mode = moe_mode  # "ep": experts on tp | "dp": FSDP
         self.batch_axes = tuple(a for a in batch_axes if mesh.shape[a] > 1)
         self.tp_compute = tp_compute
+        self.fsdp = fsdp          # a distributed.fsdp.Gathers, or None
 
 
 @contextlib.contextmanager
 def axis_env(mesh: Mesh, dp: Sequence[str] = ("pod", "data"),
              tp: str = "model", moe_mode: str = "ep",
-             batch_axes: Sequence[str] = (), tp_compute: bool = False):
-    env = AxisEnv(mesh, dp, tp, moe_mode, batch_axes, tp_compute)
+             batch_axes: Sequence[str] = (), tp_compute: bool = False, fsdp=None):
+    env = AxisEnv(mesh, dp, tp, moe_mode, batch_axes, tp_compute, fsdp)
     token = _ENV.set(env)
     try:
         yield env
@@ -73,7 +78,9 @@ def entered(env: AxisEnv | None):
     """``env`` (None: no env) active for the block, for code that runs
     again where the caller's context is not seen: a checkpointed period
     recomputed in the backward pass runs on autograd's device thread, and
-    a context variable does not reach another thread."""
+    a context variable does not reach another thread.  The env carries
+    the step's ``fsdp`` gathers there too, so the recomputation gathers
+    its period again."""
     token = _ENV.set(env)
     try:
         yield env

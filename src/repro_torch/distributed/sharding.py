@@ -25,10 +25,11 @@ the ranks' slices, for tensors and for ``Q8_0Tensor`` / ``Q4_0Tensor`` /
 ``Q3KTensor`` leaves (each array by its own spec).  A dim sharded over
 several axes is split major to minor in the order the spec names them.
 :func:`over` keeps a spec's entries on a subset of the axes, so that a
-tree can be gathered or cut over those axes only (``gather_tree`` and
-``shard_tree`` take ``axes=``): the sharded train step gathers over
-``pod`` / ``data`` and keeps the ``model`` slices for tensor-parallel
-compute.
+tree can be gathered or cut over those axes only: the sharded train step
+gathers over ``pod`` / ``data`` and keeps the ``model`` slices for
+tensor-parallel compute.  :func:`_scatter_arrays` is the way back of
+:func:`_gather_arrays`: whole arrays (each rank's gradients) summed in
+f32 over the axes that split the batch, each rank left its slice.
 """
 from __future__ import annotations
 
@@ -355,10 +356,13 @@ def batch_specs(tree: Any, mesh) -> Any:
 # ------------------------------------------------- rank slices and gathers
 
 def over(spec, axes) -> Any:
-    """``spec`` (a ``P`` or a quantized tensor's spec tree) with only its
-    entries on ``axes``: the cut that sharding over those axes alone
-    makes.  A dim sharded over an axis of ``axes`` minor to one outside
-    them is refused (its slices over ``axes`` alone are not contiguous)."""
+    """``spec`` (a ``P``, a quantized tensor's spec tree, or a tree of
+    them) with only its entries on ``axes``: the cut that sharding over
+    those axes alone makes.  A dim sharded over an axis of ``axes`` minor
+    to one outside them is refused (its slices over ``axes`` alone are not
+    contiguous)."""
+    if not _is_spec_leaf(spec):
+        return tree_map(lambda s: over(s, axes), spec, is_leaf=_is_spec_leaf)
     if isinstance(spec, QTYPES):
         return dataclasses.replace(spec, **{f: over(getattr(spec, f), axes)
                                             for f in _arrays(spec)})
@@ -444,6 +448,96 @@ def _gather_arrays(arrays: list[torch.Tensor], specs: list[P], mesh) -> list[tor
     return [a.contiguous() for a in out]
 
 
+def _scatter_packed(xs: list[torch.Tensor], axis: str, mesh) -> list[torch.Tensor]:
+    """Sum each of ``xs`` over ``axis`` in f32 and keep this rank's slice
+    of its dim 0, in one collective: the arrays are packed as the rows of
+    one (n, total) f32 buffer, row c the slices that go to coordinate c
+    (``tp.reduce_scatter``'s transport: through host memory for CUDA
+    tensors on a gloo group)."""
+    from repro_torch.distributed import tp
+    g = mesh.axis_group(axis)
+    n = g.size
+    runs = [x.numel() // n for x in xs]
+    buf = torch.empty((n, sum(runs)), dtype=torch.float32, device=xs[0].device)
+    at = 0
+    for x, run in zip(xs, runs):
+        if x.shape[0] % n:
+            raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over {axis}")
+        rows = (n, x.shape[0] // n, *x.shape[1:])
+        buf[:, at:at + run].unflatten(1, rows[1:]).copy_(x.unflatten(0, rows[:2]))
+        at += run
+    mine = tp.reduce_scatter(buf, g, 0)[0]
+    return [part.reshape(x.shape[0] // n, *x.shape[1:])
+            for part, x in zip(mine.split(runs), xs)]
+
+
+def _sum_packed(xs: list[torch.Tensor], axis: str, mesh) -> list[torch.Tensor]:
+    """Each of ``xs`` (f32) summed over ``axis``, in one all-reduce."""
+    import torch.distributed as dist
+    buf = torch.cat([x.float().reshape(-1) for x in xs])
+    dist.all_reduce(buf, group=mesh.group(axis))
+    return [part.reshape(x.shape) for part, x in zip(buf.split([x.numel() for x in xs]), xs)]
+
+
+def _back_steps(spec: P, mesh, batch_axes: tuple) -> list[tuple]:
+    """The steps that take an array of ``spec`` from whole to this rank's
+    slice, summed over ``batch_axes``: (kind, dim, axis), the gathers of
+    :func:`_steps` in reverse as a "scatter" (a reduce-scatter) over a
+    batch axis or a "cut" over another, then a "sum" (an all-reduce) over
+    each batch axis that does not cut the array."""
+    steps = list(reversed(_steps(spec, mesh)))
+    cut = {a for _, a in steps}
+    return ([("scatter" if a in batch_axes else "cut", dim, a) for dim, a in steps]
+            + [("sum", None, a) for a in batch_axes if a not in cut])
+
+
+def collectives(specs: list[P], mesh, batch_axes: tuple | None = None) -> int:
+    """The packed collectives that :func:`_gather_arrays` (``batch_axes``
+    None) or :func:`_scatter_arrays` issues for arrays of ``specs``: one
+    per (round, kind, axis)."""
+    if batch_axes is None:
+        return len({(k, a) for sp in specs for k, (_, a) in enumerate(_steps(sp, mesh))})
+    return len({(k, kind, a) for sp in specs
+                for k, (kind, _, a) in enumerate(_back_steps(sp, mesh, batch_axes))
+                if kind != "cut"})
+
+
+def _scatter_arrays(arrays: list[torch.Tensor], specs: list[P], mesh,
+                    batch_axes: tuple) -> list[torch.Tensor]:
+    """The way back of :func:`_gather_arrays`: whole arrays, one per rank
+    (each rank's own values), summed in f32 over ``batch_axes`` -> this
+    rank's slices under ``specs``.  Each array takes its gathers in
+    reverse (a dim's major axis first): over an axis that splits the batch
+    a reduce-scatter, over another a cut of the rank's own slice (the
+    batch is the same there: no sum); then an all-reduce over each axis of
+    ``batch_axes`` that does not cut it.  In round k each array takes its
+    k-th step, one packed collective per (round, kind, axis)."""
+    out = list(arrays)
+    coords = mesh.own_coords()
+    plans = [_back_steps(sp, mesh, batch_axes) for sp in specs]
+    for k in range(max((len(pl) for pl in plans), default=0)):
+        by_step: dict[tuple, list[int]] = {}
+        for i, pl in enumerate(plans):
+            if k >= len(pl):
+                continue
+            kind, dim, a = pl[k]
+            if kind == "cut":
+                size = out[i].shape[dim] // mesh.shape[a]
+                out[i] = out[i].narrow(dim, coords[a] * size, size)
+            else:
+                by_step.setdefault((kind, a), []).append(i)
+        for (kind, a), idx in by_step.items():
+            if kind == "sum":
+                for i, s in zip(idx, _sum_packed([out[i] for i in idx], a, mesh)):
+                    out[i] = s
+                continue
+            dims = [plans[i][k][1] for i in idx]
+            moved = [out[i].movedim(d, 0) for i, d in zip(idx, dims)]
+            for i, d, s in zip(idx, dims, _scatter_packed(moved, a, mesh)):
+                out[i] = s.movedim(0, d)
+    return [a.float().contiguous() for a in out]
+
+
 def _fields(x, spec) -> tuple[list, list]:
     """A leaf's arrays and their specs."""
     if isinstance(x, QTYPES):
@@ -489,22 +583,16 @@ def _replaced(tree: Any, leaves: list) -> Any:
     return tree_map(lambda _: next(it), tree, is_leaf=_is_qleaf)
 
 
-def shard_tree(tree: Any, specs: Any, mesh, coords: dict, axes=None) -> Any:
-    """:func:`local_shard` of every leaf of ``tree`` (over ``axes`` only:
-    ``over``)."""
+def shard_tree(tree: Any, specs: Any, mesh, coords: dict) -> Any:
+    """:func:`local_shard` of every leaf of ``tree``."""
     leaves, sl = _paired(tree, specs)
-    if axes is not None:
-        sl = [over(s, axes) for s in sl]
     return _replaced(tree, [local_shard(x, s, mesh, coords) for x, s in zip(leaves, sl)])
 
 
-def gather_tree(tree: Any, specs: Any, mesh, axes=None) -> Any:
-    """:func:`gather` of every leaf of ``tree`` (over ``axes`` only:
-    ``over``), the leaves' arrays packed into one collective per (round,
-    axis)."""
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """:func:`gather` of every leaf of ``tree``, the leaves' arrays packed
+    into one collective per (round, axis)."""
     leaves, sl = _paired(tree, specs)
-    if axes is not None:
-        sl = [over(s, axes) for s in sl]
     arrays, aspecs, counts = [], [], []
     for x, sp in zip(leaves, sl):
         a, s = _fields(x, sp)

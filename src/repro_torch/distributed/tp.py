@@ -24,15 +24,17 @@ GSPMD inserts there, placed by hand in the layers:
 Each takes the env's group (``ctx.tp_group()``); without one it is the
 identity.  Transport: NCCL groups take device tensors directly.  Per
 PyTorch's backend table gloo takes CUDA tensors only for ``broadcast``
-and ``all_reduce``, so for a gloo group :func:`all_gather` stages a CUDA
-tensor through host memory (copied to the CPU, gathered there, copied
+and ``all_reduce``, so for a gloo group :func:`all_gather` and
+:func:`reduce_scatter` (the per-layer gathers of the sharded train step
+and their way back, ``distributed.fsdp``) stage a CUDA tensor through
+pinned host memory (copied to the CPU, gathered or reduced there, copied
 back to its device); the compute stays on the card.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.qlinear import Linear, record_matmul
+from repro_torch.core.qlinear import Linear, f32_product, record_matmul
 from repro_torch.core.quant import QTYPES
 from repro_torch.distributed import ctx
 from repro_torch.kernels import ops
@@ -47,17 +49,61 @@ def all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
     return out
 
 
+def _staged(x: torch.Tensor, g: AxisGroup) -> bool:
+    """Whether a collective of ``x`` on ``g`` goes through host memory (a
+    CUDA tensor on a gloo group)."""
+    import torch.distributed as dist
+    return x.is_cuda and dist.get_backend(g.group) == "gloo"
+
+
+def _host(shape, dtype) -> torch.Tensor:
+    """An empty host buffer in pinned memory: a copy to or from the card
+    runs at the link's rate, about ten times the rate from pageable
+    memory (``tools/gloo_transport.py`` measures both), and torch's
+    caching host allocator keeps the buffer for the next call."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
 def all_gather(x: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in the order of their
     coordinates along the axis.  A CUDA tensor on a gloo group is staged
-    through host memory (gloo gathers only CPU tensors)."""
+    through pinned host memory (gloo gathers only CPU tensors): copied
+    out, gathered there, each part copied back to the card."""
     import torch.distributed as dist
-    staged = x.is_cuda and dist.get_backend(g.group) == "gloo"
-    src = (x.cpu() if staged else x).contiguous()
-    parts = [torch.empty_like(src) for _ in range(g.size)]
+    staged = _staged(x, g)
+    if staged:
+        src = _host(x.shape, x.dtype)
+        src.copy_(x)
+        parts = [_host(x.shape, x.dtype) for _ in range(g.size)]
+    else:
+        src = x.contiguous()
+        parts = [torch.empty_like(src) for _ in range(g.size)]
     dist.all_gather(parts, src, group=g.group)
-    out = torch.cat([parts[g.order.index(c)] for c in range(g.size)], dim)
-    return out.to(x.device) if staged else out
+    ordered = [parts[g.order.index(c)] for c in range(g.size)]
+    if staged:
+        ordered = [t.to(x.device, non_blocking=True) for t in ordered]
+    return torch.cat(ordered, dim)
+
+
+def reduce_scatter(x: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` summed over the group, and of the sum this
+    rank's slice along ``dim`` (``x.shape[dim] / g.size`` of it, the
+    slices in the order of the coordinates along the axis): the way back
+    of :func:`all_gather`.  A CUDA tensor on a gloo group is staged
+    through pinned host memory (gloo reduce-scatters only CPU tensors)."""
+    import torch.distributed as dist
+    if x.shape[dim] % g.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {g.size} ranks")
+    staged = _staged(x, g)
+    src = x
+    if staged:
+        src = _host(x.shape, x.dtype)
+        src.copy_(x)
+    chunks = src.chunk(g.size, dim)
+    parts = [chunks[c].contiguous() for c in g.order]
+    out = _host(parts[0].shape, x.dtype) if staged else torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=g.group)
+    return out.to(x.device, non_blocking=True) if staged else out
 
 
 class _Copy(torch.autograd.Function):
@@ -120,7 +166,8 @@ def row_parallel(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     slice of K that ``x`` (B, ..., K/tp) covers: this rank's partial
     product in f32 (a dense weight's f32 sums; a quantized weight's kernel
     output), summed over ``model`` by :func:`reduce` and rounded once to
-    ``x``'s dtype, then the bias."""
+    ``x``'s dtype, then the bias.  Its backward keeps the weight, not an
+    f32 copy of it (``qlinear.f32_product``)."""
     w = lin.w
     m = 1
     for d in x.shape[:-1]:
@@ -129,7 +176,7 @@ def row_parallel(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     if isinstance(w, QTYPES):
         y = ops.quantized_matmul(x, w, out_dtype=torch.float32)
     else:
-        y = torch.matmul(x.to(w.dtype).float(), w.float().t())
+        y = f32_product(x, w)
     y = reduce(y, x.dtype)
     if lin.b is not None:
         y = y + lin.b.to(y.dtype)

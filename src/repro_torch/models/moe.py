@@ -49,7 +49,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
-from repro_torch.core.qlinear import Linear, apply_linear
+from repro_torch.core.qlinear import Linear, apply_linear, f32_product
 from repro_torch.core.quant import Q3KTensor, Q8_0Tensor, QTYPES
 from repro_torch.distributed import ctx, tp
 from repro_torch.kernels import ops
@@ -158,8 +158,7 @@ def _expert_matmul(w: Linear, x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda and ww.dtype == torch.bfloat16:
         # cuBLAS: bf16 operands, f32 sums, one rounding to bf16.
         return torch.bmm(x.to(ww.dtype), ww.transpose(1, 2)).to(x.dtype)
-    y = torch.bmm(x.to(ww.dtype).float(), ww.float().transpose(1, 2))
-    return y.to(x.dtype)
+    return f32_product(x, ww).to(x.dtype)
 
 
 def route(p: dict, cfg: ModelConfig, x: torch.Tensor

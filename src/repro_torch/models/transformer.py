@@ -35,7 +35,11 @@ A vision-language config (qwen2-vl) rotates by M-RoPE on every path, and
 embeddings to the text.  For training, ``lm_forward(remat=...)``
 recomputes each period of layers in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
-does.
+does.  In the sharded train step the parameters are this rank's slices,
+and each use gathers its own (``distributed.fsdp.gather``): a period just
+before its forward (and again in its recomputation), the embedding, the
+final norms and the head where they are applied.  Elsewhere that is the
+identity.
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import OffloadPolicy
 from repro_torch.core.qlinear import (Linear, apply_linear, init_linear,
                                       quantize_params)
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, fsdp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -235,7 +239,9 @@ def _sinusoidal(seq: int, d: int, offset: int = 0,
 # The products that ``remat="block"`` keeps, as the reference's
 # ``dots_with_no_batch_dims_saveable`` keeps its dots without batch
 # dimensions: the linears' 2-D matmuls.  Everything else of a period
-# (attention included) is recomputed in the backward pass.
+# (attention included) is recomputed in the backward pass, and so is the
+# per-layer gather of the sharded train step (its copies are not dots):
+# the products are kept, the whole weights they need are gathered again.
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -257,7 +263,9 @@ def _stack_fwd(layers: list, cfg: ModelConfig, x: torch.Tensor,
     f32).  ``remat`` ``"block"`` or ``"full"`` wraps each period of
     ``len(block_pattern)`` layers in ``torch.utils.checkpoint``: "block"
     saves the linears' matmul outputs and recomputes the rest, "full"
-    saves nothing but the period's input; "none" recomputes nothing."""
+    saves nothing but the period's input; "none" recomputes nothing.
+    Each period gathers its parameters first (``fsdp.gather``), so a
+    recomputed period gathers them again."""
     _check_supported(cfg)
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
@@ -267,7 +275,7 @@ def _stack_fwd(layers: list, cfg: ModelConfig, x: torch.Tensor,
     def period(x, aux, group):
         # Under the caller's axis env also when recomputed (see ctx.entered).
         with ctx.entered(env):
-            for p in group:
+            for p in fsdp.gather(group):
                 x, a = _layer_fwd(p, cfg, x, positions, causal=causal,
                                   enc_out=enc_out)
                 if isinstance(a, torch.Tensor):
@@ -301,7 +309,7 @@ def encoder_forward(params: dict, cfg: ModelConfig,
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     x, _ = _stack_fwd(params["encoder"]["layers"], cfg, x, positions,
                       causal=False, remat=remat)
-    return _apply_norm(cfg, params["encoder"]["final_norm"], x)
+    return _apply_norm(cfg, fsdp.gather(params["encoder"]["final_norm"]), x)
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -321,9 +329,12 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     (:func:`_stack_fwd`).  ``last_only`` unembeds only the final
     position.  Under tensor-parallel compute (``distributed.ctx.tp_group``)
     the layers run on this rank's ``model`` slices of ``params`` and the
-    logits are this rank's (B, S, V/tp) range of them (``ctx.vocab``)."""
+    logits are this rank's (B, S, V/tp) range of them (``ctx.vocab``).
+    Under the sharded train step's gathers (``fsdp``) ``params`` are this
+    rank's slices, gathered at each use; a tied head gathers ``embed`` a
+    second time."""
     b, s = tokens.shape
-    x = L.apply_embedding(params["embed"], tokens, cfg.vocab_size)
+    x = L.apply_embedding(fsdp.gather(params["embed"]), tokens, cfg.vocab_size)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         s = x.shape[1]
@@ -338,12 +349,12 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         enc_out = encoder_forward(params, cfg, enc_embeds, remat=remat)
     x, aux = _stack_fwd(params["layers"], cfg, x, positions, causal=True,
                         enc_out=enc_out, remat=remat)
-    x = _apply_norm(cfg, params["final_norm"], x)
+    x = _apply_norm(cfg, fsdp.gather(params["final_norm"]), x)
     if prefix_embeds is not None:
         x = x[:, prefix_embeds.shape[1]:]
     if last_only:
         x = x[:, -1:]
-    return L.apply_unembed(_head(params), x, cfg.vocab_size), aux
+    return L.apply_unembed(fsdp.gather(_head(params)), x, cfg.vocab_size), aux
 
 
 # -------------------------------------------------------------- decode

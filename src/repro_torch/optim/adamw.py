@@ -13,8 +13,11 @@ Trees are the port's parameter trees (one dict per layer, where the
 reference stacks layers over a period axis): blocks run along the last
 axis either way, so a layer's Q8_0 moments hold the same bytes as its
 slice of the reference's stacked moment.  :func:`global_norm` sums the
-leaves' squares in f32 leaf by leaf, so its last bits may differ from
-the reference's sum over stacked leaves.
+squares in f64 (exact squares of the f32 or bf16 values), rounded once
+to f32: so the sum does not depend on how the leaves are cut over ranks
+(a rank's slices give the whole leaf's bits), and its last bits may
+differ from the reference's f32 squares summed in f32 over stacked
+leaves.
 """
 from __future__ import annotations
 
@@ -58,23 +61,46 @@ def init_adam(params: Any, cfg: TrainConfig) -> AdamState:
                      v=tree_map(mk, params))
 
 
-def global_norm(tree: Any, *, split: list[bool] | None = None,
+_NORM_CHUNK = 1 << 26       # elements widened to f64 at a time (512 MiB)
+
+
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f64 sum of ``x``'s squares (a 0-d f64 tensor): each chunk of
+    the flat leaf widened to f64, where the square of an f32 or bf16
+    value is exact, and dotted with itself (two launches a chunk, and
+    the bytes of an f32 square and sum)."""
+    chunks = x.reshape(-1).split(_NORM_CHUNK)
+    parts = [torch.dot(d, d) for d in map(torch.Tensor.double, chunks)]
+    return parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts))
+
+
+def global_norm(tree: Any, *, split: list[tuple] | None = None,
                 group=None) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 sum of squares.  ``split`` (one
-    flag per leaf, with ``group``): the leaves of which this rank holds a
-    slice along ``group`` (tensor-parallel compute); their squares are
-    summed over the group's ranks by one all-reduce, and every other leaf,
-    replicated along ``group``, is counted once."""
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    """sqrt of the sum of every leaf's squares (summed in f64, rounded once
+    to f32).  ``split`` (one tuple of mesh axes per leaf, with
+    ``group``, a function of an axis that gives its process group): the
+    axes that cut each leaf into the slices that the ranks hold (the
+    sharded train step's FSDP and tensor-parallel slices).  Each leaf's
+    squares are summed over every axis that cuts it, one all-reduce per
+    axis over the sums of the leaves it cuts, and a leaf that no axis
+    cuts (replicated) is counted once.  As the sums are f64, a leaf cut
+    over ranks gives (but for a tie at the f32 rounding) the bits of the
+    whole leaf."""
+    sums = [_square_sum(x) for x in tree_leaves(tree)]
     if not split or not any(split):
-        return torch.sqrt(torch.sum(torch.stack(leaves)))
+        return torch.sqrt(torch.sum(torch.stack(sums)).float())
     import torch.distributed as dist
-    total = torch.sum(torch.stack([x for x, cut in zip(leaves, split) if cut]))
-    dist.all_reduce(total, group=group)
-    rest = [x for x, cut in zip(leaves, split) if not cut]
-    if rest:
-        total = total + torch.sum(torch.stack(rest))
-    return torch.sqrt(total)
+    sets = sorted({tuple(s) for s in split if s})
+    part = [torch.sum(torch.stack([x for x, s in zip(sums, split) if tuple(s) == c]))
+            for c in sets]
+    for axis in dict.fromkeys(a for c in sets for a in c):
+        at = [i for i, c in enumerate(sets) if axis in c]
+        buf = torch.stack([part[i] for i in at])
+        dist.all_reduce(buf, group=group(axis))
+        for i, v in zip(at, buf):
+            part[i] = v
+    part += [x for x, s in zip(sums, split) if not s]
+    return torch.sqrt(torch.sum(torch.stack(part)).float())
 
 
 def _bias_correction(beta: float, step: torch.Tensor) -> torch.Tensor:

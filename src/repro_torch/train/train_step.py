@@ -19,30 +19,41 @@ that GSPMD places in the reference, so that it computes the reference's
 numbers:
 
 * each rank holds its ``sharding.param_specs`` slice of the parameters
-  and of the AdamW moments.  For the dense, VLM and MoE families
-  (``TP_FAMILIES``) on a ``model`` axis of more than one rank it
-  all-gathers them over ``pod`` / ``data`` only (FSDP) and computes on
-  its ``model`` slices (tensor and expert parallelism: the axis env's
-  ``tp_compute``, the layers' ``distributed.tp`` collectives), so that it
-  never holds a whole tensor-parallel weight in the forward and backward;
-  the other families (SSM, hybrid, audio) gather the whole parameters,
-  and ranks along ``model`` compute the same rows;
+  and of the AdamW moments, and never more of them whole than the period
+  it is working on (ZeRO-3, ``distributed.fsdp``): each period's slices
+  are all-gathered over the FSDP axes just before its forward, and again
+  before its backward (by the recomputation under remat "block" /
+  "full", by the saved-tensor hooks under "none"), and freed after each;
+  the embedding, the head and the final norms likewise at their uses.
+  The FSDP axes are ``pod`` / ``data``, and for the families that do not
+  compute tensor-parallel (SSM, hybrid, audio) also ``model``, whose
+  ranks then compute the same rows.  The dense, VLM and MoE families
+  (``TP_FAMILIES``) on a ``model`` axis of more than one rank keep their
+  ``model`` slices and compute on them (tensor and expert parallelism:
+  the axis env's ``tp_compute``, the layers' ``distributed.tp``
+  collectives);
 * each rank feeds its rows of the global batch (``batch_specs``; a batch
   that does not divide the data axes is replicated), ``tcfg.microbatch``
   counting global rows; the loss is vocab-parallel (``cross_entropy``);
-* the gradients (of the rank's ``model`` slices) are averaged over the
-  axes that split the batch, and the MoE aux loss takes its means over
-  the whole batch (``ctx.batch_mean``);
-* compression takes the flat 32-blocks of each whole leaf: a ``model``
-  slice that keeps whole blocks is compressed alone, another leaf is
-  gathered over ``model``, compressed and cut again
-  (``compression.keeps_blocks``; the residual has the gradients' layout:
-  :meth:`ShardedTrainStep.shard_residual`); the clip's global norm sums
-  the squares of a rank's slices over ``model`` and counts each
-  replicated leaf once (``adamw.global_norm(split=)``);
+* each gathered period's gradient is reduce-scattered as soon as autograd
+  produces it: summed in f32 over the axes that split the batch, and its
+  slices added (divided by the microbatch count) into an f32 accumulator
+  of the rank's slices; divided by the ranks that split the batch it is
+  the mean.  A leaf that no FSDP axis cuts (a norm) takes its gradient
+  from autograd, and it and the loss are averaged by one all-reduce per
+  axis (``_mean``); the MoE aux loss takes its means over the whole batch
+  (``ctx.batch_mean``);
+* compression takes the flat 32-blocks of each whole leaf: a slice that
+  keeps whole blocks along every dim its spec cuts is compressed alone,
+  another leaf is gathered over the axes that cut it, compressed and cut
+  again (``compression.keeps_blocks``; the residual has the gradients'
+  layout, the parameters': :meth:`ShardedTrainStep.shard_residual`); the
+  clip's global norm sums each leaf's squares over every axis that cuts
+  it and counts each replicated leaf once (``adamw.global_norm(split=)``,
+  f64 sums: a cut leaf gives the whole leaf's bits);
 * each rank updates only its slices.  A quantized moment whose slice
   would cut a Q8_0 block (or that is sliced where its parameter is not)
-  is updated whole from the gathered leaf, and cut again.
+  is updated whole from its gathered leaf, and cut again.
 
 At one rank it is the unsharded step, bit for bit.
 """
@@ -57,7 +68,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.quant import QTYPES, Q8_0Tensor
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.distributed import ctx, sharding, tp
+from repro_torch.distributed import ctx, fsdp, sharding, tp
 from repro_torch.distributed.sharding import P
 from repro_torch.models.transformer import lm_forward
 from repro_torch.optim import adamw, compression
@@ -164,7 +175,9 @@ def _accumulate(grad_fn, params, batch: dict[str, torch.Tensor], tcfg: TrainConf
     """``(metrics, grads)`` of ``grad_fn(params, batch)``; with
     ``tcfg.microbatch`` below B, over B / microbatch microbatches in
     order: the gradient their f32 mean, each added as ``g / nm``, the
-    loss their mean and the aux 0, as in the reference's scan."""
+    loss their mean and the aux 0, as in the reference's scan.  (The
+    sharded step's ``grad_fn`` returns the gradients of the leaves it
+    does not gather; it adds the others into its own accumulator.)"""
     b = batch["tokens"].shape[0]
     if not (tcfg.microbatch and tcfg.microbatch < b):
         (_, metrics), grads = grad_fn(params, batch)
@@ -172,12 +185,14 @@ def _accumulate(grad_fn, params, batch: dict[str, torch.Tensor], tcfg: TrainConf
     mb = tcfg.microbatch
     nm = b // mb
     split = {k: v.reshape(nm, mb, *v.shape[1:]) for k, v in batch.items()}
-    gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    gacc = None
     device = batch["tokens"].device
     loss = torch.zeros((), dtype=torch.float32, device=device)
     for i in range(nm):
         (_, metrics), grads = grad_fn(params, {k: v[i] for k, v in split.items()})
+        if gacc is None:
+            gacc = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                                  device=g.device), grads)
         acc = iter([a + g.float() / nm for a, g in
                     zip(tree_leaves(gacc), tree_leaves(grads))])
         del grads
@@ -225,15 +240,17 @@ class ShardedTrainStep:
     parameter specs and the ``AdamState`` specs); :meth:`gather` rebuilds
     the whole state from every rank's slices; :meth:`shard_residual` and
     :meth:`gather_residual` do so for the compression residual, which
-    each rank keeps in its gradients' layout (whole but for its ``model``
-    slices)."""
+    each rank keeps in its gradients' layout (its parameters' slices).
+    ``stats`` is the last step's ``fsdp.Stats`` (None where nothing is
+    gathered: no FSDP axis of more than one rank cuts a leaf)."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *, device, mesh):
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.device = resolve_device(device)
         self.coords = mesh.own_coords()
         self.specs = None
-        self.grad_fn = value_and_grad(make_loss_fn(cfg, tcfg))
+        self.stats = None
+        self.loss_fn = make_loss_fn(cfg, tcfg)
         self.tp = cfg.family in TP_FAMILIES and mesh.shape.get(TP_AXIS, 1) > 1
         self.tp_axes = (TP_AXIS,) if self.tp else ()
         self.fsdp_axes = tuple(a for a in mesh.axis_names if a not in self.tp_axes)
@@ -246,10 +263,14 @@ class ShardedTrainStep:
             sharding.param_specs(params, self.mesh),
             adamw.AdamState(step=P(), m=sharding.param_specs(opt_state.m, self.mesh),
                             v=sharding.param_specs(opt_state.v, self.mesh)))
-        # Each parameter's spec within the step's working tree: its model
-        # entries (the slices the layers compute on), and whether it is cut.
-        self._work = [sharding.over(sp, self.tp_axes) for sp in sharding.spec_leaves(pspec)]
-        self._split = [bool(sharding._steps(sp, self.mesh)) for sp in self._work]
+        leaves = sharding.spec_leaves(pspec)
+        # Each parameter's spec over the FSDP axes (the gathers at its
+        # uses), whether they cut it, and every axis that cuts its slice.
+        self._fsdp = [sharding.over(sp, self.fsdp_axes) for sp in leaves]
+        self._gathered = [bool(sharding._steps(sp, self.mesh)) for sp in self._fsdp]
+        self._cut = [tuple(a for a in self.mesh.axis_names
+                           if a in {x for _, x in sharding._steps(sp, self.mesh)})
+                     for sp in leaves]
         return (sharding.shard_tree(params, pspec, self.mesh, self.coords),
                 sharding.shard_tree(opt_state, ospec, self.mesh, self.coords))
 
@@ -264,14 +285,14 @@ class ShardedTrainStep:
         if comp_state is None:
             return None
         return compression.CompressionState(residual=sharding.shard_tree(
-            comp_state.residual, self.specs[0], self.mesh, self.coords, axes=self.tp_axes))
+            comp_state.residual, self.specs[0], self.mesh, self.coords))
 
     def gather_residual(self, comp_state):
         """The whole compression state (every rank calls it)."""
         if comp_state is None:
             return None
         return compression.CompressionState(residual=sharding.gather_tree(
-            comp_state.residual, self.specs[0], self.mesh, axes=self.tp_axes))
+            comp_state.residual, self.specs[0], self.mesh))
 
     def _rows(self, batch: dict) -> tuple[dict, tuple]:
         """This rank's rows of a global batch and the axes they split."""
@@ -298,32 +319,85 @@ class ShardedTrainStep:
         parts = iter(buf.split([t.numel() for t in leaves]))
         return tree_map(lambda t: next(parts).reshape(t.shape).to(t.dtype), tree)
 
-    def _grads(self, work, batch: dict[str, torch.Tensor]):
+    def _grad_fn(self, params, batch, gathers):
+        """``value_and_grad`` on this rank's slices: the gathered leaves
+        reach the loss through ``gathers`` (their gradients go into its
+        accumulator), the others are differentiated here -> ((value, aux),
+        [the others' gradients])."""
+        leaves = tree_leaves(params)
+        for t in leaves:
+            if not t.is_floating_point():
+                raise TypeError(f"train step: a parameter leaf is {t.dtype}; "
+                                "training needs dense (float) weights")
+        live = [t if cut else t.detach().requires_grad_(True)
+                for t, cut in zip(leaves, self._gathered)]
+        rest = [t for t, cut in zip(live, self._gathered) if not cut]
+        it = iter(live)
+        tree = tree_map(lambda _: next(it), params)
+        wrt = ([gathers.anchor] if gathers is not None else []) + rest
+        with torch.enable_grad():
+            with fsdp.saving(gathers):
+                value, aux = self.loss_fn(tree, batch)
+            grads = torch.autograd.grad(value, wrt, allow_unused=True)[len(wrt) - len(rest):]
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(rest, grads)]
+        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
+        return (value.detach(), aux), grads
+
+    def _grads(self, params, batch: dict[str, torch.Tensor]):
+        """(metrics, gradients of this rank's slices): the gathered leaves'
+        from the per-layer reduce-scatters, the others' (and the loss)
+        averaged by :meth:`_mean`."""
         env = ctx.current()
         kw = dict(moe_mode=env.moe_mode if env else "ep", tp_compute=self.tp)
         if env is not None:
             kw.update(dp=env.dp, tp=env.tp or "model")
+        leaves = tree_leaves(params)
+        b, mb = batch["tokens"].shape[0], self.tcfg.microbatch
+        micro = bool(mb and mb < b)
+        gathers = None
+        if any(self._gathered):
+            gathers = fsdp.Gathers(
+                self.mesh, [t for t, cut in zip(leaves, self._gathered) if cut],
+                [sp for sp, cut in zip(self._fsdp, self._gathered) if cut], self.device,
+                microbatches=b // mb if micro else 1)
         axes = ()
 
         def rows_grad(params, rows):
-            """``grad_fn`` on this rank's part of ``rows``, under an env
+            """``_grad_fn`` on this rank's part of ``rows``, under an env
             whose MoE aux loss takes its means over the split axes."""
             nonlocal axes
             local, axes = self._rows(rows)
-            with ctx.axis_env(self.mesh, batch_axes=axes, **kw):
-                return self.grad_fn(params, local)
+            with ctx.axis_env(self.mesh, batch_axes=axes, fsdp=gathers, **kw):
+                return self._grad_fn(params, local, gathers)
 
-        metrics, grads = _accumulate(rows_grad, work, batch, self.tcfg)
-        loss, grads = self._mean((metrics["loss"], grads), axes)
-        return dict(metrics, loss=loss), grads
+        metrics, rest = _accumulate(rows_grad, params, batch, self.tcfg)
+        loss, rest = self._mean((metrics["loss"], rest), axes)
+        n = math.prod(self.mesh.shape[a] for a in axes)
+        acc = iter(gathers.acc if gathers is not None else ())
+        rest = iter(rest)
+        grads = []
+        for t, cut in zip(leaves, self._gathered):
+            if not cut:
+                grads.append(next(rest))
+                continue
+            g = next(acc)
+            if n > 1:
+                g.div_(n)
+            grads.append(g if micro else g.to(t.dtype))
+        if gathers is not None:
+            gathers.acc = None
+            self.stats = gathers.stats
+        it = iter(grads)
+        return dict(metrics, loss=loss), tree_map(lambda _: next(it), params)
 
     @torch.no_grad()
     def _compress(self, grads, comp_state: compression.CompressionState):
         """Each leaf's compression as the whole leaf's: a slice that keeps
         whole blocks alone, the other leaves (and their residuals)
-        gathered over ``model`` in one packed collective, compressed whole
-        and cut again."""
+        gathered over the axes that cut them in one packed collective,
+        compressed whole and cut again."""
         mesh, coords = self.mesh, self.coords
+        specs = sharding.spec_leaves(self.specs[0])
         gl, rl = tree_leaves(grads), tree_leaves(comp_state.residual)
         if any(g.shape != r.shape for g, r in zip(gl, rl)):
             raise ValueError("ShardedTrainStep: a compression residual is not in the "
@@ -331,59 +405,54 @@ class ShardedTrainStep:
         out = [None] * len(gl)
         res = [None] * len(gl)
         redo = []
-        for i, (g, r, sp) in enumerate(zip(gl, rl, self._work)):
+        for i, (g, r, sp) in enumerate(zip(gl, rl, specs)):
             if _keeps_blocks(g.shape, sp, mesh):
                 out[i], res[i] = compression.compress_decompress(g, r)
             else:
                 redo.append(i)
         if redo:
             whole = sharding.gather_tree([(gl[i], rl[i]) for i in redo],
-                                         [(self._work[i], self._work[i]) for i in redo], mesh)
+                                         [(specs[i], specs[i]) for i in redo], mesh)
             for i, (g, r) in zip(redo, whole):
                 c, nr = compression.compress_decompress(g, r)
-                out[i] = sharding.local_shard(c, self._work[i], mesh, coords)
-                res[i] = sharding.local_shard(nr, self._work[i], mesh, coords)
+                out[i] = sharding.local_shard(c, specs[i], mesh, coords)
+                res[i] = sharding.local_shard(nr, specs[i], mesh, coords)
         outs, ress = iter(out), iter(res)
         return (tree_map(lambda _: next(outs), grads),
                 compression.CompressionState(residual=tree_map(lambda _: next(ress),
                                                                comp_state.residual)))
 
     @torch.no_grad()
-    def _update(self, grads, opt_state: adamw.AdamState, params, work, gn):
-        """AdamW on this rank's slices (``work``: the parameters the step
-        computed on, ``grads`` theirs); a leaf whose moment slices do not
-        match its parameter's in whole Q8_0 blocks is updated whole and cut
-        again."""
+    def _update(self, grads, opt_state: adamw.AdamState, params, gn):
+        """AdamW on this rank's slices; a leaf whose moment slices do not
+        match its parameter's in whole Q8_0 blocks is gathered (its
+        parameter, gradient and moments), updated whole and cut again."""
         pspec, ospec = self.specs
         mesh, coords = self.mesh, self.coords
         is_q = lambda x: isinstance(x, QTYPES)   # noqa: E731
-        work_p, work_g, work_m, work_v, redo = [], [], [], [], []
-        for i, (p, pw, g, ps, m, ms, v, vs) in enumerate(zip(
-                tree_leaves(params), tree_leaves(work), tree_leaves(grads),
-                sharding.spec_leaves(pspec),
-                tree_leaves(opt_state.m, is_leaf=is_q), sharding.spec_leaves(ospec.m),
-                tree_leaves(opt_state.v, is_leaf=is_q), sharding.spec_leaves(ospec.v))):
-            whole_leaf = not (_aligned(ps, ms, p.dim()) and _aligned(ps, vs, p.dim()))
-            work_p.append(pw if whole_leaf else p)
-            work_g.append(g if whole_leaf else sharding.local_shard(
-                g, sharding.over(ps, self.fsdp_axes), mesh, coords))
-            work_m.append(m)
-            work_v.append(v)
-            if whole_leaf:
-                redo.append((i, p, ps, m, ms, v, vs))
+        leaves = tree_leaves(params)
+        m_leaves = tree_leaves(opt_state.m, is_leaf=is_q)
+        v_leaves = tree_leaves(opt_state.v, is_leaf=is_q)
+        work_p, work_g, work_m, work_v = (list(leaves), tree_leaves(grads), list(m_leaves),
+                                          list(v_leaves))
+        specs = list(zip(sharding.spec_leaves(pspec), sharding.spec_leaves(ospec.m),
+                         sharding.spec_leaves(ospec.v)))
+        redo = [i for i, (p, (ps, ms, vs)) in enumerate(zip(leaves, specs))
+                if not (_aligned(ps, ms, p.dim()) and _aligned(ps, vs, p.dim()))]
         if redo:     # their moments, parameters and gradients, whole: one packed gather
             full = sharding.gather_tree(
-                [(r[3], r[5], work_p[r[0]], work_g[r[0]]) for r in redo],
-                [(r[4], r[6], self._work[r[0]], self._work[r[0]]) for r in redo], mesh)
-            for (i, *_), (m, v, pw, g) in zip(redo, full):
+                [(work_m[i], work_v[i], work_p[i], work_g[i]) for i in redo],
+                [(specs[i][1], specs[i][2], specs[i][0], specs[i][0]) for i in redo], mesh)
+            for i, (m, v, pw, g) in zip(redo, full):
                 work_m[i], work_v[i], work_p[i], work_g[i] = m, v, pw, g
         step = opt_state.step
         _, new = adamw.adam_update(work_g, adamw.AdamState(step, work_m, work_v), work_p,
                                    self.tcfg, grad_norm=gn)
-        for i, p, ps, m, ms, v, vs in redo:
-            if work_p[i] is not p:
-                p.copy_(sharding.local_shard(work_p[i], ps, mesh, coords))
-            for old, full, spec in ((m, work_m[i], ms), (v, work_v[i], vs)):
+        for i in redo:
+            ps, ms, vs = specs[i]
+            if work_p[i] is not leaves[i]:
+                leaves[i].copy_(sharding.local_shard(work_p[i], ps, mesh, coords))
+            for old, full, spec in ((m_leaves[i], work_m[i], ms), (v_leaves[i], work_v[i], vs)):
                 cut = sharding.local_shard(full, spec, mesh, coords)
                 if is_q(old):
                     old.qs.copy_(cut.qs)
@@ -397,23 +466,19 @@ class ShardedTrainStep:
         if self.specs is None:
             raise RuntimeError("ShardedTrainStep: shard() the whole state first")
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
-        work = sharding.gather_tree(params, self.specs[0], self.mesh, axes=self.fsdp_axes)
-        metrics, grads = self._grads(work, batch)
+        metrics, grads = self._grads(params, batch)
         if self.tcfg.grad_compression:
             grads, comp_state = self._compress(grads, comp_state)
-        gn = adamw.global_norm(grads, split=self._split,
-                               group=self.mesh.group(TP_AXIS) if self.tp else None)
-        params, opt_state = self._update(grads, opt_state, params, work, gn)
+        gn = adamw.global_norm(grads, split=self._cut, group=self.mesh.group)
+        params, opt_state = self._update(grads, opt_state, params, gn)
         return params, opt_state, comp_state, dict(metrics, grad_norm=gn)
 
 
 def _keeps_blocks(shape: tuple, spec: P, mesh) -> bool:
-    """Whether a leaf's slice of ``shape`` under ``spec`` (its model
-    entries) holds whole blocks of the whole leaf's compression."""
-    for dim, entry in enumerate(spec):
-        parts = math.prod(mesh.shape[a] for a in sharding._axes(entry))
-        if parts > 1:
-            whole = list(shape)
-            whole[dim] *= parts
-            return compression.keeps_blocks(tuple(whole), dim, parts)
-    return True
+    """Whether a leaf's slice of ``shape`` under ``spec`` holds whole
+    blocks of the whole leaf's compression along every dim the spec
+    cuts."""
+    parts = [math.prod(mesh.shape[a] for a in sharding._axes(e))
+             for e in _padded(spec, len(shape))]
+    whole = tuple(n * k for n, k in zip(shape, parts))
+    return all(compression.keeps_blocks(whole, dim, k) for dim, k in enumerate(parts) if k > 1)

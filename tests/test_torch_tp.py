@@ -40,7 +40,8 @@ granite-8b with Hkv 2 records the weights its forward sees (each rank's
 ``model`` slice, never a whole tensor-parallel weight) and counts the
 collectives it issues (a monkeypatch of ``torch.distributed``): no
 all-gather of a weight, only of the k / v activations where Hkv does
-not divide the axis.  The control: with ``tp.row_parallel`` stripped of
+not divide the axis (the data axis has one rank: the per-layer gathers
+of ``distributed.fsdp`` issue nothing).  The control: with ``tp.row_parallel`` stripped of
 its reduction, the MLP and attention miss ``FWD_F32_REL`` by far.
 """
 import dataclasses
@@ -136,9 +137,8 @@ def _run_case(name: str, c: dict, mesh: Mesh) -> tuple:
     gradient or None) of case ``name`` on this rank's ``model`` slices
     (one process: a one-rank mesh, the whole parameters)."""
     with tctx.axis_env(mesh, moe_mode="ep", tp_compute=True):
-        specs = sharding.param_specs(c["params"], mesh)
-        local = sharding.shard_tree(c["params"], specs, mesh, mesh.own_coords(),
-                                    axes=("model",))
+        specs = sharding.over(sharding.param_specs(c["params"], mesh), ("model",))
+        local = sharding.shard_tree(c["params"], specs, mesh, mesh.own_coords())
         leaves = [t.detach().clone().requires_grad_(True) for t in tree_leaves(local)]
         it = iter(leaves)
         live = tree_map(lambda _: next(it), local)
@@ -147,8 +147,7 @@ def _run_case(name: str, c: dict, mesh: Mesh) -> tuple:
         out, loss = _fn(name, live, c, x)
         grads = torch.autograd.grad(loss, wrt)
         it = iter(grads)
-        whole = sharding.gather_tree(tree_map(lambda _: next(it), local), specs, mesh,
-                                     axes=("model",))
+        whole = sharding.gather_tree(tree_map(lambda _: next(it), local), specs, mesh)
     gx = grads[len(leaves)] if len(grads) > len(leaves) else None
     return out.detach(), tree_leaves(whole), gx
 
@@ -210,8 +209,9 @@ def _remat_threads(mesh: Mesh) -> tuple:
     out = []
     for threaded in (False, True):
         with tctx.axis_env(mesh, tp_compute=True):
-            local = sharding.shard_tree(params, sharding.param_specs(params, mesh), mesh,
-                                        mesh.own_coords(), axes=("model",))
+            local = sharding.shard_tree(
+                params, sharding.over(sharding.param_specs(params, mesh), ("model",)), mesh,
+                mesh.own_coords())
             leaves = [t.requires_grad_(True) for t in tree_leaves(local)]
             it = iter(leaves)
             logits, _ = lm_forward(tree_map(lambda _: next(it), local), cfg, tokens,
